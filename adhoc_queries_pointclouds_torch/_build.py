@@ -1,6 +1,7 @@
 """Builds the CUDA kernels of csrc/ at first use and loads them with ctypes.
 
-nvcc compiles every csrc/*.cu for sm_90a into one shared library with a
+nvcc compiles every csrc/*.cu for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, cached as _build/<source hash>/libaqpc_cuda.so next to
 this file; a source edit gives a new hash and so a new build. The library
 is loaded with ctypes: every pointer and the CUDA stream is a c_void_p,
@@ -22,7 +23,7 @@ _HERE = Path(__file__).parent
 _CSRC = _HERE / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -30,6 +31,11 @@ _I = ctypes.c_int64
 _ENTRY_POINTS = {
     "aqpc_bbox_count_multi": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "aqpc_bbox_count_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "aqpc_class_count_multi": [_P, _P, _P, _P, _I, _I, _P],
+    "aqpc_class_count_words": [_P, _P, _P, _P, _I, _I, _P],
+    "aqpc_class_count_dict": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "aqpc_time_count_multi": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "aqpc_time_count_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()
@@ -62,16 +68,36 @@ def _nvcc() -> str:
 
 def _build(so: Path) -> None:
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        if src.suffix == ".cu":
+            obj = so.with_name(f"{src.stem}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, obj, proc))
+    failed = []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed with " + "\n".join(failed))
+        tmp = so.with_name(f"{so.name}.{tag}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:

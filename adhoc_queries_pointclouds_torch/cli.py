@@ -1,6 +1,8 @@
-"""Command line of the port: bbox counts on one device.
+"""Command line of the port: bbox, class and GPS-time counts on one device.
 
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds "x0;y0;z0;x1;y1;z1"
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --time-range "start;end"
 
 The query flags and output lines are those of adhoc_queries_pointclouds_tpu/
 cli.py (cmd_query, cli.py:101-193): "Searching N files...", "Found N
@@ -15,12 +17,17 @@ import argparse
 import sys
 
 from .engine import run_query
-from .shared import BoundsQuery, QueryPlan, parse_aabb, throughput_line
+from .shared import (
+    BoundsQuery,
+    ClassQuery,
+    QueryPlan,
+    TimeRangeQuery,
+    parse_aabb,
+    throughput_line,
+)
 
 # dest -> flag, for flags whose queries are not ported yet
 _NOT_PORTED = {
-    "classification": "--class",
-    "time_range": "--time-range",
     "density": "--density",
     "density_scope": "--density-scope",
     "output": "-o/--output",
@@ -41,8 +48,12 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--bounds", help='Bounding box "minX;minY;minZ;maxX;maxY;maxZ"')
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on: cuda (default) or cpu")
-    parser.add_argument("--class", dest="classification", type=int, help="(not yet ported)")
-    parser.add_argument("--time-range", dest="time_range", help="(not yet ported)")
+    parser.add_argument("--class", dest="classification", type=int,
+                        help="Classification value (0-255)")
+    parser.add_argument(
+        "--time-range", dest="time_range",
+        help='GPS time range "start;end" (half-open: start <= t < end)',
+    )
     parser.add_argument("-o", "--output", help="(not yet ported)")
     parser.add_argument("--density", type=float, help="(not yet ported)")
     parser.add_argument("--density-scope", choices=["file", "global"],
@@ -76,15 +87,33 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
 def cmd_query(args: argparse.Namespace) -> int:
     used = [flag for dest, flag in _NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
     if used:
-        print(f"not yet ported: {', '.join(used)} (the port runs bbox counts only)",
+        print(f"not yet ported: {', '.join(used)} (the port runs counts only)",
               file=sys.stderr)
         return 2
-    if not args.bounds:
+    maybe_bounds = parse_aabb(args.bounds) if args.bounds else None
+    maybe_class = args.classification
+    maybe_time = None
+    if args.time_range:
+        parts = args.time_range.split(";")
+        if len(parts) != 2:
+            print('TIME-RANGE must be "start;end"', file=sys.stderr)
+            return 1
+        maybe_time = TimeRangeQuery(float(parts[0]), float(parts[1]))
+    n_predicates = sum(p is not None for p in (maybe_bounds, maybe_class, maybe_time))
+    if n_predicates > 1:
+        print("Specifying BOUNDS and CLASS at the same time is invalid! "
+              "Specify either BOUNDS or CLASS argument!", file=sys.stderr)
+        return 1
+    if n_predicates == 0:
         print("Found neither BOUNDS nor CLASS argument but exactly one of these "
               "arguments is required!", file=sys.stderr)
         return 1
-    plan = QueryPlan(bounds=BoundsQuery(parse_aabb(args.bounds)),
-                     parity_quirk=args.parity_quirk)
+    plan = QueryPlan(
+        bounds=BoundsQuery(maybe_bounds) if maybe_bounds is not None else None,
+        classification=ClassQuery(maybe_class) if maybe_class is not None else None,
+        time_range=maybe_time,
+        parity_quirk=args.parity_quirk,
+    )
     kwargs = {}
     if args.block_size:
         kwargs["block_size"] = args.block_size
@@ -123,7 +152,7 @@ def main(argv: list[str] | None = None) -> int:
         argv = argv[1:]
     parser = argparse.ArgumentParser(
         prog="aqpc-torch",
-        description="Ad-hoc point cloud bbox counts on a CUDA GPU (LAS/LAZ/LAST/LAZER)",
+        description="Ad-hoc point cloud counts on a CUDA GPU (LAS/LAZ/LAST/LAZER)",
     )
     build_query_parser(parser)
     return cmd_query(parser.parse_args(argv))

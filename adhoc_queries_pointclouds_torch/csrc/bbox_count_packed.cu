@@ -5,84 +5,29 @@
 //   XLA fuses, reached through parallel/mesh.py sharded_bbox_count_packed
 //   (lines 95-121): the engine's default transport.
 //
-// Layout of one axis, one block row of the (K, nbytes*B + nbits*B/8) u8
-// stack (k = 8*nbytes + nbits bits): byte plane p holds bits 8p..8p+7 of
-// each point's u32 residual at [p*B, (p+1)*B); bit plane q holds bit
-// 8*nbytes+q at [nbytes*B + q*B/8, ...), point i in bit i%8 of byte i/8
-// (little bit order). k = 0 is legal (no planes, residual 0). k = 32 ships
-// raw two's-complement words: the residual's top byte lands in the sign bit
-// exactly as the int32 shift does on the reference. B % 8 == 0 whenever
-// nbits > 0. The residual is compared as int32 against residual-space
-// bounds bounds[k] = [lo0, lo1, lo2, hi0, hi1, hi2]; rows i >= nv[k] are
-// masked (padding rows carry lo = 0, hi = -1, nv = 0).
+// Each axis is a (K, row width) u8 plane stack in the layout of
+// unpack_planes.cuh. The residual is compared as int32 against
+// residual-space bounds bounds[k] = [lo0, lo1, lo2, hi0, hi1, hi2]; rows
+// i >= nv[k] are masked (padding rows carry lo = 0, hi = -1, nv = 0).
 //
 // What bounds it: device-memory reads, (kx + ky + kz) / 8 bytes per valid
 // point, each byte once; the unpack is a few shifts and ors per plane.
 //
 // What the design does about it: the widths are runtime arguments, so one
 // compiled kernel serves every width combination. Each thread rebuilds 8
-// consecutive points of each axis in registers: one 8-byte load from each
-// byte plane (neighbouring threads on neighbouring 8-byte words) and one
-// byte from each bit plane, never materialising the int32 residuals in
-// memory. A row whose planes are not 8-byte aligned falls back to byte
-// loads inside the kernel. The 8-point hit mask is counted with popc, and
-// the CTA's sum reaches out[k] with one atomicAdd.
+// consecutive points of each axis in registers (aqpc::unpack8), the 8-point
+// hit mask is counted with popc, and the CTA's sum reaches out[k] with one
+// atomicAdd.
 #include "block_count.cuh"
+#include "unpack_planes.cuh"
 
 namespace {
 
 using aqpc::kThreads;
-
-// Hit mask (bit i = point 8g+i) of one axis for the 8-point group g.
-// `valid` (1..8) is the number of points of the group below nv; bytes of
-// points past it are not read. `aligned` says the row's byte planes start
-// on 8-byte boundaries.
-__device__ __forceinline__ unsigned axis_mask(const uint8_t* __restrict__ row, int64_t block_size,
-                                              int nbytes, int nbits, int lo, int hi, int64_t g,
-                                              int valid, bool aligned) {
-  uint32_t r[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) r[i] = 0;
-  for (int p = 0; p < nbytes; ++p) {
-    const uint8_t* src = row + p * block_size + 8 * g;
-    if (aligned && valid == 8) {
-      const uint2 w = *reinterpret_cast<const uint2*>(src);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        r[i] |= ((w.x >> (8 * i)) & 0xffu) << (8 * p);
-        r[i + 4] |= ((w.y >> (8 * i)) & 0xffu) << (8 * p);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (i < valid) r[i] |= static_cast<uint32_t>(src[i]) << (8 * p);
-    }
-  }
-  const uint8_t* bits = row + nbytes * block_size + g;
-  const int64_t bit_plane = block_size / 8;
-  for (int q = 0; q < nbits; ++q) {
-    const uint32_t byte = bits[q * bit_plane];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r[i] |= ((byte >> i) & 1u) << (8 * nbytes + q);
-  }
-  unsigned m = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int v = static_cast<int>(r[i]);
-    m |= static_cast<unsigned>((v >= lo) & (v <= hi)) << i;
-  }
-  return m;
-}
-
-struct Axis {
-  const uint8_t* planes;
-  int64_t row_width;
-  int nbytes;
-  int nbits;
-};
+using aqpc::Planes;
 
 __global__ void __launch_bounds__(kThreads)
-bbox_count_packed_kernel(Axis ax, Axis ay, Axis az, const int32_t* __restrict__ bounds,
+bbox_count_packed_kernel(Planes ax, Planes ay, Planes az, const int32_t* __restrict__ bounds,
                          const int32_t* __restrict__ nvs, int32_t* __restrict__ out,
                          int64_t block_size) {
   const int64_t k = blockIdx.y;
@@ -94,10 +39,9 @@ bbox_count_packed_kernel(Axis ax, Axis ay, Axis az, const int32_t* __restrict__ 
   const uint8_t* rx = ax.planes + k * ax.row_width;
   const uint8_t* ry = ay.planes + k * ay.row_width;
   const uint8_t* rz = az.planes + k * az.row_width;
-  const bool b8 = block_size % 8 == 0;
-  const bool alx = b8 && reinterpret_cast<uintptr_t>(rx) % 8 == 0;
-  const bool aly = b8 && reinterpret_cast<uintptr_t>(ry) % 8 == 0;
-  const bool alz = b8 && reinterpret_cast<uintptr_t>(rz) % 8 == 0;
+  const bool alx = aqpc::rows_aligned(rx, block_size);
+  const bool aly = aqpc::rows_aligned(ry, block_size);
+  const bool alz = aqpc::rows_aligned(rz, block_size);
   const int64_t groups = (nv + 7) / 8;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -106,25 +50,13 @@ bbox_count_packed_kernel(Axis ax, Axis ay, Axis az, const int32_t* __restrict__ 
   for (int64_t g = tid; g < groups; g += stride) {
     const int64_t left = nv - 8 * g;
     const int valid = left >= 8 ? 8 : static_cast<int>(left);
-    unsigned m = valid == 8 ? 0xffu : (1u << valid) - 1u;
-    m &= axis_mask(rx, block_size, ax.nbytes, ax.nbits, b[0], b[3], g, valid, alx);
-    m &= axis_mask(ry, block_size, ay.nbytes, ay.nbits, b[1], b[4], g, valid, aly);
-    m &= axis_mask(rz, block_size, az.nbytes, az.nbits, b[2], b[5], g, valid, alz);
+    unsigned m = aqpc::group_valid_mask(valid);
+    m &= aqpc::range_mask8(rx, block_size, ax.nbytes, ax.nbits, b[0], b[3], g, valid, alx);
+    m &= aqpc::range_mask8(ry, block_size, ay.nbytes, ay.nbits, b[1], b[4], g, valid, aly);
+    m &= aqpc::range_mask8(rz, block_size, az.nbytes, az.nbits, b[2], b[5], g, valid, alz);
     count += __popc(m);
   }
   aqpc::cta_add(count, out + k);
-}
-
-// Bit planes need B % 8 == 0 (whole bytes of 8 points each).
-bool width_ok(int64_t k_bits, int64_t block_size) {
-  return k_bits >= 0 && k_bits <= 32 && (k_bits % 8 == 0 || block_size % 8 == 0);
-}
-
-Axis make_axis(const void* planes, int64_t k_bits, int64_t block_size) {
-  const int nbytes = static_cast<int>(k_bits / 8);
-  const int nbits = static_cast<int>(k_bits % 8);
-  return Axis{static_cast<const uint8_t*>(planes), nbytes * block_size + nbits * (block_size / 8),
-              nbytes, nbits};
 }
 
 }  // namespace
@@ -138,13 +70,14 @@ extern "C" int aqpc_bbox_count_packed(const void* xp, const void* yp, const void
                                       int64_t ky, int64_t kz, void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
   if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
-  if (!width_ok(kx, block_size) || !width_ok(ky, block_size) || !width_ok(kz, block_size))
+  if (!aqpc::width_ok(kx, 32, block_size) || !aqpc::width_ok(ky, 32, block_size) ||
+      !aqpc::width_ok(kz, 32, block_size))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(aqpc::chunks_for((block_size + 7) / 8, 4)),
                   static_cast<unsigned>(k_blocks));
   bbox_count_packed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      make_axis(xp, kx, block_size), make_axis(yp, ky, block_size), make_axis(zp, kz, block_size),
-      static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(nvs),
-      static_cast<int32_t*>(out), block_size);
+      aqpc::make_planes(xp, kx, block_size), aqpc::make_planes(yp, ky, block_size),
+      aqpc::make_planes(zp, kz, block_size), static_cast<const int32_t*>(bounds),
+      static_cast<const int32_t*>(nvs), static_cast<int32_t*>(out), block_size);
   return static_cast<int>(cudaGetLastError());
 }

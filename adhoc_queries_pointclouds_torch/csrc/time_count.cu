@@ -1,0 +1,150 @@
+// Multi-block GPS-time range counts over the (hi, lo) int32 encoding.
+//
+// Replaces: adhoc_queries_pointclouds_tpu/ops/predicate.py
+//   time_mask_jnp_multi / time_count_jnp_multi (lines 235-244), which XLA
+//   fuses, reached through parallel/mesh.py sharded_time_count (lines
+//   143-162): the raw transport (AQPC_PACK=0);
+//   unpack_bits_jnp + time_count_packed_jnp_multi (lines 480-496, 529-534),
+//   reached through sharded_time_count_packed (lines 165-190): the default
+//   packed transport.
+//
+// The host encodes each f64 GPS time into an order-preserving (hi, lo)
+// int32 pair (encode_f64_sortable), so the half-open range [start, end) is
+// two lexicographic compares on signed int32:
+//   ge = th > q0 | (th == q0 & tl >= q1),  lt = th < q2 | (th == q2 & tl < q3)
+// and out[k] = #{ i < nv[k] : ge & lt } with q = qs[k]. In the packed form
+// the hi and lo words are k-bit residuals against per-block bases, and qs
+// holds the query words shifted into residual space and saturating-clipped
+// to int32 on the host. That clip is exact only under the host packer's
+// <= 28-bit width cap, and k = 32 forces base 0; the kernel takes qs as
+// given and re-derives neither.
+//
+// What bounds it: device-memory reads, 8 bytes per valid point raw,
+// (k_hi + k_lo) / 8 packed.
+//
+// What the design does about it: the raw kernel fuses both compares and the
+// count in one pass with 16-byte int4 loads when the rows are aligned and
+// B % 4 == 0 (scalar loads otherwise); the plain version materialises about
+// six (K, B) bool temporaries. The packed kernel rebuilds 8 points of each
+// word in registers (aqpc::unpack8). Each CTA's count reaches out[k] with
+// one integer atomic.
+#include "block_count.cuh"
+#include "unpack_planes.cuh"
+
+namespace {
+
+using aqpc::kThreads;
+using aqpc::Planes;
+
+__device__ __forceinline__ int in_range(int th, int tl, const int (&q)[4]) {
+  const int ge = (th > q[0]) | ((th == q[0]) & (tl >= q[1]));
+  const int lt = (th < q[2]) | ((th == q[2]) & (tl < q[3]));
+  return ge & lt;
+}
+
+__global__ void __launch_bounds__(kThreads)
+time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restrict__ tls,
+                        const int32_t* __restrict__ qs, const int32_t* __restrict__ nvs,
+                        int32_t* __restrict__ out, int64_t block_size, int vec4) {
+  const int64_t k = blockIdx.y;
+  int q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) q[j] = qs[k * 4 + j];
+  int64_t nv = nvs[k];
+  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
+  const int32_t* h = ths + k * block_size;
+  const int32_t* l = tls + k * block_size;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+
+  int count = 0;
+  if (vec4) {
+    const int4* h4 = reinterpret_cast<const int4*>(h);
+    const int4* l4 = reinterpret_cast<const int4*>(l);
+    const int64_t n4 = nv / 4;
+    for (int64_t i = tid; i < n4; i += stride) {
+      const int4 a = h4[i];
+      const int4 b = l4[i];
+      count += in_range(a.x, b.x, q) + in_range(a.y, b.y, q) + in_range(a.z, b.z, q) +
+               in_range(a.w, b.w, q);
+    }
+    const int64_t i = n4 * 4 + tid;  // the last nv % 4 points, one thread each
+    if (i < nv) count += in_range(h[i], l[i], q);
+  } else {
+    for (int64_t i = tid; i < nv; i += stride) count += in_range(h[i], l[i], q);
+  }
+  aqpc::cta_add(count, out + k);
+}
+
+__global__ void __launch_bounds__(kThreads)
+time_count_packed_kernel(Planes ph, Planes pl, const int32_t* __restrict__ qs,
+                         const int32_t* __restrict__ nvs, int32_t* __restrict__ out,
+                         int64_t block_size) {
+  const int64_t k = blockIdx.y;
+  int q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) q[j] = qs[k * 4 + j];
+  int64_t nv = nvs[k];
+  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
+  const uint8_t* rh = ph.planes + k * ph.row_width;
+  const uint8_t* rl = pl.planes + k * pl.row_width;
+  const bool al_hi = aqpc::rows_aligned(rh, block_size);
+  const bool al_lo = aqpc::rows_aligned(rl, block_size);
+  const int64_t groups = (nv + 7) / 8;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+
+  int count = 0;
+  for (int64_t g = tid; g < groups; g += stride) {
+    const int64_t left = nv - 8 * g;
+    const int valid = left >= 8 ? 8 : static_cast<int>(left);
+    uint32_t h[8], l[8];
+    aqpc::unpack8(rh, block_size, ph.nbytes, ph.nbits, g, valid, al_hi, h);
+    aqpc::unpack8(rl, block_size, pl.nbytes, pl.nbits, g, valid, al_lo, l);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      count += (i < valid) & in_range(static_cast<int>(h[i]), static_cast<int>(l[i]), q);
+  }
+  aqpc::cta_add(count, out + k);
+}
+
+}  // namespace
+
+// ths, tls: (K, B) int32 encoded hi/lo words; qs: (K, 4) int32 encoded
+// ranges; nvs: (K,) int32; out: (K,) int32, zeroed by the caller. Returns
+// cudaGetLastError().
+extern "C" int aqpc_time_count_multi(const void* ths, const void* tls, const void* qs,
+                                     const void* nvs, void* out, int64_t k_blocks,
+                                     int64_t block_size, void* stream) {
+  if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
+  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(ths) | reinterpret_cast<uintptr_t>(tls);
+  const int vec4 = (block_size % 4 == 0) && (addr % 16 == 0);
+  const dim3 grid(static_cast<unsigned>(aqpc::chunks_for(block_size, 16)),
+                  static_cast<unsigned>(k_blocks));
+  time_count_multi_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ths), static_cast<const int32_t*>(tls),
+      static_cast<const int32_t*>(qs), static_cast<const int32_t*>(nvs),
+      static_cast<int32_t*>(out), block_size, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// thp, tlp: (K, row width) u8 plane stacks of the hi and lo words at k_hi,
+// k_lo bits in [0, 32]; qs: (K, 4) int32 residual-space ranges; otherwise
+// as aqpc_time_count_multi.
+extern "C" int aqpc_time_count_packed(const void* thp, const void* tlp, const void* qs,
+                                      const void* nvs, void* out, int64_t k_blocks,
+                                      int64_t block_size, int64_t k_hi, int64_t k_lo,
+                                      void* stream) {
+  if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
+  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aqpc::width_ok(k_hi, 32, block_size) || !aqpc::width_ok(k_lo, 32, block_size))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(aqpc::chunks_for((block_size + 7) / 8, 4)),
+                  static_cast<unsigned>(k_blocks));
+  time_count_packed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      aqpc::make_planes(thp, k_hi, block_size), aqpc::make_planes(tlp, k_lo, block_size),
+      static_cast<const int32_t*>(qs), static_cast<const int32_t*>(nvs),
+      static_cast<int32_t*>(out), block_size);
+  return static_cast<int>(cudaGetLastError());
+}

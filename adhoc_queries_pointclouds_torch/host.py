@@ -1,22 +1,31 @@
-"""Host helpers of the bbox count path, copied from jax-importing modules.
+"""Host helpers of the count path, copied from jax-importing modules.
 
 Each function is a copy of its original in the JAX package, kept identical
 in behaviour and pinned by tests/test_torch_host.py on random inputs:
 
+  encode_f64_sortable,             ops/predicate.py:195-224
+  encode_f64_scalar
   bits_width, residual_u32,        ops/predicate.py:407-425
   pack_bits_into                   ops/predicate.py:428-473
   packed_row_width                 ops/predicate.py:476-477
+  class_dict_encode,               ops/predicate.py:562-594
+  class_dict_width
+  pack_class_words                 ops/predicate.py:629-634
   _assembly_pool, _stack_rows,     engine.py:122-176
   _stack_planes
   _pack_range_tasks                engine.py:235-266
   _pack_transport_enabled          engine.py:302-304
   _residual_width                  engine.py:307-327
   _packed_xyz_cols                 engine.py:330-345
+  _packed_time_cols,               engine.py:348-371
+  _packed_time_query
+  _packed_class_cols               engine.py:374-392
 
 The nibble-rounded widths and their <= 28-bit cap stay: on CUDA the widths
 are runtime kernel arguments, so the compile-count reason for the rounding
-is gone, but the exactness of the saturating residual-space bound clip in
-engine._run_count rests on the cap.
+is gone, but the exactness of the saturating residual-space clips (bbox
+bounds in engine._run_count, time queries in _packed_time_query) rests on
+the cap.
 """
 
 from __future__ import annotations
@@ -26,6 +35,32 @@ import os
 import numpy as np
 
 from .shared import native
+
+
+def encode_f64_sortable(t) -> tuple:
+    """f64 array -> (hi, lo) int32 arrays, order-preserving.
+
+    enc(a) < enc(b) lexicographically (signed int32) iff a < b as doubles
+    (total order; NaNs sort by payload). -0.0 is normalized to +0.0 first
+    (`t + 0.0`) so encoded compares agree with IEEE f64 compares at that
+    edge (f64 has -0.0 == 0.0; the raw bit order would put -0.0 < +0.0).
+    """
+    arr = np.asarray(t, np.float64) + 0.0  # -0.0 -> +0.0
+    bits = np.ascontiguousarray(arr).view(np.uint64)
+    neg = (bits >> np.uint64(63)).astype(bool)
+    flipped = np.where(neg, ~bits, bits ^ np.uint64(1 << 63))
+    hi = ((flipped >> np.uint64(32)).astype(np.uint32) ^ np.uint32(0x80000000)).view(
+        np.int32
+    )
+    lo = ((flipped & np.uint64(0xFFFFFFFF)).astype(np.uint32) ^ np.uint32(0x80000000)).view(
+        np.int32
+    )
+    return hi, lo
+
+
+def encode_f64_scalar(v: float) -> tuple[int, int]:
+    hi, lo = encode_f64_sortable(np.asarray([v], np.float64))
+    return int(hi[0]), int(lo[0])
 
 
 def bits_width(rng_i64) -> int:
@@ -92,6 +127,41 @@ def pack_bits_into(out_row, col_i32, k: int, base: int, block_size: int) -> None
 
 def packed_row_width(k: int, block_size: int) -> int:
     return (k // 8) * block_size + (k % 8) * (block_size // 8)
+
+
+def class_dict_encode(cls_u8):
+    """One block's u8 class column -> (present values sorted u8, codes u8).
+
+    codes[i] = index of cls_u8[i] in present (dense, 0-based). Native path:
+    one C pass (presence table + LUT gather); numpy fallback: bincount +
+    256-entry LUT gather."""
+    col = np.ascontiguousarray(cls_u8, np.uint8)
+    encoded = native.dict_encode_u8(col)
+    if encoded is not None:
+        return encoded
+    counts = np.bincount(col, minlength=256)
+    present = np.flatnonzero(counts).astype(np.uint8)
+    lut = np.zeros(256, np.uint8)
+    lut[present] = np.arange(len(present), dtype=np.uint8)
+    return present, lut[col]
+
+
+def class_dict_width(n_present: int, block_size: int) -> int:
+    """Plane bits for a dictionary of n_present entries: pow2-rounded,
+    byte-rounded when bit planes can't be laid out."""
+    k = bits_width(max(n_present - 1, 0))
+    if block_size % 8:
+        return 8  # bit planes need B % 8 == 0; byte planes only
+    p = 1
+    while p < k:
+        p *= 2
+    return p  # 1..8 (a single-class block still ships its 1-bit zeros)
+
+
+def pack_class_words(cls_u8):
+    """Host-side zero-copy view: (.., B) u8 -> (.., B//4) int32 words (LE)."""
+    assert cls_u8.dtype == np.uint8 and cls_u8.shape[-1] % 4 == 0
+    return cls_u8.view(np.int32)
 
 
 _ASSEMBLY_POOL = None
@@ -221,3 +291,46 @@ def _packed_xyz_cols(pos: np.ndarray, block_size: int) -> dict:
     cols["base"] = base
     cols["w"] = w
     return cols
+
+
+def _packed_time_cols(th: np.ndarray, tl: np.ndarray, block_size: int) -> dict:
+    """Packed-transport columns for one block's encoded GPS times: the
+    (hi, lo) int32 pair rides the same bit-planar packer as xyz."""
+    kh, bh = _residual_width(th, block_size)
+    kl, bl = _residual_width(tl, block_size)
+    return {
+        "thp": th,
+        "tlp": tl,
+        "base": np.asarray([bh, bl], np.int64),
+        "w": np.asarray([kh, kl], np.int64),
+    }
+
+
+def _packed_time_query(q_enc, base) -> np.ndarray:
+    """Residual-space encoded range for one block: (q0h, q0l, q1h, q1l)
+    shifted by the block's (hi, lo) bases, saturating-clipped to int32
+    (exact under the <= 28-bit width cap — see _residual_width)."""
+    i32 = np.iinfo(np.int32)
+    shift = np.asarray([base[0], base[1], base[0], base[1]], np.int64)
+    return np.clip(
+        np.asarray(q_enc, np.int64) - shift, i32.min, i32.max
+    ).astype(np.int32)
+
+
+def _packed_class_cols(cls: np.ndarray, target: int, block_size: int) -> dict:
+    """Dictionary-coded transport columns for one block's u8 class column.
+
+    codes are u8 dictionary indices (class_dict_encode); "t" carries the
+    target's code, or len(dict) — a code no point has — when the target
+    class is absent; "np" the dictionary size so the count path can resolve
+    absent/single-class blocks host-side with no device work."""
+    present, codes = class_dict_encode(cls)
+    pos = int(np.searchsorted(present, np.uint8(target)))
+    tcode = pos if pos < len(present) and int(present[pos]) == int(target) else len(present)
+    return {
+        "clsp": codes,  # u8 end-to-end: pack_bits_into has a native u8 path
+        "base": np.zeros(1, np.int64),
+        "w": np.asarray([class_dict_width(len(present), block_size)], np.int64),
+        "t": np.asarray([tcode], np.int64),
+        "np": np.asarray([len(present)], np.int64),
+    }

@@ -1,4 +1,4 @@
-"""Closed-box count over stacked (K, B) point blocks: plain versions and kernels.
+"""Count predicates over stacked (K, B) point blocks: plain versions and kernels.
 
 Each kernel has a plain PyTorch version beside it, with the JAX package's
 argument layout. The wrappers dispatch on the tensors' device:
@@ -10,9 +10,11 @@ Nothing falls back from the kernel to the plain version. A wrapper counts
 its kernel launches in ``launches`` (CPU calls do not count), so a run can
 show that the main path went through the kernels.
 
-The predicate is the reference hot loop's (query/src/search/las.rs:101-146):
-int32 compares of raw local coordinates against per-block int32 bounds,
-padding masked by row index < n_valid.
+The predicates are the reference hot loops' (query/src/search/las.rs:101-146,
+last.rs:253-291): int32 compares of raw local coordinates against per-block
+int32 bounds, u8 class equality, and the half-open GPS-time range compared
+on the order-preserving (hi, lo) int32 encoding of the f64 times; padding is
+masked by row index < n_valid.
 """
 
 from __future__ import annotations
@@ -22,8 +24,17 @@ import torch
 from .. import _build
 from ..host import packed_row_width
 
-# kernel name -> launches on CUDA tensors since the last reset_launches()
-launches = {"bbox_count_multi": 0, "bbox_count_packed": 0}
+# kernel name -> launches on CUDA tensors since the last reset_launches();
+# each name is also the kernel's C entry point without its "aqpc_" prefix
+launches = {
+    "bbox_count_multi": 0,
+    "bbox_count_packed": 0,
+    "class_count_multi": 0,
+    "class_count_words": 0,
+    "class_count_dict": 0,
+    "time_count_multi": 0,
+    "time_count_packed": 0,
+}
 
 
 def reset_launches() -> None:
@@ -36,11 +47,16 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
+def _valid(nvs, block_size: int, device):
+    """(K, B) bool: row index < n_valid."""
+    idx = torch.arange(block_size, dtype=torch.int32, device=device)
+    return idx[None, :] < nvs[:, None]
+
+
 def bbox_mask_multi(xs, ys, zs, los, his, nvs):
     """(K, B) coords + (K, 3) bounds + (K,) valid -> (K, B) bool
     (bbox_mask_jnp_multi, predicate.py:261-268)."""
-    idx = torch.arange(xs.shape[1], dtype=torch.int32, device=xs.device)
-    m = idx[None, :] < nvs[:, None]
+    m = _valid(nvs, xs.shape[1], xs.device)
     m &= (xs >= los[:, 0:1]) & (xs <= his[:, 0:1])
     m &= (ys >= los[:, 1:2]) & (ys <= his[:, 1:2])
     m &= (zs >= los[:, 2:3]) & (zs <= his[:, 2:3])
@@ -83,6 +99,86 @@ def bbox_count_packed_multi(xp, yp, zp, los, his, nvs, widths, block_size):
     return bbox_count_multi(xs, ys, zs, los, his, nvs)
 
 
+def class_mask_multi(cls, targets, nvs):
+    """(K, B) class values + (K,) int32 targets -> (K, B) bool
+    (class_mask_jnp_multi, predicate.py:247-249)."""
+    return _valid(nvs, cls.shape[1], cls.device) & (cls.to(torch.int32) == targets[:, None])
+
+
+def class_count_multi(cls, targets, nvs):
+    """(K,) int32 counts (class_count_jnp_multi, predicate.py:275-278)."""
+    return class_mask_multi(cls, targets, nvs).sum(dim=1, dtype=torch.int32)
+
+
+# 4-points-per-word class count (predicate.py:609-680). torch's uint32 ops
+# are partial, so the u32 word math runs in int64, masked to 32 bits after
+# every ~ and +.
+_REP = 0x01010101
+_LOW7 = 0x7F7F7F7F
+_U32 = 0xFFFFFFFF
+
+
+def _packed_match_ones(w, rep):
+    """u32 words (in int64) -> 0x01 at each byte equal to the target's."""
+    v = w ^ rep
+    t = ~((((v & _LOW7) + _LOW7) & _U32) | v | _LOW7) & _U32
+    return t >> 7
+
+
+def _byte_sum(ones):
+    """Sum the four 0..1 byte fields of each word -> int32 (0..4)."""
+    t = (ones + (ones >> 16)) & _U32
+    t = (t + (t >> 8)) & _U32
+    return (t & 0xFF).to(torch.int32)
+
+
+def _packed_keep(nv, word_idx):
+    """0x01 at each byte position < n_valid (little-endian order)."""
+    c = torch.clamp(nv - 4 * word_idx, 0, 4)
+    s = (4 - c) * 4
+    return (torch.full_like(s, _REP) >> s) >> s  # two <=16-bit shifts: never >= 32
+
+
+def class_count_packed_multi(words, targets, nvs):
+    """(K, W) int32 words = the (K, 4W) u8 class column viewed little-endian,
+    (K,) targets and valid counts in points -> (K,) int32
+    (class_count_packed_jnp_multi, predicate.py:673-680)."""
+    w = words.to(torch.int64) & _U32
+    rep = (((targets.to(torch.int64) & _U32) * _REP) & _U32)[:, None]
+    ones = _packed_match_ones(w, rep)
+    widx = torch.arange(words.shape[1], dtype=torch.int64, device=words.device)
+    ones &= _packed_keep(nvs.to(torch.int64)[:, None], widx[None, :])
+    return _byte_sum(ones).sum(dim=1, dtype=torch.int32)
+
+
+def class_count_dict_multi(cp, targets, nvs, k: int, block_size: int):
+    """Dictionary-coded class count: (K, planes) u8 codes at k bits and
+    per-block target CODES -> (K,) int32 (class_count_dict_jnp_multi,
+    predicate.py:597-601)."""
+    return class_count_multi(unpack_bits(cp, k, block_size), targets, nvs)
+
+
+def time_mask_multi(ths, tls, qs, nvs):
+    """(K, B) encoded times + (K, 4) encoded half-open range -> (K, B) bool
+    (time_mask_jnp_multi, predicate.py:235-240)."""
+    ge = (ths > qs[:, 0:1]) | ((ths == qs[:, 0:1]) & (tls >= qs[:, 1:2]))
+    lt = (ths < qs[:, 2:3]) | ((ths == qs[:, 2:3]) & (tls < qs[:, 3:4]))
+    return ge & lt & _valid(nvs, ths.shape[1], ths.device)
+
+
+def time_count_multi(ths, tls, qs, nvs):
+    """(K,) int32 counts (time_count_jnp_multi, predicate.py:243-244)."""
+    return time_mask_multi(ths, tls, qs, nvs).sum(dim=1, dtype=torch.int32)
+
+
+def time_count_packed_multi(thp, tlp, qs, nvs, widths, block_size):
+    """Packed-transport GPS-time count (time_count_packed_jnp_multi,
+    predicate.py:529-534): widths (k_hi, k_lo); qs in residual space."""
+    ths = unpack_bits(thp, widths[0], block_size)
+    tls = unpack_bits(tlp, widths[1], block_size)
+    return time_count_multi(ths, tls, qs, nvs)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -99,13 +195,43 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device)
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_planes(t, name: str, k: int, k_max: int, k_blocks: int, block_size: int,
+                  device) -> None:
+    """A (K, row width) u8 plane stack of k-bit residuals."""
+    if not 0 <= k <= k_max:
+        raise ValueError(f"{name} width {k} outside [0, {k_max}]")
+    if k % 8 and block_size % 8:
+        raise ValueError(f"{name}: bit planes need block_size % 8 == 0, got {block_size}")
+    _check(t, name, torch.uint8, (k_blocks, packed_row_width(k, block_size)), device)
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; anything else raises."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no bbox count for tensors on {t.device}")
+    raise ValueError(f"no count kernel for tensors on {t.device}")
+
+
+def _rows(t: torch.Tensor, name: str) -> tuple[int, int]:
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be (K, B), got shape {tuple(t.shape)}")
+    return t.shape
+
+
+def _launch(name: str, tensors: tuple, sizes: tuple) -> torch.Tensor:
+    """Run entry point aqpc_<name>(tensor pointers..., out, sizes..., stream)
+    into a zeroed (K,) int32 output, K = sizes[0], on the current stream of
+    the tensors' device; raise on a CUDA error, else count the launch."""
+    dev = tensors[0].device
+    out = torch.zeros(sizes[0], dtype=torch.int32, device=dev)
+    fn = getattr(_build.library(), f"aqpc_{name}")
+    err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), *sizes,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"aqpc_{name}")
+    launches[name] += 1
+    return out
 
 
 def _bounds(los, his, k_blocks: int, device) -> torch.Tensor:
@@ -120,24 +246,13 @@ def bbox_count_multi_kernel(xs, ys, zs, los, his, nvs):
     (predicate.py:305-333); kernel in csrc/bbox_count.cu."""
     if not _on_cuda(xs):
         return bbox_count_multi(xs, ys, zs, los, his, nvs)
-    if xs.dim() != 2:
-        raise ValueError(f"xs must be (K, B), got shape {tuple(xs.shape)}")
-    k_blocks, block_size = xs.shape
+    k_blocks, block_size = _rows(xs, "xs")
     dev = xs.device
     for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
         _check(t, name, torch.int32, (k_blocks, block_size), dev)
     _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
     bounds = _bounds(los, his, k_blocks, dev)
-    out = torch.zeros(k_blocks, dtype=torch.int32, device=dev)
-    lib = _build.library()
-    err = lib.aqpc_bbox_count_multi(
-        xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), bounds.data_ptr(),
-        nvs.data_ptr(), out.data_ptr(), k_blocks, block_size,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "aqpc_bbox_count_multi")
-    launches["bbox_count_multi"] += 1
-    return out
+    return _launch("bbox_count_multi", (xs, ys, zs, bounds, nvs), (k_blocks, block_size))
 
 
 def bbox_count(x, y, z, lo, hi, n_valid):
@@ -162,20 +277,106 @@ def bbox_count_packed_kernel(xp, yp, zp, los, his, nvs, widths, block_size: int)
     dev = xp.device
     kx, ky, kz = (int(w) for w in widths)
     for name, t, k in (("xp", xp, kx), ("yp", yp, ky), ("zp", zp, kz)):
-        if not 0 <= k <= 32:
-            raise ValueError(f"{name} width {k} outside [0, 32]")
-        if k % 8 and block_size % 8:
-            raise ValueError(f"{name}: bit planes need block_size % 8 == 0, got {block_size}")
-        _check(t, name, torch.uint8, (k_blocks, packed_row_width(k, block_size)), dev)
+        _check_planes(t, name, k, 32, k_blocks, block_size, dev)
     _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
     bounds = _bounds(los, his, k_blocks, dev)
-    out = torch.zeros(k_blocks, dtype=torch.int32, device=dev)
-    lib = _build.library()
-    err = lib.aqpc_bbox_count_packed(
-        xp.data_ptr(), yp.data_ptr(), zp.data_ptr(), bounds.data_ptr(),
-        nvs.data_ptr(), out.data_ptr(), k_blocks, block_size, kx, ky, kz,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "aqpc_bbox_count_packed")
-    launches["bbox_count_packed"] += 1
-    return out
+    return _launch("bbox_count_packed", (xp, yp, zp, bounds, nvs),
+                   (k_blocks, block_size, kx, ky, kz))
+
+
+def _class_operands(col, dtype, targets, nvs) -> tuple[int, int]:
+    k_blocks, width = _rows(col, "class column")
+    dev = col.device
+    _check(col, "class column", dtype, (k_blocks, width), dev)
+    _check(targets, "targets", torch.int32, (k_blocks,), dev)
+    _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
+    return k_blocks, width
+
+
+def class_count_multi_kernel(cls, targets, nvs):
+    """(K, B) u8 class values, (K,) int32 targets, (K,) int32 n_valid ->
+    (K,) int32 counts of class == target. Any B. Replaces
+    class_count_pallas_multi (predicate.py:355-380); kernel in
+    csrc/class_count.cu."""
+    if not _on_cuda(cls):
+        return class_count_multi(cls, targets, nvs)
+    k_blocks, block_size = _class_operands(cls, torch.uint8, targets, nvs)
+    return _launch("class_count_multi", (cls, targets, nvs), (k_blocks, block_size))
+
+
+def class_count(cls, class_value, n_valid):
+    """One (B,) u8 block -> 0-d int32 count: the K=1 launch of (c)
+    (replaces class_count_pallas, predicate.py:156-181). class_value and
+    n_valid are 0-d or (1,) int32 tensors on cls's device."""
+    return class_count_multi_kernel(cls[None], class_value.reshape(1), n_valid.reshape(1))[0]
+
+
+def class_count_words_kernel(words, targets, nvs):
+    """(K, W) int32 words (the (K, 4W) u8 class column viewed
+    little-endian), (K,) int32 targets, (K,) int32 n_valid in points ->
+    (K,) int32. Replaces class_count_packed_pallas_multi
+    (predicate.py:754-779); kernel in csrc/class_count.cu."""
+    if not _on_cuda(words):
+        return class_count_packed_multi(words, targets, nvs)
+    k_blocks, w = _class_operands(words, torch.int32, targets, nvs)
+    return _launch("class_count_words", (words, targets, nvs), (k_blocks, w))
+
+
+def class_count_packed(words, class_value, n_valid):
+    """One (W,) int32 word block -> 0-d int32 count: the K=1 launch of (e)
+    (replaces class_count_packed_pallas, predicate.py:703-730)."""
+    return class_count_words_kernel(words[None], class_value.reshape(1),
+                                    n_valid.reshape(1))[0]
+
+
+def class_count_dict_kernel(cp, targets, nvs, k: int, block_size: int):
+    """Dictionary-coded class count: (K, row width) u8 planes of k-bit codes
+    (k <= 8), (K,) int32 target codes (len(dict) on a miss), (K,) int32
+    n_valid -> (K,) int32. Replaces the XLA-fused
+    class_count_dict_jnp_multi (predicate.py:597-601); kernel in
+    csrc/class_count_dict.cu."""
+    if not _on_cuda(cp):
+        return class_count_dict_multi(cp, targets, nvs, k, block_size)
+    k_blocks = cp.shape[0]
+    dev = cp.device
+    _check_planes(cp, "cp", int(k), 8, k_blocks, block_size, dev)
+    _check(targets, "targets", torch.int32, (k_blocks,), dev)
+    _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
+    return _launch("class_count_dict", (cp, targets, nvs), (k_blocks, block_size, int(k)))
+
+
+def _time_query(qs, nvs, k_blocks: int, device) -> None:
+    _check(qs, "qs", torch.int32, (k_blocks, 4), device)
+    _check(nvs, "nvs", torch.int32, (k_blocks,), device)
+
+
+def time_count_multi_kernel(ths, tls, qs, nvs):
+    """(K, B) int32 encoded GPS-time hi/lo words, (K, 4) int32 encoded
+    half-open ranges (q0h, q0l, q1h, q1l), (K,) int32 n_valid -> (K,) int32.
+    Replaces the XLA-fused time_count_jnp_multi (predicate.py:235-244);
+    kernel in csrc/time_count.cu."""
+    if not _on_cuda(ths):
+        return time_count_multi(ths, tls, qs, nvs)
+    k_blocks, block_size = _rows(ths, "ths")
+    dev = ths.device
+    _check(ths, "ths", torch.int32, (k_blocks, block_size), dev)
+    _check(tls, "tls", torch.int32, (k_blocks, block_size), dev)
+    _time_query(qs, nvs, k_blocks, dev)
+    return _launch("time_count_multi", (ths, tls, qs, nvs), (k_blocks, block_size))
+
+
+def time_count_packed_kernel(thp, tlp, qs, nvs, widths, block_size: int):
+    """Packed-transport GPS-time count: (K, row width) u8 plane stacks of the
+    hi and lo words at widths (k_hi, k_lo), residual-space (K, 4) int32
+    ranges, (K,) int32 n_valid -> (K,) int32. Replaces the XLA-fused
+    time_count_packed_jnp_multi (predicate.py:529-534); kernel in
+    csrc/time_count.cu."""
+    if not _on_cuda(thp):
+        return time_count_packed_multi(thp, tlp, qs, nvs, widths, block_size)
+    k_blocks = thp.shape[0]
+    dev = thp.device
+    kh, kl = (int(w) for w in widths)
+    _check_planes(thp, "thp", kh, 32, k_blocks, block_size, dev)
+    _check_planes(tlp, "tlp", kl, 32, k_blocks, block_size, dev)
+    _time_query(qs, nvs, k_blocks, dev)
+    return _launch("time_count_packed", (thp, tlp, qs, nvs), (k_blocks, block_size, kh, kl))

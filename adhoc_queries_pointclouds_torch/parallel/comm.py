@@ -4,6 +4,7 @@ The counterpart of adhoc_queries_pointclouds_tpu/parallel/comm.py
 LocalStepComm (comm.py:40-82), with the method names the count path uses,
 so that a multi-process strategy can slot in later with the same contract:
 
+  is_local            True: a single participant, free to skip steps
   device()            the torch.device every step runs on (make_mesh there)
   agree_block_size(b) block shape all participants use
   batch_rows(k)       rows this process feeds per step
@@ -39,6 +40,11 @@ def require_device(device) -> torch.device:
 
 class LocalStepComm:
     """Single-process strategy: everything is identity on one device."""
+
+    # the host resolves some blocks with no device step (the class
+    # dictionary's absent-target and single-class blocks); that changes the
+    # step count, which only a lone participant may do
+    is_local = True
 
     def __init__(self, device):
         self._device = require_device(device)

@@ -14,6 +14,7 @@ from adhoc_queries_pointclouds_tpu.formats import (  # noqa: F401
     open_point_cloud,
     synth,
 )
+from adhoc_queries_pointclouds_tpu.formats.las import has_gps_time  # noqa: F401
 from adhoc_queries_pointclouds_tpu.models.query import (  # noqa: F401
     BoundsQuery,
     ClassQuery,

@@ -59,4 +59,62 @@ def test_found_line_matches_jax_cli(data, capsys, box, extra):
 def test_flags_not_ported_exit_nonzero(data, capsys, flag):
     args = ["-i", str(data), "--bounds", BOXES[0], "--device", "cpu", *flag]
     assert torch_cli.main(args) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flag[0] in ("--class", "--time-range"):
+        # ported: beside --bounds it is a second predicate, which the JAX
+        # CLI refuses with exit 1 and its own message
+        assert jax_cli.main(["-i", str(data), "--bounds", BOXES[0], *flag]) == 1
+        assert err == capsys.readouterr().err != ""
+    else:
+        assert "not yet ported" in err
+
+
+@pytest.fixture(scope="module")
+def gps_data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_cli_gps")
+    synth.write_dataset(root, n_files=2, points_per_file=30_000, seed=10,
+                        formats=("last",), clustered=True, point_format=3)
+    return root / "last"
+
+
+# 2 files of 30k points at 200k points/s: times in [0, 0.3)
+@pytest.mark.parametrize("extra", [[], ["--no-index", "--stats"]])
+@pytest.mark.parametrize("query", [
+    ["--class", "6"],
+    ["--class", "2"],
+    ["--class", "4"],
+    ["--time-range", "0.05;0.2"],
+    ["--time-range", "-1;0.1"],  # a negative start goes through the hyphen fold
+])
+def test_class_and_time_found_line_matches_jax_cli(gps_data, capsys, query, extra):
+    args = ["-i", str(gps_data), *query, "--block-size", "16384", *extra]
+    assert jax_cli.main(args) == 0
+    ref = capsys.readouterr().out
+    assert torch_cli.main([*args, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert _found(out) == _found(ref)
+    assert (_found(out) == 0) == (query == ["--class", "4"])
+    assert out.splitlines()[0] == "Searching 2 files..."
+    assert out.splitlines()[-1].startswith("Searched ")
+
+
+@pytest.mark.parametrize("args", [
+    ["--class", "6", "--time-range", "0;1"],
+    ["--time-range", "0;1;2"],
+    [],
+])
+def test_bad_predicates_exit_1_as_jax_cli(gps_data, capsys, args):
+    argv = ["-i", str(gps_data), *args]
+    assert jax_cli.main(argv) == 1
+    ref = capsys.readouterr().err
+    assert torch_cli.main([*argv, "--device", "cpu"]) == 1
+    assert capsys.readouterr().err == ref != ""
+
+
+def test_time_range_over_gps_less_data_raises_as_jax_cli(data):
+    args = ["-i", str(data), "--time-range", "0;1"]
+    with pytest.raises(ValueError, match="does not contain GPS times!") as want:
+        jax_cli.main(args)
+    with pytest.raises(ValueError) as got:
+        torch_cli.main([*args, "--device", "cpu"])
+    assert str(got.value) == str(want.value)

@@ -14,7 +14,16 @@ import torch
 
 from adhoc_queries_pointclouds_torch import engine, host
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
-from adhoc_queries_pointclouds_torch.shared import BoundsQuery, QueryPlan, parse_aabb, synth
+from adhoc_queries_pointclouds_torch.shared import (
+    BoundsQuery,
+    ClassQuery,
+    QueryPlan,
+    TimeRangeQuery,
+    index as index_mod,
+    open_point_cloud,
+    parse_aabb,
+    synth,
+)
 
 pytestmark = pytest.mark.cuda
 I32 = np.iinfo(np.int32)
@@ -155,3 +164,243 @@ def test_run_query_on_cuda_matches_cpu(dev, tmp_path, monkeypatch, pack):
         ref = engine.run_query(tmp_path / "last", plan, device="cpu", block_size=1 << 15,
                                use_index=False)
         assert got.match_count == ref.match_count > 0
+
+
+# ---------------------------------------------------------------- class counts
+
+CLASS_TARGETS = [0, 6, 255, 6, 77, 3, 200]
+
+
+def _class_case(rng, K, B):
+    """(K, B) u8 classes, about a third of each row equal to its target, and
+    n_valid ending at every alignment mod 16 near B, plus 0 and 1."""
+    targets = np.array(CLASS_TARGETS[:K], np.int32)
+    cls = rng.integers(0, 256, (K, B)).astype(np.uint8)
+    for j in range(K):
+        cls[j, rng.random(B) < 0.35] = targets[j]
+    nvs = np.array([B, max(B - 1, 0), max(B - 2, 0), max(B - 3, 0), 0, 1, max(B - 13, 0)][:K],
+                   np.int32)
+    return cls, targets, nvs
+
+
+@pytest.mark.parametrize("B", [1, 4, 4096, 4100, 4099, 262144 + 4])
+def test_class_kernels_match_plain(dev, B):
+    rng = np.random.default_rng(B + 7)
+    args = _class_case(rng, 7, B)
+    got, ref = _both(TP.class_count_multi_kernel, args, dev)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    if B % 4 == 0:
+        words = (args[0].view(np.int32), *args[1:])
+        got_w, ref_w = _both(TP.class_count_words_kernel, words, dev)
+        assert torch.equal(got_w, ref_w) and torch.equal(got_w, ref)
+
+
+def test_class_kernels_unaligned_rows_and_targets(dev):
+    """Rows off 16-byte boundaries take byte loads; a target outside 0..255
+    matches nothing in the u8 entry and is replicated as uint32(t) * 0x01010101
+    in the word entry, as in the plain versions."""
+    rng = np.random.default_rng(3)
+    K, B = 4, 8192
+    cls, targets, nvs = _class_case(rng, K, B)
+    buf = torch.empty(K * B + 4, dtype=torch.uint8, device=dev)
+    buf[4:] = torch.from_numpy(cls.reshape(-1)).to(dev)
+    view = buf[4:].view(K, B)  # 4-byte but not 16-byte aligned rows
+    tg, nv = (torch.from_numpy(a).to(dev) for a in (targets, nvs))
+    got = TP.class_count_multi_kernel(view, tg, nv)
+    ref = TP.class_count_multi(*(torch.from_numpy(a) for a in (cls, targets, nvs)))
+    assert torch.equal(got.cpu(), ref)
+    got_w = TP.class_count_words_kernel(view.view(torch.int32), tg, nv)
+    assert torch.equal(got_w.cpu(), ref)
+    odd = np.array([256, -1, 0x01020304, -256], np.int32)
+    words = cls.view(np.int32)
+    got, ref = _both(TP.class_count_words_kernel, (words, odd, nvs), dev)
+    assert torch.equal(got, ref)
+    got, ref = _both(TP.class_count_multi_kernel, (cls, odd, nvs), dev)
+    assert torch.equal(got, ref) and int(ref.abs().sum()) == 0
+
+
+def test_class_single_block_launches(dev):
+    rng = np.random.default_rng(4)
+    cls, targets, _ = _class_case(rng, 1, 65536)
+    tg = torch.tensor(int(targets[0]), dtype=torch.int32, device=dev)
+    nv = torch.tensor(65533, dtype=torch.int32, device=dev)
+    want = int(np.count_nonzero(cls[0, :65533] == targets[0]))
+    c = torch.from_numpy(cls[0]).to(dev)
+    assert int(TP.class_count(c, tg, nv)) == want
+    assert int(TP.class_count_packed(c.view(torch.int32), tg, nv)) == want
+
+
+def _dict_case(rng, K, B, k):
+    codes = rng.integers(0, 1 << k, (K, B)).astype(np.uint8)
+    cp = np.zeros((K, host.packed_row_width(k, B)), np.uint8)
+    for j in range(K):
+        host.pack_bits_into(cp[j], codes[j], k, 0, B)
+    targets = rng.integers(0, 1 << k, K).astype(np.int32)
+    targets[-1] = 1 << k  # a miss: len(dict), a code no point carries
+    nvs = np.array([B, max(B - 3, 0), 5, 0, B][:K], np.int32)
+    return cp, targets, nvs
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("B", [4096, 4104])  # B/8 odd: rows off 8-byte boundaries
+def test_class_dict_kernel_matches_plain(dev, k, B):
+    rng = np.random.default_rng(10 * k + B)
+    args = _dict_case(rng, 5, B, k)
+    got, ref = _both(TP.class_count_dict_kernel, args, dev, k, B)
+    assert torch.equal(got, ref) and int(ref[0]) > 0 and int(ref[-1]) == 0
+
+
+def test_class_dict_kernel_byte_planes_only(dev):
+    rng = np.random.default_rng(11)
+    B = 4099
+    args = _dict_case(rng, 5, B, 8)
+    got, ref = _both(TP.class_count_dict_kernel, args, dev, 8, B)
+    assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------- time counts
+
+
+def _times(rng, K, B):
+    """(K, B) f64 GPS times: a narrow flight-line run per row, plus edge
+    values (signed zeros, infinities, NaN, subnormals) in the last row."""
+    t = np.stack([rng.uniform(1e5, 1e5 + 10.0, B) for _ in range(K)])
+    edges = np.array([-0.0, 0.0, np.inf, -np.inf, np.nan, 5e-324, -5e-324, -1e300, 1e300])
+    t[-1, : len(edges)] = edges[: B]
+    return t
+
+
+def _time_raw_case(rng, K, B):
+    t = _times(rng, K, B)
+    th, tl = host.encode_f64_sortable(t.reshape(-1))
+    th, tl = th.reshape(K, B), tl.reshape(K, B)
+    ranges = [(1e5 + 2.0, 1e5 + 7.5), (-np.inf, np.inf), (0.0, 1e5 + 5.0), (1e5 + 3.0, 1e5 + 3.0),
+              (-1.0, 1e-300)]
+    qs = np.array([host.encode_f64_scalar(a) + host.encode_f64_scalar(b)
+                   for a, b in (ranges * 2)[:K]], np.int32)
+    a, b = min(100, B - 1), min(900, B - 1)
+    qs[0] = [th[0, a], tl[0, a], th[0, a], tl[0, b]]  # equal hi words
+    nvs = np.array([B, max(B - 1, 0), max(B - 2, 0), 7, 0, B][:K], np.int32)
+    nvs[-1] = B
+    return th, tl, qs, nvs
+
+
+@pytest.mark.parametrize("B", [1, 4096, 4099, 262144 + 4])
+def test_time_kernel_matches_plain(dev, B):
+    rng = np.random.default_rng(B + 3)
+    args = _time_raw_case(rng, 6, B)
+    got, ref = _both(TP.time_count_multi_kernel, args, dev)
+    assert torch.equal(got, ref)
+
+
+def test_time_kernel_sign_boundary(dev):
+    """Encoded words around INT32_MIN/MAX compare as signed int32."""
+    B = 64
+    I = I32
+    vals = np.array([I.min, I.min + 1, -1, 0, 1, I.max - 1, I.max, 12345], np.int32)
+    th = np.tile(vals, (4, B // 8)).astype(np.int32)
+    tl = np.tile(vals[::-1].copy(), (4, B // 8)).astype(np.int32)
+    qs = np.array([[I.min, I.min, I.max, I.max], [-1, 0, 1, 0], [0, I.min, 0, I.max],
+                   [I.max, 0, I.min, 0]], np.int32)
+    nvs = np.array([B, B - 3, 61, B], np.int32)
+    got, ref = _both(TP.time_count_multi_kernel, (th, tl, qs, nvs), dev)
+    assert torch.equal(got, ref) and int(ref[0]) > 0
+
+
+def _time_packed_case(rng, K, B, widths):
+    """Blocks of encoded times packed at the step's widths with per-block
+    bases, and residual-space queries, as the engine makes them."""
+    kh, kl = widths
+    planes = [np.zeros((K, host.packed_row_width(k, B)), np.uint8) for k in widths]
+    qs = np.zeros((K, 4), np.int32)
+    for j in range(K):
+        cols = []
+        for k in widths:
+            if k >= 32:
+                cols.append((rng.integers(I32.min, I32.max, B, endpoint=True).astype(np.int32), 0))
+            else:
+                base = int(rng.integers(I32.min, I32.max - (1 << k)))
+                cols.append(((base + rng.integers(0, 1 << k, B)).astype(np.int32), base))
+        (th, bh), (tl, bl) = cols
+        host.pack_bits_into(planes[0][j], th, kh, bh, B)
+        host.pack_bits_into(planes[1][j], tl, kl, bl, B)
+        a, b = sorted(rng.choice(B, 2, replace=False))
+        q_enc = np.array([th[a], tl[a], th[b], tl[b]], np.int64)
+        qs[j] = host._packed_time_query(q_enc, np.array([bh, bl], np.int64))
+    nvs = rng.integers(1, B + 1, K).astype(np.int32)
+    nvs[0] = B
+    nvs[-1] = 0
+    return (*planes, qs, nvs)
+
+
+@pytest.mark.parametrize("widths", [(0, 0), (4, 12), (20, 28), (28, 28), (32, 32), (32, 4),
+                                    (0, 32), (12, 20)])
+@pytest.mark.parametrize("B", [4096, 4104])
+def test_time_packed_kernel_matches_plain(dev, widths, B):
+    rng = np.random.default_rng(sum(widths) * 7 + B)
+    args = _time_packed_case(rng, 5, B, widths)
+    got, ref = _both(TP.time_count_packed_kernel, args, dev, widths, B)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("k", [8, 16, 24, 32])
+def test_time_packed_kernel_byte_planes_only(dev, k):
+    rng = np.random.default_rng(k + 1)
+    B = 4099
+    args = _time_packed_case(rng, 3, B, (k, k))
+    got, ref = _both(TP.time_count_packed_kernel, args, dev, (k, k), B)
+    assert torch.equal(got, ref)
+
+
+def test_new_wrappers_reject_bad_operands(dev):
+    c = torch.zeros((2, 16), dtype=torch.uint8, device=dev)
+    t = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        TP.class_count_multi_kernel(c.to(torch.int32), t, t)
+    with pytest.raises(ValueError):
+        TP.class_count_words_kernel(c.view(torch.int32), t[:1], t)
+    with pytest.raises(ValueError):
+        TP.class_count_dict_kernel(c, t, t, 16, 16)  # codes are at most 8 bits
+    with pytest.raises(ValueError):
+        TP.class_count_dict_kernel(c[:, :2], t, t, 1, 12)  # bit planes need B % 8 == 0
+    h = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    q = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        TP.time_count_multi_kernel(h, h, q[:, :3].contiguous(), t)
+    with pytest.raises(ValueError):
+        TP.time_count_packed_kernel(c, c, q, t, (8, 12), 16)  # 12 bits need 24 bytes
+
+
+def _exact_index(data_dir):
+    """Exact sidecars (class bitmaps, GPS min/max), as the index command
+    writes them."""
+    for f in sorted(data_dir.iterdir()):
+        r = open_point_cloud(f)
+        mm, bitmap, gps = index_mod.build_index(r)
+        index_mod.save_index(f, mm, bitmap, gps, n_points=r.point_count)
+        r.close()
+
+
+@pytest.mark.parametrize("pack", ["1", "0"])
+def test_class_and_time_run_query_on_cuda_matches_cpu(dev, tmp_path, monkeypatch, pack):
+    monkeypatch.setenv("AQPC_PACK", pack)
+    synth.write_dataset(tmp_path, n_files=2, points_per_file=150_000, seed=4,
+                        formats=("last",), clustered=True, point_format=3)
+    data = tmp_path / "last"
+    cases = [
+        (QueryPlan(classification=ClassQuery(6)),
+         "class_count_dict" if pack == "1" else "class_count_words", 1 << 15),
+        (QueryPlan(classification=ClassQuery(6)),
+         "class_count_dict" if pack == "1" else "class_count_multi", (1 << 15) - 2),
+        (QueryPlan(time_range=TimeRangeQuery(0.4, 1.1)),
+         "time_count_packed" if pack == "1" else "time_count_multi", 1 << 15),
+    ]
+    for use_index in (False, True):
+        if use_index:
+            _exact_index(data)
+        for plan, kernel, block in cases:
+            TP.reset_launches()
+            got = engine.run_query(data, plan, device=dev, block_size=block, use_index=use_index)
+            assert TP.launches[kernel] > 0
+            ref = engine.run_query(data, plan, device="cpu", block_size=block, use_index=False)
+            assert got.match_count == ref.match_count > 0

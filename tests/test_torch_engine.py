@@ -168,11 +168,16 @@ def test_discover_files_and_total_bounds_match_jax_engine(dataset, fmt):
 
 
 def test_non_bbox_plans_are_not_ported(dataset):
+    """Collecting plans still raise; a class count now runs (the class and
+    time parity grids are in test_torch_engine_class.py and
+    test_torch_engine_time.py)."""
     from adhoc_queries_pointclouds_torch.shared import ClassQuery, DensityConfig
 
     data = dataset / "data" / "last"
+    plan = QueryPlan(classification=ClassQuery(6))
+    got = torch_engine.run_query(data, plan, device="cpu", block_size=BLOCK)
+    assert got.match_count == jax_engine.run_query(data, plan, block_size=BLOCK).match_count > 0
     for plan in (
-        QueryPlan(classification=ClassQuery(6)),
         QueryPlan(bounds=BoundsQuery(parse_aabb(BOXES["partial"])), density=DensityConfig(1.0)),
         QueryPlan(bounds=BoundsQuery(parse_aabb(BOXES["partial"])), output_dir=dataset),
         QueryPlan(bounds=BoundsQuery(parse_aabb(BOXES["partial"])), print_points=True),

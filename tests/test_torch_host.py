@@ -184,3 +184,80 @@ def test_block_feeder_copy_yields_the_same_blocks():
         assert a.columns.keys() == b.columns.keys()
         for key in a.columns:
             _equal_arrays(a.columns[key], b.columns[key])
+
+
+F64_EDGES = np.array([-0.0, 0.0, np.inf, -np.inf, np.nan, -np.nan, 5e-324, -5e-324,
+                      2.2250738585072014e-308, np.finfo(np.float64).max,
+                      -np.finfo(np.float64).max, 1.0, -1.0, 1e5, 1e9 + 0.5])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_encode_f64_sortable(seed):
+    rng = np.random.default_rng(seed)
+    t = np.concatenate([F64_EDGES, rng.normal(0, 10.0 ** (seed * 4), 5000),
+                        rng.integers(0, 2**64, 500, dtype=np.uint64).view(np.float64)])
+    got, ref = host.encode_f64_sortable(t), P.encode_f64_sortable(t)
+    for a, b in zip(got, ref):
+        _equal_arrays(a, b)
+    for v in F64_EDGES:
+        assert host.encode_f64_scalar(v) == P.encode_f64_scalar(v)
+
+
+@pytest.mark.parametrize("native_codec", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("n_present", [1, 2, 3, 16, 17, 200, 256])
+def test_class_dict_encode(monkeypatch, native_codec, n_present):
+    from adhoc_queries_pointclouds_torch.shared import native
+
+    if not native_codec:
+        monkeypatch.setattr(native, "dict_encode_u8", lambda col: None)
+    rng = np.random.default_rng(n_present)
+    values = rng.choice(256, n_present, replace=False).astype(np.uint8)
+    col = values[rng.integers(0, n_present, 10_000)]
+    col[:n_present] = values  # every value present
+    got, ref = host.class_dict_encode(col), P.class_dict_encode(col)
+    for a, b in zip(got, ref):
+        _equal_arrays(a, b)
+    assert len(got[0]) == n_present
+
+
+@pytest.mark.parametrize("block_size", [4096, 4099])
+def test_class_dict_width(block_size):
+    for n in range(0, 258):
+        assert host.class_dict_width(n, block_size) == P.class_dict_width(n, block_size)
+
+
+def test_pack_class_words():
+    rng = np.random.default_rng(9)
+    cls = rng.integers(0, 256, (3, 4096)).astype(np.uint8)
+    _equal_arrays(host.pack_class_words(cls), P.pack_class_words(cls))
+
+
+@pytest.mark.parametrize("target", [0, 2, 6, 7, 255])
+@pytest.mark.parametrize("block_size", [4096, 4099])
+def test_packed_class_cols(target, block_size):
+    rng = np.random.default_rng(target)
+    for classes in ([2], [2, 6], [1, 2, 3, 4, 5, 6], list(range(0, 256, 3))):
+        cls = rng.choice(np.asarray(classes, np.uint8), 3000)
+        got = host._packed_class_cols(cls, target, block_size)
+        ref = E._packed_class_cols(cls, target, block_size)
+        assert got.keys() == ref.keys()
+        for key in ref:
+            _equal_arrays(got[key], ref[key])
+
+
+@pytest.mark.parametrize("spread", [0.0, 1e-9, 3e-3, 10.0, 1e6, 1e300])
+@pytest.mark.parametrize("block_size", [4096, 4099])
+def test_packed_time_cols_and_query(spread, block_size):
+    rng = np.random.default_rng(int(spread) % 97)
+    t = 1e5 + rng.uniform(0, spread, 3000)
+    t[:2] = [-spread, spread]  # mixed signs: hi words span more than 28 bits
+    th, tl = host.encode_f64_sortable(t)
+    got = host._packed_time_cols(th, tl, block_size)
+    ref = E._packed_time_cols(th, tl, block_size)
+    assert got.keys() == ref.keys()
+    for key in ref:
+        _equal_arrays(got[key], ref[key])
+    for a, b in [(-np.inf, np.inf), (1e5, 1e5 + spread / 2), (0.0, 0.0), (-1e308, -1e307)]:
+        q_enc = np.asarray(host.encode_f64_scalar(a) + host.encode_f64_scalar(b), np.int32)
+        _equal_arrays(host._packed_time_query(q_enc, got["base"]),
+                      E._packed_time_query(q_enc, ref["base"]))

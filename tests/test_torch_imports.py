@@ -12,7 +12,14 @@ import pytest
 import torch
 
 from adhoc_queries_pointclouds_torch import engine
-from adhoc_queries_pointclouds_torch.shared import BoundsQuery, QueryPlan, parse_aabb, synth
+from adhoc_queries_pointclouds_torch.shared import (
+    BoundsQuery,
+    ClassQuery,
+    QueryPlan,
+    TimeRangeQuery,
+    parse_aabb,
+    synth,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -22,15 +29,23 @@ import adhoc_queries_pointclouds_torch
 from adhoc_queries_pointclouds_torch import cli, engine, host
 from adhoc_queries_pointclouds_torch.ops import predicate
 from adhoc_queries_pointclouds_torch.parallel import comm, pipeline, step
-from adhoc_queries_pointclouds_torch.shared import BoundsQuery, QueryPlan, parse_aabb, synth
+from adhoc_queries_pointclouds_torch.shared import (
+    BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery, parse_aabb, synth,
+)
 with tempfile.TemporaryDirectory() as d:
-    synth.write_dataset(d, n_files=1, points_per_file=5000, seed=1, formats=("last",))
-    plan = QueryPlan(bounds=BoundsQuery(parse_aabb("-1e9;-1e9;-1e9;1e9;1e9;1e9")))
+    synth.write_dataset(d, n_files=1, points_per_file=5000, seed=1, formats=("last",),
+                        point_format=3)
+    plans = [
+        QueryPlan(bounds=BoundsQuery(parse_aabb("-1e9;-1e9;-1e9;1e9;1e9;1e9"))),
+        QueryPlan(classification=ClassQuery(4)),
+        QueryPlan(time_range=TimeRangeQuery(-1.0, 2e6)),
+    ]
     for pack in ("0", "1"):
         import os
         os.environ["AQPC_PACK"] = pack
-        r = engine.run_query(pathlib.Path(d) / "last", plan, device="cpu")
-        assert r.match_count == 5000, r.match_count
+        counts = [engine.run_query(pathlib.Path(d) / "last", p, device="cpu").match_count
+                  for p in plans]
+        assert counts[0] == counts[2] == 5000 and 0 < counts[1] < 5000, counts
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))))
 """
 
@@ -44,10 +59,15 @@ def test_port_imports_no_jax():
 
 def test_cuda_without_cuda_raises(tmp_path, monkeypatch):
     """A run asked for on CUDA never carries on on the CPU."""
-    synth.write_dataset(tmp_path, n_files=1, points_per_file=1000, seed=2, formats=("last",))
+    synth.write_dataset(tmp_path, n_files=1, points_per_file=1000, seed=2, formats=("last",),
+                        point_format=3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    plan = QueryPlan(bounds=BoundsQuery(parse_aabb("-1e9;-1e9;-1e9;1e9;1e9;1e9")))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        engine.run_query(tmp_path / "last", plan, device="cuda")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        engine.run_query(tmp_path / "last", plan, device=torch.device("cuda", 0))
+    for plan in (
+        QueryPlan(bounds=BoundsQuery(parse_aabb("-1e9;-1e9;-1e9;1e9;1e9;1e9"))),
+        QueryPlan(classification=ClassQuery(2)),
+        QueryPlan(time_range=TimeRangeQuery(0.0, 1.0)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine.run_query(tmp_path / "last", plan, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine.run_query(tmp_path / "last", plan, device=torch.device("cuda", 0))
