@@ -36,6 +36,15 @@ _ENTRY_POINTS = {
     "aqpc_class_count_dict": [_P, _P, _P, _P, _I, _I, _I, _P],
     "aqpc_time_count_multi": [_P, _P, _P, _P, _P, _I, _I, _P],
     "aqpc_time_count_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "aqpc_mask_bbox": [_P] * 8 + [_I, _I, _P],
+    "aqpc_mask_bbox_packed": [_P] * 8 + [_I] * 5 + [_P],
+    "aqpc_mask_class": [_P] * 6 + [_I, _I, _P],
+    "aqpc_mask_class_dict": [_P] * 6 + [_I] * 3 + [_P],
+    "aqpc_mask_time": [_P] * 7 + [_I, _I, _P],
+    "aqpc_mask_time_packed": [_P] * 7 + [_I] * 4 + [_P],
+    "aqpc_compact_bits": [_P] * 4 + [_I, _I, _P],
+    "aqpc_bbox_probe_acc": [_P] * 8 + [_I, _I, _P],
+    "aqpc_bbox_probe_acc_nomask": [_P] * 7 + [_I, _I, _P],
 }
 
 _LOCK = threading.Lock()
@@ -116,6 +125,12 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.aqpc_error_string.argtypes = [ctypes.c_int]
             lib.aqpc_error_string.restype = ctypes.c_char_p
+            lib.aqpc_mask_chunk_words.argtypes = []
+            lib.aqpc_mask_chunk_words.restype = _I
+            from .ops.predicate import CHUNK_WORDS
+
+            if lib.aqpc_mask_chunk_words() != CHUNK_WORDS:
+                raise RuntimeError("csrc/collect.cuh kChunkWords differs from CHUNK_WORDS")
             _LIB = lib
         return _LIB
 

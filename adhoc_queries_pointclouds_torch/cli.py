@@ -1,20 +1,24 @@
-"""Command line of the port: bbox, class and GPS-time counts on one device.
+"""Command line of the port: bbox, class and GPS-time counts and collects on
+one device.
 
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds "x0;y0;z0;x1;y1;z1"
-    python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6
-    python -m adhoc_queries_pointclouds_torch.cli -i DIR --time-range "start;end"
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6 -o OUT_DIR
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --time-range "start;end" --print-points
 
 The query flags and output lines are those of adhoc_queries_pointclouds_tpu/
-cli.py (cmd_query, cli.py:101-193): "Searching N files...", "Found N
-matching points", the closing throughput line, and --stats. --device (default
-cuda) names the device; cuda without a card is an error, never a silent run
-on the CPU. Flags of queries the port does not run yet exit with status 2.
+cli.py (cmd_query, cli.py:101-193): "Searching N files...", one "Wrote
+OUT_DIR/matching_points_{i}.las" per input file with hits under -o, "Found
+N matching points", the closing throughput line, and --stats; --print-points
+streams each hit as a "Found point: ..." line. --device (default cuda) names
+the device; cuda without a card is an error, never a silent run on the CPU.
+Flags of queries the port does not run yet exit with status 2.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 from .engine import run_query
 from .shared import (
@@ -30,8 +34,6 @@ from .shared import (
 _NOT_PORTED = {
     "density": "--density",
     "density_scope": "--density-scope",
-    "output": "-o/--output",
-    "print_points": "--print-points",
     "resident": "--resident",
     "repeat": "--repeat",
     "distributed": "--distributed",
@@ -54,13 +56,15 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
         "--time-range", dest="time_range",
         help='GPS time range "start;end" (half-open: start <= t < end)',
     )
-    parser.add_argument("-o", "--output", help="(not yet ported)")
+    parser.add_argument("-o", "--output",
+                        help="Output directory: one matching_points_{i}.las per input file with hits")
     parser.add_argument("--density", type=float, help="(not yet ported)")
     parser.add_argument("--density-scope", choices=["file", "global"],
                         help="(not yet ported)")
     parser.add_argument("--parallel", action="store_true", help="(parity no-op: always parallel)")
     parser.add_argument("--optimized", action="store_true", help="(parity no-op: always optimized)")
-    parser.add_argument("--print-points", action="store_true", help="(not yet ported)")
+    parser.add_argument("--print-points", action="store_true",
+                        help="Print every matching point as it is found")
     parser.add_argument("--parity-quirk", action="store_true",
                         help="Replicate the reference's exact world->local bounds conversion")
     parser.add_argument("--block-size", type=int, default=None, help="Points per device block")
@@ -87,7 +91,7 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
 def cmd_query(args: argparse.Namespace) -> int:
     used = [flag for dest, flag in _NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
     if used:
-        print(f"not yet ported: {', '.join(used)} (the port runs counts only)",
+        print(f"not yet ported: {', '.join(used)} (the port runs counts and collects only)",
               file=sys.stderr)
         return 2
     maybe_bounds = parse_aabb(args.bounds) if args.bounds else None
@@ -112,6 +116,8 @@ def cmd_query(args: argparse.Namespace) -> int:
         bounds=BoundsQuery(maybe_bounds) if maybe_bounds is not None else None,
         classification=ClassQuery(maybe_class) if maybe_class is not None else None,
         time_range=maybe_time,
+        output_dir=Path(args.output) if args.output else None,
+        print_points=args.print_points,
         parity_quirk=args.parity_quirk,
     )
     kwargs = {}
@@ -124,9 +130,15 @@ def cmd_query(args: argparse.Namespace) -> int:
         workers=args.workers,
         keep_going=args.keep_going,
         use_index=not args.no_index,
+        # --print-points streams each hit as it is found; nothing is
+        # buffered in RAM
+        print_stream=sys.stdout if args.print_points else None,
         **kwargs,
     )
     print(f"Searching {result.files_searched} files...")
+    if plan.output_dir is not None:
+        for f in result.output_files:
+            print(f"Wrote {f}")
     print(f"Found {result.match_count} matching points")
     if args.stats:
         print(result.timer.report())
@@ -152,7 +164,7 @@ def main(argv: list[str] | None = None) -> int:
         argv = argv[1:]
     parser = argparse.ArgumentParser(
         prog="aqpc-torch",
-        description="Ad-hoc point cloud counts on a CUDA GPU (LAS/LAZ/LAST/LAZER)",
+        description="Ad-hoc point cloud queries on a CUDA GPU (LAS/LAZ/LAST/LAZER)",
     )
     build_query_parser(parser)
     return cmd_query(parser.parse_args(argv))

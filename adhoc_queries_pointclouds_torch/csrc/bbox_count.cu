@@ -18,14 +18,12 @@
 // scalar loads otherwise, so any block size works. Counts stay in registers;
 // one atomicAdd per CTA reaches memory.
 #include "block_count.cuh"
+#include "predicates.cuh"
 
 namespace {
 
+using aqpc::in_box;
 using aqpc::kThreads;
-
-__device__ __forceinline__ int in_box(int x, int y, int z, const int* b) {
-  return (x >= b[0]) & (x <= b[3]) & (y >= b[1]) & (y <= b[4]) & (z >= b[2]) & (z <= b[5]);
-}
 
 __global__ void __launch_bounds__(kThreads)
 bbox_count_multi_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
@@ -36,8 +34,7 @@ bbox_count_multi_kernel(const int32_t* __restrict__ xs, const int32_t* __restric
   int b[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) b[j] = bounds[k * 6 + j];
-  int64_t nv = nvs[k];
-  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
+  const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
   const int32_t* x = xs + k * block_size;
   const int32_t* y = ys + k * block_size;
   const int32_t* z = zs + k * block_size;

@@ -19,7 +19,7 @@
 // hit mask is counted with popc, and the CTA's sum reaches out[k] with one
 // atomicAdd.
 #include "block_count.cuh"
-#include "unpack_planes.cuh"
+#include "predicates.cuh"
 
 namespace {
 
@@ -34,14 +34,10 @@ bbox_count_packed_kernel(Planes ax, Planes ay, Planes az, const int32_t* __restr
   int b[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) b[j] = bounds[k * 6 + j];
-  int64_t nv = nvs[k];
-  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
-  const uint8_t* rx = ax.planes + k * ax.row_width;
-  const uint8_t* ry = ay.planes + k * ay.row_width;
-  const uint8_t* rz = az.planes + k * az.row_width;
-  const bool alx = aqpc::rows_aligned(rx, block_size);
-  const bool aly = aqpc::rows_aligned(ry, block_size);
-  const bool alz = aqpc::rows_aligned(rz, block_size);
+  const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
+  const aqpc::PlaneRow rx = aqpc::plane_row(ax, k, block_size);
+  const aqpc::PlaneRow ry = aqpc::plane_row(ay, k, block_size);
+  const aqpc::PlaneRow rz = aqpc::plane_row(az, k, block_size);
   const int64_t groups = (nv + 7) / 8;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -50,11 +46,7 @@ bbox_count_packed_kernel(Planes ax, Planes ay, Planes az, const int32_t* __restr
   for (int64_t g = tid; g < groups; g += stride) {
     const int64_t left = nv - 8 * g;
     const int valid = left >= 8 ? 8 : static_cast<int>(left);
-    unsigned m = aqpc::group_valid_mask(valid);
-    m &= aqpc::range_mask8(rx, block_size, ax.nbytes, ax.nbits, b[0], b[3], g, valid, alx);
-    m &= aqpc::range_mask8(ry, block_size, ay.nbytes, ay.nbits, b[1], b[4], g, valid, aly);
-    m &= aqpc::range_mask8(rz, block_size, az.nbytes, az.nbits, b[2], b[5], g, valid, alz);
-    count += __popc(m);
+    count += __popc(aqpc::bbox_packed_mask8(rx, ry, rz, b, block_size, g, valid));
   }
   aqpc::cta_add(count, out + k);
 }

@@ -22,19 +22,29 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// Adds the CTA-wide sum of `count` into *out. Every thread of the CTA must
-// call it (it holds a __syncthreads).
-__device__ __forceinline__ void cta_add(int count, int32_t* out) {
+// The CTA-wide sum of `count`, valid in thread 0 only. Every thread of the
+// CTA must call it (it holds a __syncthreads).
+__device__ __forceinline__ int cta_sum(int count) {
   __shared__ int warp_sums[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   count = warp_sum(count);
   if (lane == 0) warp_sums[warp] = count;
   __syncthreads();
-  if (warp == 0) {
-    count = warp_sum(lane < kWarps ? warp_sums[lane] : 0);
-    if (lane == 0 && count != 0) atomicAdd(out, count);
-  }
+  if (warp == 0) count = warp_sum(lane < kWarps ? warp_sums[lane] : 0);
+  return count;
+}
+
+// Adds the CTA-wide sum of `count` into *out. Every thread of the CTA must
+// call it (it holds a __syncthreads).
+__device__ __forceinline__ void cta_add(int count, int32_t* out) {
+  count = cta_sum(count);
+  if (threadIdx.x == 0 && count != 0) atomicAdd(out, count);
+}
+
+// Rows past n_valid are padding; a negative or oversized n_valid is clamped.
+__device__ __forceinline__ int64_t clamp_valid(int64_t nv, int64_t block_size) {
+  return nv < 0 ? 0 : (nv > block_size ? block_size : nv);
 }
 
 // Number of CTAs along one block's row so that each thread handles about

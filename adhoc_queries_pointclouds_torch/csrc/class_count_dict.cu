@@ -18,9 +18,10 @@
 //
 // What the design does about it: the packed bbox kernel's unpack
 // (aqpc::unpack8), 8 points per thread in registers, the 8-point match mask
-// counted with popc, one atomicAdd per CTA.
+// (aqpc::dict_mask8, shared with the collect mask) counted with popc, one
+// atomicAdd per CTA.
 #include "block_count.cuh"
-#include "unpack_planes.cuh"
+#include "predicates.cuh"
 
 namespace {
 
@@ -33,10 +34,8 @@ class_count_dict_kernel(Planes cp, const int32_t* __restrict__ targets,
                         int64_t block_size) {
   const int64_t k = blockIdx.y;
   const int t = targets[k];
-  int64_t nv = nvs[k];
-  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
-  const uint8_t* row = cp.planes + k * cp.row_width;
-  const bool aligned = aqpc::rows_aligned(row, block_size);
+  const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
+  const aqpc::PlaneRow row = aqpc::plane_row(cp, k, block_size);
   const int64_t groups = (nv + 7) / 8;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -45,9 +44,7 @@ class_count_dict_kernel(Planes cp, const int32_t* __restrict__ targets,
   for (int64_t g = tid; g < groups; g += stride) {
     const int64_t left = nv - 8 * g;
     const int valid = left >= 8 ? 8 : static_cast<int>(left);
-    count += __popc(aqpc::group_valid_mask(valid) &
-                    aqpc::range_mask8(row, block_size, cp.nbytes, cp.nbits, t, t, g, valid,
-                                      aligned));
+    count += __popc(aqpc::dict_mask8(row, t, block_size, g, valid));
   }
   aqpc::cta_add(count, out + k);
 }

@@ -29,18 +29,13 @@
 // word in registers (aqpc::unpack8). Each CTA's count reaches out[k] with
 // one integer atomic.
 #include "block_count.cuh"
-#include "unpack_planes.cuh"
+#include "predicates.cuh"
 
 namespace {
 
+using aqpc::in_time_range;
 using aqpc::kThreads;
 using aqpc::Planes;
-
-__device__ __forceinline__ int in_range(int th, int tl, const int (&q)[4]) {
-  const int ge = (th > q[0]) | ((th == q[0]) & (tl >= q[1]));
-  const int lt = (th < q[2]) | ((th == q[2]) & (tl < q[3]));
-  return ge & lt;
-}
 
 __global__ void __launch_bounds__(kThreads)
 time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restrict__ tls,
@@ -50,8 +45,7 @@ time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restri
   int q[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) q[j] = qs[k * 4 + j];
-  int64_t nv = nvs[k];
-  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
+  const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
   const int32_t* h = ths + k * block_size;
   const int32_t* l = tls + k * block_size;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -65,13 +59,13 @@ time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restri
     for (int64_t i = tid; i < n4; i += stride) {
       const int4 a = h4[i];
       const int4 b = l4[i];
-      count += in_range(a.x, b.x, q) + in_range(a.y, b.y, q) + in_range(a.z, b.z, q) +
-               in_range(a.w, b.w, q);
+      count += in_time_range(a.x, b.x, q) + in_time_range(a.y, b.y, q) +
+               in_time_range(a.z, b.z, q) + in_time_range(a.w, b.w, q);
     }
     const int64_t i = n4 * 4 + tid;  // the last nv % 4 points, one thread each
-    if (i < nv) count += in_range(h[i], l[i], q);
+    if (i < nv) count += in_time_range(h[i], l[i], q);
   } else {
-    for (int64_t i = tid; i < nv; i += stride) count += in_range(h[i], l[i], q);
+    for (int64_t i = tid; i < nv; i += stride) count += in_time_range(h[i], l[i], q);
   }
   aqpc::cta_add(count, out + k);
 }
@@ -84,12 +78,9 @@ time_count_packed_kernel(Planes ph, Planes pl, const int32_t* __restrict__ qs,
   int q[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) q[j] = qs[k * 4 + j];
-  int64_t nv = nvs[k];
-  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
-  const uint8_t* rh = ph.planes + k * ph.row_width;
-  const uint8_t* rl = pl.planes + k * pl.row_width;
-  const bool al_hi = aqpc::rows_aligned(rh, block_size);
-  const bool al_lo = aqpc::rows_aligned(rl, block_size);
+  const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
+  const aqpc::PlaneRow rh = aqpc::plane_row(ph, k, block_size);
+  const aqpc::PlaneRow rl = aqpc::plane_row(pl, k, block_size);
   const int64_t groups = (nv + 7) / 8;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -98,12 +89,7 @@ time_count_packed_kernel(Planes ph, Planes pl, const int32_t* __restrict__ qs,
   for (int64_t g = tid; g < groups; g += stride) {
     const int64_t left = nv - 8 * g;
     const int valid = left >= 8 ? 8 : static_cast<int>(left);
-    uint32_t h[8], l[8];
-    aqpc::unpack8(rh, block_size, ph.nbytes, ph.nbits, g, valid, al_hi, h);
-    aqpc::unpack8(rl, block_size, pl.nbytes, pl.nbits, g, valid, al_lo, l);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      count += (i < valid) & in_range(static_cast<int>(h[i]), static_cast<int>(l[i]), q);
+    count += __popc(aqpc::time_packed_mask8(rh, rl, q, block_size, g, valid));
   }
   aqpc::cta_add(count, out + k);
 }

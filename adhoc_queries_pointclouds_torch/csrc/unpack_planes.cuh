@@ -47,6 +47,19 @@ __device__ __forceinline__ bool rows_aligned(const uint8_t* row, int64_t block_s
   return block_size % 8 == 0 && reinterpret_cast<uintptr_t>(row) % 8 == 0;
 }
 
+// One block row of a plane stack.
+struct PlaneRow {
+  const uint8_t* row;
+  int nbytes;
+  int nbits;
+  bool aligned;
+};
+
+__device__ __forceinline__ PlaneRow plane_row(const Planes& p, int64_t k, int64_t block_size) {
+  const uint8_t* row = p.planes + k * p.row_width;
+  return PlaneRow{row, p.nbytes, p.nbits, rows_aligned(row, block_size)};
+}
+
 // Residuals r[i] of points 8g+i of one row. `valid` (1..8) is the number of
 // points of the group below n_valid; bytes of points past it are not read
 // and their r[i] are unspecified.

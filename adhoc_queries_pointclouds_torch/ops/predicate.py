@@ -1,4 +1,5 @@
-"""Count predicates over stacked (K, B) point blocks: plain versions and kernels.
+"""Predicates over stacked (K, B) point blocks: counts and collect bit masks,
+plain versions and kernels.
 
 Each kernel has a plain PyTorch version beside it, with the JAX package's
 argument layout. The wrappers dispatch on the tensors' device:
@@ -15,9 +16,16 @@ last.rs:253-291): int32 compares of raw local coordinates against per-block
 int32 bounds, u8 class equality, and the half-open GPS-time range compared
 on the order-preserving (hi, lo) int32 encoding of the f64 times; padding is
 masked by row index < n_valid.
+
+The collect path takes each predicate as a bit mask (BitMask): bit j of
+int32 word w of a block is row 32w + j, with the block's hit count and
+its hits per chunk of CHUNK_WORDS words, which ops/compact.py turns into
+hit indices.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +42,15 @@ launches = {
     "class_count_dict": 0,
     "time_count_multi": 0,
     "time_count_packed": 0,
+    "mask_bbox": 0,
+    "mask_bbox_packed": 0,
+    "mask_class": 0,
+    "mask_class_dict": 0,
+    "mask_time": 0,
+    "mask_time_packed": 0,
+    "compact_bits": 0,
+    "bbox_probe_acc": 0,
+    "bbox_probe_acc_nomask": 0,
 }
 
 
@@ -90,13 +107,20 @@ def unpack_bits(packed, k: int, block_size: int):
     return r
 
 
-def bbox_count_packed_multi(xp, yp, zp, los, his, nvs, widths, block_size):
-    """Packed-transport count (bbox_count_packed_jnp_multi,
-    predicate.py:499-505): widths (kx, ky, kz); los/his in residual space."""
+def bbox_mask_packed_multi(xp, yp, zp, los, his, nvs, widths, block_size):
+    """Packed-transport mask -> (K, B) bool (bbox_mask_packed_jnp_multi,
+    predicate.py:508-512): widths (kx, ky, kz); los/his in residual space."""
     xs = unpack_bits(xp, widths[0], block_size)
     ys = unpack_bits(yp, widths[1], block_size)
     zs = unpack_bits(zp, widths[2], block_size)
-    return bbox_count_multi(xs, ys, zs, los, his, nvs)
+    return bbox_mask_multi(xs, ys, zs, los, his, nvs)
+
+
+def bbox_count_packed_multi(xp, yp, zp, los, his, nvs, widths, block_size):
+    """Packed-transport count (bbox_count_packed_jnp_multi,
+    predicate.py:499-505)."""
+    mask = bbox_mask_packed_multi(xp, yp, zp, los, his, nvs, widths, block_size)
+    return mask.sum(dim=1, dtype=torch.int32)
 
 
 def class_mask_multi(cls, targets, nvs):
@@ -151,11 +175,16 @@ def class_count_packed_multi(words, targets, nvs):
     return _byte_sum(ones).sum(dim=1, dtype=torch.int32)
 
 
+def class_mask_dict_multi(cp, targets, nvs, k: int, block_size: int):
+    """Dictionary-coded class mask: (K, planes) u8 codes at k bits and
+    per-block target CODES -> (K, B) bool (class_mask_dict_jnp_multi,
+    predicate.py:604-606)."""
+    return class_mask_multi(unpack_bits(cp, k, block_size), targets, nvs)
+
+
 def class_count_dict_multi(cp, targets, nvs, k: int, block_size: int):
-    """Dictionary-coded class count: (K, planes) u8 codes at k bits and
-    per-block target CODES -> (K,) int32 (class_count_dict_jnp_multi,
-    predicate.py:597-601)."""
-    return class_count_multi(unpack_bits(cp, k, block_size), targets, nvs)
+    """(K,) int32 counts (class_count_dict_jnp_multi, predicate.py:597-601)."""
+    return class_mask_dict_multi(cp, targets, nvs, k, block_size).sum(dim=1, dtype=torch.int32)
 
 
 def time_mask_multi(ths, tls, qs, nvs):
@@ -171,12 +200,80 @@ def time_count_multi(ths, tls, qs, nvs):
     return time_mask_multi(ths, tls, qs, nvs).sum(dim=1, dtype=torch.int32)
 
 
-def time_count_packed_multi(thp, tlp, qs, nvs, widths, block_size):
-    """Packed-transport GPS-time count (time_count_packed_jnp_multi,
-    predicate.py:529-534): widths (k_hi, k_lo); qs in residual space."""
+def time_mask_packed_multi(thp, tlp, qs, nvs, widths, block_size):
+    """Packed-transport GPS-time mask -> (K, B) bool
+    (time_mask_packed_jnp_multi, predicate.py:537-540): widths (k_hi, k_lo);
+    qs in residual space."""
     ths = unpack_bits(thp, widths[0], block_size)
     tls = unpack_bits(tlp, widths[1], block_size)
-    return time_count_multi(ths, tls, qs, nvs)
+    return time_mask_multi(ths, tls, qs, nvs)
+
+
+def time_count_packed_multi(thp, tlp, qs, nvs, widths, block_size):
+    """Packed-transport GPS-time count (time_count_packed_jnp_multi,
+    predicate.py:529-534)."""
+    mask = time_mask_packed_multi(thp, tlp, qs, nvs, widths, block_size)
+    return mask.sum(dim=1, dtype=torch.int32)
+
+
+# Bit masks of the collect path. A chunk is CHUNK_WORDS words (8192 rows):
+# the mask kernels write each chunk's hit count, which ops/compact.py's
+# kernel sums to place the chunk's hits (csrc/collect.cuh).
+CHUNK_WORDS = 256
+
+
+def mask_words(block_size: int) -> int:
+    return (block_size + 31) // 32
+
+
+def mask_chunks(block_size: int) -> int:
+    return (mask_words(block_size) + CHUNK_WORDS - 1) // CHUNK_WORDS
+
+
+class BitMask(NamedTuple):
+    """One collect step's predicate over K blocks of B rows."""
+
+    bits: torch.Tensor  # (K, ceil(B/32)) int32: bit j of word w is row 32w + j
+    counts: torch.Tensor  # (K,) int32 hits per block
+    chunks: torch.Tensor  # (K, mask_chunks(B)) int32 hits per chunk
+
+
+def pack_mask_bits(mask) -> BitMask:
+    """(K, B) bool -> BitMask: the plain version of every bit-mask kernel's
+    output. Rows past B in the last word are 0."""
+    k_blocks, block_size = mask.shape
+    n_words, n_chunks = mask_words(block_size), mask_chunks(block_size)
+    padded = torch.zeros((k_blocks, n_chunks * CHUNK_WORDS * 32), dtype=torch.bool,
+                         device=mask.device)
+    padded[:, :block_size] = mask
+    weights = torch.ones(32, dtype=torch.int64, device=mask.device) << torch.arange(
+        32, dtype=torch.int64, device=mask.device)
+    words = (padded[:, : n_words * 32].view(k_blocks, n_words, 32) * weights).sum(-1)
+    bits = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    chunks = padded.view(k_blocks, n_chunks, -1).sum(-1, dtype=torch.int32)
+    return BitMask(bits, mask.sum(dim=1, dtype=torch.int32), chunks)
+
+
+def unpack_mask_bits(bits, block_size: int):
+    """(K, W) int32 mask words -> (K, B) bool."""
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    rows = (bits.to(torch.int64)[:, :, None] >> shifts) & 1
+    return rows.reshape(bits.shape[0], -1)[:, :block_size].bool()
+
+
+def bbox_probe_acc(x, y, z, lo, hi, n_valid):
+    """(n,) int32 x/y/z, (3,) int32 lo/hi, 0-d or (1,) int32 n_valid -> 0-d
+    int32 closed-box count of rows < n_valid (_bbox_kernel_acc,
+    tools/bboxprobe.py:60-84)."""
+    nv = n_valid.reshape(1)
+    return bbox_count_multi(x[None], y[None], z[None], lo[None], hi[None], nv)[0]
+
+
+def bbox_probe_acc_nomask(x, y, z, lo, hi):
+    """The count over all n rows (_bbox_kernel_acc_nomask,
+    tools/bboxprobe.py:87-107)."""
+    nv = torch.full((1,), x.shape[0], dtype=torch.int32, device=x.device)
+    return bbox_count_multi(x[None], y[None], z[None], lo[None], hi[None], nv)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -220,17 +317,36 @@ def _rows(t: torch.Tensor, name: str) -> tuple[int, int]:
     return t.shape
 
 
-def _launch(name: str, tensors: tuple, sizes: tuple) -> torch.Tensor:
-    """Run entry point aqpc_<name>(tensor pointers..., out, sizes..., stream)
-    into a zeroed (K,) int32 output, K = sizes[0], on the current stream of
-    the tensors' device; raise on a CUDA error, else count the launch."""
+def run(name: str, tensors: tuple, sizes: tuple) -> None:
+    """Run entry point aqpc_<name>(tensor pointers..., sizes..., stream) on
+    the current stream of the tensors' device; raise on a CUDA error, else
+    count the launch."""
     dev = tensors[0].device
-    out = torch.zeros(sizes[0], dtype=torch.int32, device=dev)
     fn = getattr(_build.library(), f"aqpc_{name}")
-    err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), *sizes,
+    err = fn(*(t.data_ptr() for t in tensors), *sizes,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"aqpc_{name}")
     launches[name] += 1
+
+
+def _launch(name: str, tensors: tuple, sizes: tuple) -> torch.Tensor:
+    """Run a count entry point into a zeroed (K,) int32 output, K = sizes[0]."""
+    out = torch.zeros(sizes[0], dtype=torch.int32, device=tensors[0].device)
+    run(name, (*tensors, out), sizes)
+    return out
+
+
+def _launch_mask(name: str, tensors: tuple, sizes: tuple) -> BitMask:
+    """Run a mask entry point into a fresh BitMask for K = sizes[0] blocks of
+    B = sizes[1] rows."""
+    k_blocks, block_size = sizes[0], sizes[1]
+    dev = tensors[0].device
+    out = BitMask(
+        torch.empty((k_blocks, mask_words(block_size)), dtype=torch.int32, device=dev),
+        torch.zeros(k_blocks, dtype=torch.int32, device=dev),
+        torch.empty((k_blocks, mask_chunks(block_size)), dtype=torch.int32, device=dev),
+    )
+    run(name, (*tensors, *out), sizes)
     return out
 
 
@@ -380,3 +496,141 @@ def time_count_packed_kernel(thp, tlp, qs, nvs, widths, block_size: int):
     _check_planes(tlp, "tlp", kl, 32, k_blocks, block_size, dev)
     _time_query(qs, nvs, k_blocks, dev)
     return _launch("time_count_packed", (thp, tlp, qs, nvs), (k_blocks, block_size, kh, kl))
+
+
+# ---------------------------------------------------------------------------
+# collect bit masks: one wrapper per collect kind, kernels in csrc/mask_bits.cu
+# (the mask halves of mesh._collect_fn, parallel/mesh.py:229-291)
+# ---------------------------------------------------------------------------
+
+
+def bbox_mask_bits(xs, ys, zs, los, his, nvs) -> BitMask:
+    """Raw-transport bbox: operands of bbox_count_multi_kernel -> BitMask
+    (bbox_mask_jnp_multi, predicate.py:261-268)."""
+    if not _on_cuda(xs):
+        return pack_mask_bits(bbox_mask_multi(xs, ys, zs, los, his, nvs))
+    k_blocks, block_size = _rows(xs, "xs")
+    dev = xs.device
+    for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
+        _check(t, name, torch.int32, (k_blocks, block_size), dev)
+    _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
+    bounds = _bounds(los, his, k_blocks, dev)
+    return _launch_mask("mask_bbox", (xs, ys, zs, bounds, nvs), (k_blocks, block_size))
+
+
+def bbox_mask_bits_packed(xp, yp, zp, los, his, nvs, widths, block_size: int) -> BitMask:
+    """Packed-transport bbox: operands of bbox_count_packed_kernel -> BitMask
+    (bbox_mask_packed_jnp_multi, predicate.py:508-512)."""
+    if not _on_cuda(xp):
+        return pack_mask_bits(
+            bbox_mask_packed_multi(xp, yp, zp, los, his, nvs, widths, block_size))
+    k_blocks = xp.shape[0]
+    dev = xp.device
+    kx, ky, kz = (int(w) for w in widths)
+    for name, t, k in (("xp", xp, kx), ("yp", yp, ky), ("zp", zp, kz)):
+        _check_planes(t, name, k, 32, k_blocks, block_size, dev)
+    _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
+    bounds = _bounds(los, his, k_blocks, dev)
+    return _launch_mask("mask_bbox_packed", (xp, yp, zp, bounds, nvs),
+                        (k_blocks, block_size, kx, ky, kz))
+
+
+def class_mask_bits(cls, targets, nvs) -> BitMask:
+    """(K, B) u8 class rows, (K,) int32 targets and n_valid -> BitMask
+    (class_mask_jnp_multi, predicate.py:247-249; the collect path never
+    takes the word view)."""
+    if not _on_cuda(cls):
+        return pack_mask_bits(class_mask_multi(cls, targets, nvs))
+    k_blocks, block_size = _class_operands(cls, torch.uint8, targets, nvs)
+    return _launch_mask("mask_class", (cls, targets, nvs), (k_blocks, block_size))
+
+
+def class_mask_bits_dict(cp, targets, nvs, k: int, block_size: int) -> BitMask:
+    """Dictionary-coded class: operands of class_count_dict_kernel ->
+    BitMask (class_mask_dict_jnp_multi, predicate.py:604-606)."""
+    if not _on_cuda(cp):
+        return pack_mask_bits(class_mask_dict_multi(cp, targets, nvs, k, block_size))
+    k_blocks = cp.shape[0]
+    dev = cp.device
+    _check_planes(cp, "cp", int(k), 8, k_blocks, block_size, dev)
+    _check(targets, "targets", torch.int32, (k_blocks,), dev)
+    _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
+    return _launch_mask("mask_class_dict", (cp, targets, nvs), (k_blocks, block_size, int(k)))
+
+
+def time_mask_bits(ths, tls, qs, nvs) -> BitMask:
+    """Raw GPS time: operands of time_count_multi_kernel -> BitMask
+    (time_mask_jnp_multi, predicate.py:235-240)."""
+    if not _on_cuda(ths):
+        return pack_mask_bits(time_mask_multi(ths, tls, qs, nvs))
+    k_blocks, block_size = _rows(ths, "ths")
+    dev = ths.device
+    _check(ths, "ths", torch.int32, (k_blocks, block_size), dev)
+    _check(tls, "tls", torch.int32, (k_blocks, block_size), dev)
+    _time_query(qs, nvs, k_blocks, dev)
+    return _launch_mask("mask_time", (ths, tls, qs, nvs), (k_blocks, block_size))
+
+
+def time_mask_bits_packed(thp, tlp, qs, nvs, widths, block_size: int) -> BitMask:
+    """Packed GPS time: operands of time_count_packed_kernel -> BitMask
+    (time_mask_packed_jnp_multi, predicate.py:537-540)."""
+    if not _on_cuda(thp):
+        return pack_mask_bits(time_mask_packed_multi(thp, tlp, qs, nvs, widths, block_size))
+    k_blocks = thp.shape[0]
+    dev = thp.device
+    kh, kl = (int(w) for w in widths)
+    _check_planes(thp, "thp", kh, 32, k_blocks, block_size, dev)
+    _check_planes(tlp, "tlp", kl, 32, k_blocks, block_size, dev)
+    _time_query(qs, nvs, k_blocks, dev)
+    return _launch_mask("mask_time_packed", (thp, tlp, qs, nvs),
+                        (k_blocks, block_size, kh, kl))
+
+
+# ---------------------------------------------------------------------------
+# the bbox probe variants (kernel g), kernels in csrc/bbox_probe.cu
+# ---------------------------------------------------------------------------
+
+# partial-sum slots of the probe's persistent grid: more than SMs x
+# resident CTAs on any current card
+PROBE_SLOTS = 4096
+
+
+def _probe_operands(x, y, z, lo, hi) -> torch.Tensor:
+    n = x.shape[0]
+    dev = x.device
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        _check(t, name, torch.int32, (n,), dev)
+    _check(lo, "lo", torch.int32, (3,), dev)
+    _check(hi, "hi", torch.int32, (3,), dev)
+    return torch.cat((lo, hi))
+
+
+def _launch_probe(name: str, tensors: tuple, n: int) -> torch.Tensor:
+    dev = tensors[0].device
+    partials = torch.empty(PROBE_SLOTS, dtype=torch.int32, device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    run(name, (*tensors, partials, ticket, out), (n, PROBE_SLOTS))
+    return out[0]
+
+
+def bbox_probe_acc_kernel(x, y, z, lo, hi, n_valid):
+    """(n,) int32 x/y/z, (3,) int32 lo/hi, 0-d or (1,) int32 n_valid -> 0-d
+    int32: the count of rows < n_valid in the box, accumulated per thread
+    over a persistent grid and reduced once. Replaces _bbox_kernel_acc
+    (tools/bboxprobe.py:60-84, pallas_call at :114)."""
+    if not _on_cuda(x):
+        return bbox_probe_acc(x, y, z, lo, hi, n_valid)
+    bounds = _probe_operands(x, y, z, lo, hi)
+    nv = n_valid.reshape(1)
+    _check(nv, "n_valid", torch.int32, (1,), x.device)
+    return _launch_probe("bbox_probe_acc", (x, y, z, bounds, nv), x.shape[0])
+
+
+def bbox_probe_acc_nomask_kernel(x, y, z, lo, hi):
+    """As bbox_probe_acc_kernel over all n rows, with no n_valid. Replaces
+    _bbox_kernel_acc_nomask (tools/bboxprobe.py:87-107)."""
+    if not _on_cuda(x):
+        return bbox_probe_acc_nomask(x, y, z, lo, hi)
+    bounds = _probe_operands(x, y, z, lo, hi)
+    return _launch_probe("bbox_probe_acc_nomask", (x, y, z, bounds), x.shape[0])

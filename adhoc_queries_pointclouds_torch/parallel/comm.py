@@ -1,8 +1,9 @@
 """Step-communication strategy of the port: one engine loop, one device.
 
 The counterpart of adhoc_queries_pointclouds_tpu/parallel/comm.py
-LocalStepComm (comm.py:40-82), with the method names the count path uses,
-so that a multi-process strategy can slot in later with the same contract:
+LocalStepComm (comm.py:40-82), with the method names the count and collect
+paths use, so that a multi-process strategy can slot in later with the same
+contract:
 
   is_local            True: a single participant, free to skip steps
   device()            the torch.device every step runs on (make_mesh there)
@@ -13,7 +14,11 @@ so that a multi-process strategy can slot in later with the same contract:
   agree_widths(w)     per-step packed-transport width vector
   inflight()          device steps in flight before the host waits
   put(arrays)         numpy step operands -> tensors on the device
+  fetch(t)            a step output -> numpy on the host
   finish_total(d, h)  final count from device-step total + host-side total
+  reduce_sum(v)       sum a host-local value across participants
+
+The collect path has no cap, so the JAX contract's agree_cap is gone.
 
 With one device there is no mesh: the K blocks of a step ride one launch.
 """
@@ -73,5 +78,11 @@ class LocalStepComm:
     def put(self, arrays: tuple) -> tuple:
         return tuple(torch.from_numpy(a).to(self._device) for a in arrays)
 
+    def fetch(self, t: torch.Tensor) -> np.ndarray:
+        return t.cpu().numpy()
+
     def finish_total(self, device_total: int, host_total: int) -> int:
         return device_total + host_total
+
+    def reduce_sum(self, value: int) -> int:
+        return value

@@ -1,4 +1,5 @@
-"""One device step of the count path: K stacked blocks -> one int32 total.
+"""One device step: K stacked blocks -> one int32 total (count path), or a
+bit mask and its hit indices (collect path).
 
 The counterparts of adhoc_queries_pointclouds_tpu/parallel/mesh.py
 sharded_bbox_count (mesh.py:416-423), sharded_bbox_count_packed
@@ -9,13 +10,31 @@ the same (rows, B) operands; with one device there is no shard_map or psum,
 so the K blocks ride one kernel launch and the per-block counts are summed
 on the device. The result is a 0-d int32 tensor, read by the engine only
 when it drains old steps.
+
+The collect step is the counterpart of mesh._collect_fn / sharded_collect
+(mesh.py:229-302), split in two around the host's read of the counts:
+collect_mask runs the kind's predicate into a BitMask (true per-block
+counts included); once the engine has read the counts it gives each
+partial block an offset, and collect_indices compacts exactly those
+blocks' hits. There is no cap.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import predicate
+from ..ops import compact, predicate
+
+# collect kind (mesh.py:233-280) -> bit-mask wrapper; packed kinds take
+# extra = (widths, block_size), class_dict (k, block_size)
+_MASKS = {
+    "bbox": predicate.bbox_mask_bits,
+    "bbox_packed": predicate.bbox_mask_bits_packed,
+    "class": predicate.class_mask_bits,
+    "class_dict": predicate.class_mask_bits_dict,
+    "time": predicate.time_mask_bits,
+    "time_packed": predicate.time_mask_bits_packed,
+}
 
 
 def bbox_count(xs, ys, zs, los, his, nvs) -> torch.Tensor:
@@ -62,3 +81,33 @@ def time_count_packed(thp, tlp, qs, nvs, widths, block_size: int) -> torch.Tenso
     lo words at widths (k_hi, k_lo), residual-space (rows, 4) ranges."""
     counts = predicate.time_count_packed_kernel(thp, tlp, qs, nvs, widths, block_size)
     return counts.sum(dtype=torch.int32)
+
+
+# step kind (the engine's operand layout) -> count step; packed kinds take
+# extra as in _MASKS
+_COUNTS = {
+    "bbox": bbox_count,
+    "bbox_packed": bbox_count_packed,
+    "class": class_count,
+    "class_dict": class_count_dict,
+    "time": time_count,
+    "time_packed": time_count_packed,
+}
+
+
+def count(kind: str, arrays: tuple, extra: tuple = ()) -> torch.Tensor:
+    """The 0-d int32 total of one count step over its (rows, ...) operands."""
+    return _COUNTS[kind](*arrays, *extra)
+
+
+def collect_mask(kind: str, arrays: tuple, extra: tuple = ()) -> predicate.BitMask:
+    """The predicate of one collect step over its (rows, ...) operands, as
+    sharded_collect takes them: kind and extra as in _MASKS."""
+    return _MASKS[kind](*arrays, *extra)
+
+
+def collect_indices(mask: predicate.BitMask, offsets, total: int,
+                    block_size: int) -> torch.Tensor:
+    """(total,) int32 ascending local hit rows of the blocks with an offset
+    ((rows,) int64, -1 to skip a block), each at its offset."""
+    return compact.compact_bits(mask.bits, mask.chunks, offsets, total, block_size)

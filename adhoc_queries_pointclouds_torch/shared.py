@@ -14,13 +14,23 @@ from adhoc_queries_pointclouds_tpu.formats import (  # noqa: F401
     open_point_cloud,
     synth,
 )
-from adhoc_queries_pointclouds_tpu.formats.las import has_gps_time  # noqa: F401
+from adhoc_queries_pointclouds_tpu.formats.las import (  # noqa: F401
+    encode_point_records,
+    has_gps_time,
+    make_writeback_header,
+    write_las_chunked,
+)
 from adhoc_queries_pointclouds_tpu.models.query import (  # noqa: F401
     BoundsQuery,
     ClassQuery,
     DensityConfig,
     QueryPlan,
     TimeRangeQuery,
+)
+from adhoc_queries_pointclouds_tpu.sinks import (  # noqa: F401
+    FileHits,
+    HitEmitter,
+    gather_hits,
 )
 from adhoc_queries_pointclouds_tpu.utils.aabb import (  # noqa: F401
     AABB,

@@ -12,21 +12,34 @@ Phases, in order; the first fault raises and the script exits non-zero:
      nvcc versions; no CUDA device is an error
   2. build: nvcc builds the kernels of adhoc_queries_pointclouds_torch/csrc
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main path's shapes (K=4 blocks of 2^21 points), exact equality;
-     kernel and plain times (CUDA events, median of 25 runs, L2 flushed
-     before each) and the bytes read per second
+     the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
+     points), exact equality; kernel and plain times (CUDA events, median of
+     25 runs, L2 flushed before each) and the bytes moved per second. The
+     collect kernels (one bit-mask entry per collect kind, and the ordered
+     compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
+     1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
+     unaligned block size
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
-     (2 x 2M), three paths, each with the launch counters set to 0 just
+     (2 x 2M), five paths, each with the launch counters set to 0 just
      before it and read just after:
        bbox: counts in both transports with the sidecar index off,
          auto-built and read, each equal to a numpy f64 oracle;
+       collect: -o over LAST (the box, class 6 and the time range, both
+         transports, index off and read: auto-built for the box, exact for
+         class and time) and LAZER (one run per predicate, and a
+         --print-points run); every written LAS file, read back, holds
+         exactly the numpy oracle's matches of its input file in file
+         order; the LAZER outputs and printed text are byte-identical to
+         the port's --device cpu run; one run_query(force_collect=True) of
+         the LAST box, with no sink, counts the oracle's matches;
        class: --class 6 (mixed blocks) and --class 4 (absent) in both
          transports with the index off and exact (built as the index
          command builds it), plus one u8-row run at a block size with
          B % 4 == 2, each equal to a numpy oracle;
        time: a --time-range that straddles files, in both transports with
          the index off and exact, each equal to a numpy f64 oracle;
+       probe: the bbox probe tool at 2^24 points, every bbox row equal;
      every kernel of a path must have launched in it
 
 It prints the nvidia-smi line and a JSON object of per-kernel numbers on the
@@ -36,10 +49,12 @@ lines before the last, and {"ok": true, "device": {...}} as the last line.
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -50,10 +65,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from adhoc_queries_pointclouds_torch import _build, cli, host
+from adhoc_queries_pointclouds_torch import _build, cli, engine, host
 from adhoc_queries_pointclouds_torch.host import packed_row_width
+from adhoc_queries_pointclouds_torch.ops import compact as C
 from adhoc_queries_pointclouds_torch.ops import predicate as P
-from adhoc_queries_pointclouds_torch.shared import index, open_point_cloud, parse_aabb, synth
+from adhoc_queries_pointclouds_torch.shared import (
+    BoundsQuery,
+    QueryPlan,
+    encode_point_records,
+    index,
+    make_writeback_header,
+    open_point_cloud,
+    parse_aabb,
+    synth,
+)
+from adhoc_queries_pointclouds_torch.tools import bboxprobe
 
 SEED = 20261016
 K, B = 4, 1 << 21  # AQPC_BLOCKS_PER_STEP blocks of DEFAULT_BLOCK_SIZE points
@@ -68,16 +94,31 @@ E2E_BOX_SMALL = "100500;200250;0;101700;200876;80"
 # spans 40 s and one of 2M points 10 s: each range straddles file boundaries.
 E2E_TIME_LARGE = (52.5, 181.25)
 E2E_TIME_SMALL = (7.5, 13.25)
+# a selective box over LAZER file 0 for the --print-points run
+E2E_BOX_PRINT = "100500;200250;0;100560;200330;80"
 FORMATS = ("las", "last", "lazer", "laz")
-# kernel -> (source, replaced TPU kernel); all sources are CUDA C++
+DENSITIES = (0.0, 0.001, 0.5, 1.0)  # hit share of block k in the collect cases
+PROBE_N = 1 << 24  # the probe tool's --n
+_TPU = "adhoc_queries_pointclouds_tpu/"
+# kernel -> (source, the Pallas kernel or XLA-fused function it replaces);
+# all sources are CUDA C++
 KERNELS = {
-    "bbox_count_multi": ("bbox_count.cu", "ops/predicate.py:281"),
-    "bbox_count_packed": ("bbox_count_packed.cu", "ops/predicate.py:499"),
-    "class_count_multi": ("class_count.cu", "ops/predicate.py:336"),
-    "class_count_words": ("class_count.cu", "ops/predicate.py:733"),
-    "class_count_dict": ("class_count_dict.cu", "ops/predicate.py:597"),
-    "time_count_multi": ("time_count.cu", "ops/predicate.py:235"),
-    "time_count_packed": ("time_count.cu", "ops/predicate.py:529"),
+    "bbox_count_multi": ("bbox_count.cu", _TPU + "ops/predicate.py:281"),
+    "bbox_count_packed": ("bbox_count_packed.cu", _TPU + "ops/predicate.py:499"),
+    "class_count_multi": ("class_count.cu", _TPU + "ops/predicate.py:336"),
+    "class_count_words": ("class_count.cu", _TPU + "ops/predicate.py:733"),
+    "class_count_dict": ("class_count_dict.cu", _TPU + "ops/predicate.py:597"),
+    "time_count_multi": ("time_count.cu", _TPU + "ops/predicate.py:235"),
+    "time_count_packed": ("time_count.cu", _TPU + "ops/predicate.py:529"),
+    "mask_bbox": ("mask_bits.cu", _TPU + "ops/predicate.py:261"),
+    "mask_bbox_packed": ("mask_bits.cu", _TPU + "ops/predicate.py:508"),
+    "mask_class": ("mask_bits.cu", _TPU + "ops/predicate.py:247"),
+    "mask_class_dict": ("mask_bits.cu", _TPU + "ops/predicate.py:604"),
+    "mask_time": ("mask_bits.cu", _TPU + "ops/predicate.py:235"),
+    "mask_time_packed": ("mask_bits.cu", _TPU + "ops/predicate.py:537"),
+    "compact_bits": ("compact_bits.cu", _TPU + "ops/compact.py:86"),
+    "bbox_probe_acc": ("bbox_probe.cu", "tools/bboxprobe.py:60"),
+    "bbox_probe_acc_nomask": ("bbox_probe.cu", "tools/bboxprobe.py:87"),
 }
 
 
@@ -154,11 +195,12 @@ def compare(name, kernel_fn, plain_fn, errs) -> None:
         fail(f"{name}: kernel disagrees with its plain version")
 
 
-def timed(timer, kernel_fn, plain_fn, nbytes: float, indent: str = "  ") -> tuple:
-    """Kernel and plain times at the main path's shape, with bytes read/s."""
+def timed(timer, kernel_fn, plain_fn, nbytes: float, indent: str = "  ",
+          what: str = f"{K} full blocks") -> tuple:
+    """Kernel and plain times at the main path's shape, with bytes moved/s."""
     ms = timer.ms(kernel_fn)
     plain_ms = timer.ms(plain_fn)
-    print(f"{indent}time, {K} full blocks: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
+    print(f"{indent}time, {what}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
           f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)")
     return ms, plain_ms
 
@@ -233,6 +275,8 @@ def phase_kernels(dev) -> dict:
     out["bbox_count_packed"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
     kernels_class(dev, gen, timer, out)
     kernels_time(dev, gen, timer, out)
+    kernels_collect(dev, gen, timer, out)
+    kernels_probe(dev, gen, timer, out)
     return out
 
 
@@ -350,6 +394,230 @@ def kernels_time(dev, gen, timer, out) -> None:
             sum(widths) / 8 * K * B, "    ")
     ms, plain_ms = times[(20, 32)]  # about the widths of the e2e datasets' blocks
     out["time_count_packed"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+
+
+def partial_offsets(counts, nvs, block_size) -> tuple:
+    """The engine's offsets: blocks with some but not all valid rows hit get
+    consecutive offsets, every other block -1; and the total."""
+    offsets, total = [], 0
+    for c, nv in zip(counts, nvs):
+        nv = min(max(nv, 0), block_size)
+        offsets.append(total if 0 < c < nv else -1)
+        total += c if 0 < c < nv else 0
+    return offsets, total
+
+
+def compare_collect(name, kernel_fn, plain_fn, nvs, block_size, errs, want_counts=None) -> tuple:
+    """One bit-mask entry against its plain version (words, counts, chunk
+    counts), then the compaction of its partial blocks against the plain
+    compaction. Returns the kernel's mask and the compaction's operands."""
+    got = kernel_fn()
+    torch.cuda.synchronize()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    same_shape = all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
+    mask_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if w.numel() else 0
+                   for g, w in zip(got, want))
+    counts = want.counts.tolist()
+    offsets, total = partial_offsets(counts, nvs.tolist(), block_size)
+    off = torch.tensor(offsets, dtype=torch.int64, device=got.bits.device)
+    idx = C.compact_bits(got.bits, got.chunks, off, total, block_size)
+    torch.cuda.synchronize()
+    ref = C.compact_bits_plain(want.bits, want.chunks, off, total, block_size)
+    idx_err = int((idx.to(torch.int64) - ref.to(torch.int64)).abs().max()) if total else 0
+    errs["mask"].append(mask_err)
+    errs["compact"].append(idx_err)
+    print(f"  {name}: counts kernel {got.counts.tolist()} plain {counts}, {total} hits "
+          f"compacted; max_abs_err mask {mask_err}, indices {idx_err}")
+    if not same_shape or mask_err or idx_err or idx.shape != ref.shape:
+        fail(f"{name}: kernel disagrees with its plain version")
+    if want_counts is not None and counts != want_counts:
+        fail(f"{name}: counts {counts}, built with {want_counts}")
+    return got, off, total
+
+
+def hit_rows(gen, dev, block_size: int) -> torch.Tensor:
+    """(K, B) bool, block k's rows hit at DENSITIES[k]."""
+    dens = torch.tensor(DENSITIES, device=dev)
+    return torch.rand((K, block_size), device=dev, generator=gen) < dens[:, None]
+
+
+def res_range(k: int, frac: float) -> tuple:
+    """A residual-space [lo, hi] holding about frac of uniform k-bit
+    residuals (all int32 at k = 32); frac 0 is the padding row's (0, -1)."""
+    if frac == 0:
+        return 0, -1
+    bot = 0 if k < 32 else I32_MIN
+    return bot, min(bot + max(1, round(frac * (1 << k))) - 1, I32_MAX)
+
+
+def unaligned(t: torch.Tensor, bu: int) -> torch.Tensor:
+    """The first K * bu elements of t as (K, bu): rows off 16-byte bounds."""
+    return t.reshape(-1)[: K * bu].view(K, bu)
+
+
+def kernels_collect(dev, gen, timer, out) -> None:
+    """Every bit-mask entry (mask_bits.cu) and the compaction
+    (compact_bits.cu) against their plain versions."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    nv_full = torch.full((K,), B, **i32)
+    nv_edges = torch.tensor([0, 1, B - 1, B], **i32)
+    bu = B - 8192 + 3  # B % 8 == 3: byte planes only, rows unaligned
+    nv_u = torch.tensor([bu, bu - 1, 4097, 0], **i32)
+    compact_errs: list[int] = []
+    hit = hit_rows(gen, dev, B)
+    want = hit.sum(1).tolist()
+
+    def raw_kind(name, args, kernel, plain, nbytes):
+        errs = {"mask": [], "compact": compact_errs}
+        print(f"{name}, K={K}, B={B}, hit densities {DENSITIES}:")
+        full = args(nv_full)
+        mask, off, total = compare_collect("n_valid B", lambda: kernel(*full),
+                                           lambda: P.pack_mask_bits(plain(*full)), nv_full, B,
+                                           errs, want)
+        edge = args(nv_edges)
+        compare_collect("n_valid 0, 1, B-1, B", lambda: kernel(*edge),
+                        lambda: P.pack_mask_bits(plain(*edge)), nv_edges, B, errs)
+        un = tuple(unaligned(t, bu) if t.shape == (K, B) else t for t in args(nv_u)[:-1])
+        un += (nv_u,)
+        compare_collect(f"unaligned B={bu}", lambda: kernel(*un),
+                        lambda: P.pack_mask_bits(plain(*un)), nv_u, bu, errs)
+        ms, plain_ms = timed(timer, lambda: kernel(*full), lambda: P.pack_mask_bits(plain(*full)),
+                             nbytes * K * B + K * B / 8)
+        out[name] = dict(max_abs_err=max(errs["mask"]), ms=ms, plain_ms=plain_ms)
+        return mask, off, total
+
+    # raw bbox: rows hit by construction, y and z always inside
+    inside = dict(lo=-(2**29), hi=2**29)
+    xs = torch.where(hit, rand_i32(gen, (K, B), dev, **inside),
+                     rand_i32(gen, (K, B), dev, 2**29 + 1, I32_MAX))
+    ys, zs = (rand_i32(gen, (K, B), dev, **inside) for _ in range(2))
+    lo = torch.full((K, 3), -(2**29), **i32)
+    hi = torch.full((K, 3), 2**29, **i32)
+    mask, off, total = raw_kind("mask_bbox", lambda nv: (xs, ys, zs, lo, hi, nv),
+                                P.bbox_mask_bits, P.bbox_mask_multi, 12)
+    print(f"compact_bits, blocks at densities {DENSITIES[1:3]} (the partial ones):")
+    ms, plain_ms = timed(
+        timer, lambda: C.compact_bits(mask.bits, mask.chunks, off, total, B),
+        lambda: C.compact_bits_plain(mask.bits, mask.chunks, off, total, B),
+        2 * B / 8 + 4 * total, what=f"{total} hits of 2 blocks")
+    compact_times = (ms, plain_ms)
+    del xs, ys, zs
+
+    cls = torch.where(hit, 6, torch.randint(7, 256, (K, B), device=dev, generator=gen))
+    cls = cls.to(torch.uint8)
+    targets = torch.full((K,), 6, **i32)
+    raw_kind("mask_class", lambda nv: (cls, targets, nv), P.class_mask_bits, P.class_mask_multi, 1)
+    del cls
+
+    # raw time: hit rows have hi word -1, the others hi >= 0 (the sign
+    # boundary); q = [(-1, INT_MIN), (0, INT_MIN)) takes exactly hi == -1
+    ths = torch.where(hit, -1, rand_i32(gen, (K, B), dev, 0, I32_MAX)).to(torch.int32)
+    tls = rand_i32(gen, (K, B), dev)
+    qs = torch.tensor([[-1, I32_MIN, 0, I32_MIN]] * K, **i32)
+    raw_kind("mask_time", lambda nv: (ths, tls, qs, nv), P.time_mask_bits, P.time_mask_multi, 8)
+    del ths, tls
+
+    def packed_kind(name, label, make, kernel, plain, nbytes, main_case, cases, unaligned_case):
+        errs = {"mask": [], "compact": compact_errs}
+        print(f"{name}, K={K}, B={B}, hit densities about {DENSITIES}:")
+        times = {}
+        for case in cases:
+            full = make(case, B, nv_full)
+            compare_collect(f"{label} {case}, n_valid B", lambda: kernel(*full),
+                            lambda: P.pack_mask_bits(plain(*full)), nv_full, B, errs)
+            edge = make(case, B, nv_edges)
+            compare_collect(f"{label} {case}, n_valid 0, 1, B-1, B", lambda: kernel(*edge),
+                            lambda: P.pack_mask_bits(plain(*edge)), nv_edges, B, errs)
+            times[case] = timed(timer, lambda: kernel(*full),
+                                lambda: P.pack_mask_bits(plain(*full)),
+                                (nbytes(case) + 1 / 8) * K * B, "    ")
+        un = make(unaligned_case, bu, nv_u)
+        compare_collect(f"{label} {unaligned_case}, unaligned B={bu}", lambda: kernel(*un),
+                        lambda: P.pack_mask_bits(plain(*un)), nv_u, bu, errs)
+        ms, plain_ms = times[main_case]
+        out[name] = dict(max_abs_err=max(errs["mask"]), ms=ms, plain_ms=plain_ms)
+
+    def planes(w, block_size):
+        return torch.randint(0, 256, (K, packed_row_width(w, block_size)), dtype=torch.uint8,
+                             device=dev, generator=gen)
+
+    def bbox_case(widths, block_size, nvs):
+        # x holds the block's density, y and z take every residual
+        rows = [[res_range(widths[0], d), res_range(widths[1], 1), res_range(widths[2], 1)]
+                for d in DENSITIES]
+        lo = torch.tensor([[a[0] for a in r] for r in rows], **i32)
+        hi = torch.tensor([[a[1] for a in r] for r in rows], **i32)
+        return (*(planes(w, block_size) for w in widths), lo, hi, nvs, widths, block_size)
+
+    packed_kind("mask_bbox_packed", "widths", bbox_case, P.bbox_mask_bits_packed,
+                P.bbox_mask_packed_multi, lambda w: sum(w) / 8, (20, 20, 20),
+                [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)], (8, 16, 32))
+
+    def time_case(widths, block_size, nvs):
+        # the hi residual in [bot, bot + density * 2^k_hi); the lo residual
+        # never decides (its lowest value bounds both ends)
+        kh, kl = widths
+        low = 0 if kl < 32 else I32_MIN
+        rows = []
+        for d in DENSITIES:
+            if d == 0:
+                rows.append([0, 0, 0, 0])  # start == end
+            elif d == 1:
+                rows.append([I32_MIN, I32_MIN, I32_MAX, I32_MAX])
+            else:
+                bot, top = res_range(kh, d)
+                rows.append([bot, low, top + 1, low])
+        qs = torch.tensor(rows, **i32)
+        return (planes(kh, block_size), planes(kl, block_size), qs, nvs, widths, block_size)
+
+    packed_kind("mask_time_packed", "widths", time_case, P.time_mask_bits_packed,
+                P.time_mask_packed_multi, lambda w: sum(w) / 8, (20, 32),
+                [(w, w) for w in PACKED_WIDTHS] + [(20, 32), (4, 28)], (16, 32))
+
+    def dict_case(k, block_size, nvs):
+        # codes: a miss (len(dict)), two codes at 2^-k, and a block of code 0
+        cp = planes(k, block_size)
+        cp[3] = 0
+        codes = torch.tensor([1 << k, 0, 1, 0], **i32)
+        return (cp, codes, nvs, k, block_size)
+
+    packed_kind("mask_class_dict", "k", dict_case, P.class_mask_bits_dict,
+                P.class_mask_dict_multi, lambda k: k / 8, 2, [1, 2, 4, 8], 8)
+
+    ms, plain_ms = compact_times
+    out["compact_bits"] = dict(max_abs_err=max(compact_errs), ms=ms, plain_ms=plain_ms)
+
+
+def kernels_probe(dev, gen, timer, out) -> None:
+    """The bbox probe variants (bbox_probe.cu) at the probe tool's size."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = PROBE_N
+    x, y, z = (rand_i32(gen, (n,), dev, -(2**30), 2**30) for _ in range(3))
+    lo = torch.full((3,), -(2**29), **i32)
+    hi = torch.full((3,), 2**29, **i32)
+    errs: list[int] = []
+    print(f"bbox_probe_acc, n={n}:")
+    for nv in (n, n - 5, 1, 0):
+        nvt = torch.tensor(nv, **i32)
+        compare(f"n_valid {nv}", lambda: P.bbox_probe_acc_kernel(x, y, z, lo, hi, nvt).reshape(1),
+                lambda: P.bbox_probe_acc(x, y, z, lo, hi, nvt).reshape(1), errs)
+    nvt = torch.tensor(n, **i32)
+    ms, plain_ms = timed(timer, lambda: P.bbox_probe_acc_kernel(x, y, z, lo, hi, nvt),
+                         lambda: P.bbox_probe_acc(x, y, z, lo, hi, nvt), 12 * n,
+                         what=f"{n} points")
+    out["bbox_probe_acc"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    errs = []
+    print(f"bbox_probe_acc_nomask, n={n}:")
+    compare("aligned", lambda: P.bbox_probe_acc_nomask_kernel(x, y, z, lo, hi).reshape(1),
+            lambda: P.bbox_probe_acc_nomask(x, y, z, lo, hi).reshape(1), errs)
+    compare("columns off 16-byte bounds",
+            lambda: P.bbox_probe_acc_nomask_kernel(x[1:], y[1:], z[1:], lo, hi).reshape(1),
+            lambda: P.bbox_probe_acc_nomask(x[1:], y[1:], z[1:], lo, hi).reshape(1), errs)
+    ms, plain_ms = timed(timer, lambda: P.bbox_probe_acc_nomask_kernel(x, y, z, lo, hi),
+                         lambda: P.bbox_probe_acc_nomask(x, y, z, lo, hi), 12 * n,
+                         what=f"{n} points")
+    out["bbox_probe_acc_nomask"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -477,11 +745,176 @@ def path_time(datasets) -> None:
                 fail(f"{data_dir.name}: the exact index did not prune the time range")
 
 
+def written_oracle(data_dir: Path, match) -> list:
+    """The numpy oracle of a collect: for each input file with hits, in file
+    order, the write-back header and the LAS point records of exactly its
+    matches, in file order."""
+    want = []
+    for f in point_files(data_dir):
+        r = open_point_cloud(f)
+        m = match(r)
+        if m.any():
+            pos = r.positions_world()[m]
+            header = make_writeback_header(len(pos), pos.min(0), pos.max(0), point_format=2)
+            recs = encode_point_records(header, pos, r.column("classification")[m],
+                                        r.column("color")[m], r.column("intensity")[m])
+            want.append((header, recs))
+        r.close()
+    return want
+
+
+def check_written(out: str, want: list, label: str) -> list[Path]:
+    """Every "Wrote" file, read back with the shared readers, holds the
+    oracle's points of its input file, in order."""
+    wrote = [Path(p) for p in re.findall(r"^Wrote (.+)$", out, re.M)]
+    if [p.name for p in wrote] != [f"matching_points_{j}.las" for j in range(len(want))]:
+        fail(f"{label}: wrote {[p.name for p in wrote]}, the oracle has {len(want)} files with hits")
+    for path, (header, recs) in zip(wrote, want):
+        r = open_point_cloud(path)
+        pos = r.column("position")
+        same = (r.point_count == len(recs)
+                and tuple(r.header.scale) == tuple(header.scale)
+                and tuple(r.header.offset) == tuple(header.offset)
+                and all(np.array_equal(pos[:, j], recs[a]) for j, a in enumerate("xyz"))
+                and np.array_equal(r.column("classification"), recs["classification"])
+                and np.array_equal(r.column("intensity"), recs["intensity"])
+                and np.array_equal(r.column("color"),
+                                   np.stack([recs["red"], recs["green"], recs["blue"]], 1)))
+        r.close()
+        if not same:
+            fail(f"{label}: {path.name} is not the oracle's matches of its input file")
+    return wrote
+
+
+def cli_collect(data_dir: Path, query: list[str], pack: str, use_index: bool, want: list,
+                out_dir: Path, device: str = "cuda") -> str:
+    """One CLI collect with -o; its count and every written file must equal
+    the oracle's."""
+    out_dir.mkdir(parents=True)
+    args = ["-i", str(data_dir), *query, "--device", device, "--stats", "-o", str(out_dir)]
+    if not use_index:
+        args.append("--no-index")
+    t0 = time.perf_counter()
+    out = run_cli(args, pack)
+    wall = time.perf_counter() - t0
+    found = int(re.search(r"^Found (\d+) matching points$", out, re.M).group(1))
+    mpts = re.search(r"\(([\d.]+) Mpts/s\)", out).group(1)
+    idx = "on " if use_index else "off"
+    label = f"{data_dir.name} -o {' '.join(query)} AQPC_PACK={pack} index {idx} on {device}"
+    n_want = sum(len(recs) for _, recs in want)
+    if found != n_want:
+        fail(f"{label}: found {found}, oracle {n_want}")
+    wrote = check_written(out, want, label)
+    print(f"  {label}: found {found} in {len(wrote)} files equal to the oracle's; "
+          f"{wall:.3f} s, {mpts} Mpts/s, {found / wall / 1e6:.2f} M hits/s")
+    for line in out.splitlines()[2 + len(wrote):-1]:
+        print(f"      {line.strip()}")
+    return out
+
+
+def collect_without_sink(data_dir: Path, box, want: int) -> None:
+    """run_query(force_collect=True) on the card: the collect path's steps,
+    bit masks, compaction, hit gather and ordered emission into a
+    count-only emitter, with no LAS write-back. Its count must equal the
+    oracle's, with no hits kept and no file written."""
+    os.environ["AQPC_PACK"] = "1"
+    t0 = time.perf_counter()
+    res = engine.run_query(data_dir, QueryPlan(bounds=BoundsQuery(box)), device="cuda",
+                           force_collect=True)
+    wall = time.perf_counter() - t0
+    label = f"{data_dir.name} run_query(force_collect=True) box AQPC_PACK=1 index on"
+    if res.match_count != want or res.hits or res.output_files:
+        fail(f"{label}: found {res.match_count} with {len(res.hits)} kept hits and "
+             f"{len(res.output_files)} files, oracle {want} and none")
+    print(f"  {label}: found {res.match_count}, no sink; {wall:.3f} s, "
+          f"{res.mpts_per_s:.1f} Mpts/s, {want / wall / 1e6:.2f} M hits/s")
+    for line in res.timer.report().splitlines():
+        print(f"      {line.strip()}")
+
+
+def path_collect(datasets) -> None:
+    """-o over LAST 64M and LAZER 4M and one --print-points run. The LAST
+    box runs read the sidecars the bbox path auto-built; the exact ones are
+    built before the class and time runs."""
+    big, small = datasets[0][0], datasets[2][0]
+    box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
+    (t0_l, t1_l), (t0_s, t1_s) = E2E_TIME_LARGE, E2E_TIME_SMALL
+
+    def in_time(t0, t1):
+        def match(r):
+            g = r.column("gps_time")
+            return (g >= t0) & (g < t1)
+        return match
+
+    last_queries = [
+        (["--bounds", E2E_BOX_LARGE], lambda r: box_l.contains_points(r.positions_world())),
+        (["--class", "6"], lambda r: r.column("classification") == 6),
+        (["--time-range", f"{t0_l};{t1_l}"], in_time(t0_l, t1_l)),
+    ]
+    lazer_queries = [
+        (["--bounds", E2E_BOX_SMALL], lambda r: box_s.contains_points(r.positions_world())),
+        (["--class", "6"], lambda r: r.column("classification") == 6),
+        (["--time-range", f"{t0_s};{t1_s}"], in_time(t0_s, t1_s)),
+    ]
+    with tempfile.TemporaryDirectory(prefix="aqpc_collect_") as tmp:
+        tmp = Path(tmp)
+        for q, (query, match) in enumerate(last_queries):
+            if q == 1:
+                build_exact_indexes(datasets)
+            want = written_oracle(big, match)
+            print(f"{big.name}: {' '.join(query)}, oracle {sum(len(r) for _, r in want)} "
+                  f"matching in {len(want)} files")
+            for n, (pack, use_index) in enumerate([("1", False), ("0", False), ("1", True),
+                                                   ("0", True)]):
+                out_dir = tmp / f"last_{q}_{n}"
+                cli_collect(big, query, pack, use_index, want, out_dir)
+                shutil.rmtree(out_dir)
+            if q == 0:
+                collect_without_sink(big, box_l, sum(len(r) for _, r in want))
+            del want
+        for q, (query, match) in enumerate(lazer_queries):
+            want = written_oracle(small, match)
+            dirs = [tmp / f"lazer_{q}_{device}" for device in ("cuda", "cpu")]
+            for device, out_dir in zip(("cuda", "cpu"), dirs):
+                cli_collect(small, query, "1", True, want, out_dir, device)
+            names = sorted(p.name for p in dirs[0].iterdir())
+            if names != sorted(p.name for p in dirs[1].iterdir()) or not all(
+                    filecmp.cmp(dirs[0] / f, dirs[1] / f, shallow=False) for f in names):
+                fail(f"{small.name} -o {' '.join(query)}: the card's files differ from the CPU's")
+            print(f"  {small.name} -o {' '.join(query)}: {len(names)} files byte-identical "
+                  f"to the --device cpu run's")
+        want = oracle(small, E2E_BOX_PRINT)
+        texts = []
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out = run_cli(["-i", str(small), "--bounds", E2E_BOX_PRINT, "--device", device,
+                           "--print-points"], "1")
+            wall = time.perf_counter() - t0
+            lines = [line for line in out.splitlines() if line.startswith("Found point: (")]
+            texts.append(lines)
+            print(f"  {small.name} --print-points --bounds {E2E_BOX_PRINT} on {device}: "
+                  f"{len(lines)} points printed in {wall:.3f} s, oracle {want}")
+            if len(lines) != want or f"Found {want} matching points" not in out:
+                fail(f"{small.name} --print-points on {device}: {len(lines)} lines, oracle {want}")
+        if texts[0] != texts[1]:
+            fail(f"{small.name} --print-points: the card's text differs from the CPU's")
+
+
+def path_probe(datasets) -> None:
+    """The bbox probe tool at 2^24 points: every bbox row, the two probe
+    variants among them, gives the same count (the tool raises if not)."""
+    del datasets
+    bboxprobe.main(["--n", str(PROBE_N), "--iters", "8", "--device", "cuda"])
+
+
 # path -> (driver, the kernels it must launch)
 PATHS = {
     "bbox": (path_bbox, ("bbox_count_multi", "bbox_count_packed")),
+    "collect": (path_collect, ("mask_bbox", "mask_bbox_packed", "mask_class", "mask_class_dict",
+                               "mask_time", "mask_time_packed", "compact_bits")),
     "class": (path_class, ("class_count_multi", "class_count_words", "class_count_dict")),
     "time": (path_time, ("time_count_multi", "time_count_packed")),
+    "probe": (path_probe, ("bbox_probe_acc", "bbox_probe_acc_nomask")),
 }
 
 
@@ -506,10 +939,6 @@ def main() -> int:
         datasets = make_datasets(Path(tmp))
         seconds["datasets"] = time.perf_counter() - t
         for name, (drive, path_kernels) in PATHS.items():
-            if name == "class":
-                t = time.perf_counter()
-                build_exact_indexes(datasets)
-                seconds["exact indexes"] = time.perf_counter() - t
             t = time.perf_counter()
             P.reset_launches()
             drive(datasets)
@@ -525,7 +954,7 @@ def main() -> int:
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": f"adhoc_queries_pointclouds_torch/csrc/{src}",
-         "replaces": f"adhoc_queries_pointclouds_tpu/{tpu}", "launches": launches[name],
+         "replaces": tpu, "launches": launches[name],
          **kernels[name]}
         for name, (src, tpu) in KERNELS.items()
     ]}

@@ -56,7 +56,12 @@ def test_found_line_matches_jax_cli(data, capsys, box, extra):
     ["--profile", "trace"],
     ["--devices", "2"],
 ])
-def test_flags_not_ported_exit_nonzero(data, capsys, flag):
+def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, flag):
+    if flag[0] in ("-o", "--print-points"):
+        # ported: exit 0 and the JAX CLI's output, line for line (but the
+        # timing line), and -o writes the JAX CLI's files byte for byte
+        _same_collect_output(data, capsys, tmp_path, flag)
+        return
     args = ["-i", str(data), "--bounds", BOXES[0], "--device", "cpu", *flag]
     assert torch_cli.main(args) != 0
     err = capsys.readouterr().err
@@ -67,6 +72,30 @@ def test_flags_not_ported_exit_nonzero(data, capsys, flag):
         assert err == capsys.readouterr().err != ""
     else:
         assert "not yet ported" in err
+
+
+def _same_collect_output(data, capsys, tmp_path, flag):
+    outs = []
+    for name, cli, extra in (("jax", jax_cli, []), ("torch", torch_cli, ["--device", "cpu"])):
+        out_dir = tmp_path / name
+        out_dir.mkdir()
+        args = ["-i", str(data), "--bounds", BOXES[0], "--block-size", "16384", *extra]
+        args += ["-o", str(out_dir)] if flag[0] == "-o" else flag
+        assert cli.main(args) == 0
+        lines = capsys.readouterr().out.replace(str(out_dir), "OUT").splitlines()
+        assert lines[-1].startswith("Searched ")
+        outs.append((lines[:-1], sorted(out_dir.glob("*.las")) if flag[0] == "-o" else []))
+    (ref, ref_files), (got, got_files) = outs
+    assert got == ref
+    n = _found("\n".join(got))
+    assert n > 0
+    if flag[0] == "-o":
+        assert got[1:-1] == ["Wrote OUT/matching_points_0.las", "Wrote OUT/matching_points_1.las"]
+        assert [f.name for f in got_files] == [f.name for f in ref_files]
+        for a, b in zip(got_files, ref_files):
+            assert a.read_bytes() == b.read_bytes()
+    else:
+        assert sum(line.startswith("Found point: (") for line in got) == n
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from adhoc_queries_pointclouds_torch import engine, host
+from adhoc_queries_pointclouds_torch.ops import compact as TC
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
 from adhoc_queries_pointclouds_torch.shared import (
     BoundsQuery,
@@ -404,3 +405,178 @@ def test_class_and_time_run_query_on_cuda_matches_cpu(dev, tmp_path, monkeypatch
             assert TP.launches[kernel] > 0
             ref = engine.run_query(data, plan, device="cpu", block_size=block, use_index=False)
             assert got.match_count == ref.match_count > 0
+
+
+# ---------------------------------------------------------------- collect
+
+
+def _mask_both(fn, args, dev, *extra):
+    """BitMask of the kernel on the card and of the plain version on the
+    CPU, field by field equal; returns the plain one."""
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    got = fn(*(t.to(dev) for t in cpu), *extra)
+    torch.cuda.synchronize()
+    ref = fn(*cpu, *extra)
+    for name, g, r in zip(ref._fields, got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r), name
+    return got, ref
+
+
+def _compact_both(dev, got, ref, nvs, block_size):
+    """Offsets for the partial blocks only, compaction on the card against
+    its plain version and against masked_collect of the unpacked mask."""
+    counts = ref.counts.numpy()
+    nv = np.clip(nvs, 0, block_size)
+    offsets = np.full(len(counts), -1, np.int64)
+    total = 0
+    for j, c in enumerate(counts):
+        if 0 < c < nv[j]:
+            offsets[j], total = total, total + int(c)
+    off = torch.from_numpy(offsets)
+    idx = TC.compact_bits(got.bits, got.chunks, off.to(dev), total, block_size)
+    torch.cuda.synchronize()
+    want = TC.compact_bits(ref.bits, ref.chunks, off, total, block_size)
+    assert torch.equal(idx.cpu(), want)
+    _, all_idx, bounds = TC.masked_collect(TP.unpack_mask_bits(ref.bits, block_size))
+    for j, o in enumerate(offsets):
+        if o >= 0:
+            assert torch.equal(want[o : o + counts[j]], all_idx[bounds[j] : bounds[j + 1]])
+    return total
+
+
+@pytest.mark.parametrize("B", [1, 31, 4096, 4099, 8192 * 3 + 40, 262144 + 4])
+def test_mask_bits_raw_kinds_match_plain(dev, B):
+    rng = np.random.default_rng(B + 101)
+    x, y, z, los, his, nvs = _raw(rng, 7, B)
+    # one block at about half density, one sparse
+    los[1], his[1] = (I32.min, I32.min, I32.min), (0, I32.max, I32.max)
+    los[2], his[2] = (I32.min, I32.min, I32.min), (I32.min + 2**22, I32.max, I32.max)
+    nvs[1] = nvs[2] = B
+    got, ref = _mask_both(TP.bbox_mask_bits, (x, y, z, los, his, nvs), dev)
+    _compact_both(dev, got, ref, nvs, B)
+    cls, targets, cnv = _class_case(rng, 7, B)
+    got, ref = _mask_both(TP.class_mask_bits, (cls, targets, cnv), dev)
+    _compact_both(dev, got, ref, cnv, B)
+    th, tl, qs, tnv = _time_raw_case(rng, 6, B)
+    got, ref = _mask_both(TP.time_mask_bits, (th, tl, qs, tnv), dev)
+    _compact_both(dev, got, ref, tnv, B)
+
+
+@pytest.mark.parametrize("widths", [(0, 0, 0), (4, 4, 4), (12, 20, 28), (32, 32, 32),
+                                    (3, 17, 31)])
+@pytest.mark.parametrize("B", [4096, 4104, 8192 * 2 + 264])
+def test_mask_bits_packed_kinds_match_plain(dev, widths, B):
+    rng = np.random.default_rng(sum(widths) + B + 7)
+    args = _packed(rng, 5, B, widths)
+    got, ref = _mask_both(TP.bbox_mask_bits_packed, args, dev, widths, B)
+    assert int(ref.counts[0]) > 0
+    _compact_both(dev, got, ref, args[-1], B)
+    tw = widths[1:]
+    targs = _time_packed_case(rng, 5, B, tw)
+    got, ref = _mask_both(TP.time_mask_bits_packed, targs, dev, tw, B)
+    _compact_both(dev, got, ref, targs[-1], B)
+    for k in (1, 2, 4, 8):
+        dargs = _dict_case(rng, 5, B, k)
+        got, ref = _mask_both(TP.class_mask_bits_dict, dargs, dev, k, B)
+        _compact_both(dev, got, ref, dargs[-1], B)
+
+
+@pytest.mark.parametrize("k", [8, 16, 32])
+def test_mask_bits_byte_planes_only(dev, k):
+    """B % 8 != 0: byte planes only, rows off 8-byte boundaries."""
+    rng = np.random.default_rng(k + 5)
+    B = 4099
+    args = _packed(rng, 3, B, (k, k, k))
+    got, ref = _mask_both(TP.bbox_mask_bits_packed, args, dev, (k, k, k), B)
+    _compact_both(dev, got, ref, args[-1], B)
+    targs = _time_packed_case(rng, 3, B, (k, k))
+    _mask_both(TP.time_mask_bits_packed, targs, dev, (k, k), B)
+    _mask_both(TP.class_mask_bits_dict, _dict_case(rng, 5, B, 8), dev, 8, B)
+
+
+def test_mask_bits_full_and_empty_blocks(dev):
+    """Full blocks and blocks with no hits: the compaction skips both."""
+    B = 10_000
+    x = np.arange(3 * B, dtype=np.int32).reshape(3, B)
+    los = np.array([[0, 0, 0], [5, 5, 5], [0, 0, 0]], np.int32)
+    his = np.array([[I32.max] * 3, [4, 4, 4], [I32.max] * 3], np.int32)
+    nvs = np.array([B, B, 77], np.int32)
+    got, ref = _mask_both(TP.bbox_mask_bits, (x, x, x, los, his, nvs), dev)
+    assert ref.counts.tolist() == [B, 0, 77]
+    assert _compact_both(dev, got, ref, nvs, B) == 0
+
+
+def test_mask_wrappers_reject_bad_operands(dev):
+    x = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    b = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    nv = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        TP.bbox_mask_bits(x.to(torch.int64), x, x, b, b, nv)
+    with pytest.raises(ValueError):
+        TP.class_mask_bits(x.to(torch.uint8), nv[:1], nv)
+    m = TP.bbox_mask_bits(x, x, x, b, b, nv)
+    with pytest.raises(ValueError):
+        TC.compact_bits(m.bits, m.chunks, nv.to(torch.int64)[:1], 0, 16)
+    with pytest.raises(TypeError):
+        TC.compact_bits(m.bits, m.chunks, nv, 0, 16)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4099, 262144, 1 << 20])
+def test_bbox_probe_kernels_match_plain(dev, n):
+    rng = np.random.default_rng(n + 3)
+    x, y, z = (rng.integers(-(2**30), 2**30, n).astype(np.int32) for _ in range(3))
+    lo = np.full(3, -(2**29), np.int32)
+    hi = np.full(3, 2**29, np.int32)
+    cpu = [torch.from_numpy(a) for a in (x, y, z, lo, hi)]
+    gpu = [t.to(dev) for t in cpu]
+    for nv in {0, n // 3, n, n + 9}:
+        nvt = torch.tensor(nv, dtype=torch.int32)
+        got = TP.bbox_probe_acc_kernel(*gpu, nvt.to(dev))
+        assert got.dim() == 0 and int(got) == int(TP.bbox_probe_acc(*cpu, nvt))
+    got = TP.bbox_probe_acc_nomask_kernel(*gpu)
+    assert int(got) == int(TP.bbox_probe_acc_nomask(*cpu))
+    if n > 1:  # columns off 16-byte boundaries take the scalar loads
+        un = [t[1:] for t in gpu[:3]]
+        got = TP.bbox_probe_acc_nomask_kernel(*un, *gpu[3:])
+        assert int(got) == int(TP.bbox_probe_acc_nomask(*(t[1:] for t in cpu[:3]), *cpu[3:]))
+
+
+@pytest.mark.parametrize("pack", ["1", "0"])
+def test_collect_on_cuda_matches_cpu(dev, tmp_path, monkeypatch, pack):
+    """-o LAS files byte-identical and keep_hits equal between the card and
+    the CPU path, for every predicate, index off and exact."""
+    import filecmp
+
+    monkeypatch.setenv("AQPC_PACK", pack)
+    synth.write_dataset(tmp_path / "d", n_files=2, points_per_file=150_000, seed=4,
+                        formats=("last",), clustered=True, point_format=3)
+    data = tmp_path / "d" / "last"
+    cases = [
+        (dict(bounds=BoundsQuery(parse_aabb("100100;200250;0;102000;200876;80"))),
+         "mask_bbox_packed" if pack == "1" else "mask_bbox", 1 << 15),
+        (dict(classification=ClassQuery(6)),
+         "mask_class_dict" if pack == "1" else "mask_class", (1 << 15) - 2),
+        (dict(time_range=TimeRangeQuery(0.4, 1.1)),
+         "mask_time_packed" if pack == "1" else "mask_time", 1 << 15),
+    ]
+    for use_index in (False, True):
+        if use_index:
+            _exact_index(data)
+        for n, (query, kernel, block) in enumerate(cases):
+            outs = []
+            for device in (dev, "cpu"):
+                out = tmp_path / f"out_{use_index}_{n}_{device}"
+                out.mkdir()
+                TP.reset_launches()
+                res = engine.run_query(data, QueryPlan(output_dir=out, **query), device=device,
+                                       block_size=block, use_index=use_index, keep_hits=True)
+                outs.append((res, TP.launches[kernel], TP.launches["compact_bits"]))
+            (got, mask_n, compact_n), (ref, cpu_n, _) = outs
+            assert mask_n > 0 and compact_n > 0 and cpu_n == 0
+            assert got.match_count == ref.match_count > 0
+            assert len(got.output_files) == len(ref.output_files) == 2
+            for a, b in zip(got.output_files, ref.output_files):
+                assert filecmp.cmp(a, b, shallow=False)
+            for a, b in zip(got.hits, ref.hits):
+                np.testing.assert_array_equal(a.position_world, b.position_world)
+                np.testing.assert_array_equal(a.classification, b.classification)

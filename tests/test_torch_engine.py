@@ -167,20 +167,32 @@ def test_discover_files_and_total_bounds_match_jax_engine(dataset, fmt):
         r.close()
 
 
-def test_non_bbox_plans_are_not_ported(dataset):
-    """Collecting plans still raise; a class count now runs (the class and
-    time parity grids are in test_torch_engine_class.py and
-    test_torch_engine_time.py)."""
+def test_non_bbox_plans_are_not_ported(dataset, tmp_path):
+    """Density plans still raise; a class count and the collecting plans
+    (-o, --print-points) now run (the class, time and collect parity grids
+    are in test_torch_engine_class.py, test_torch_engine_time.py and
+    test_torch_engine_collect.py)."""
+    import io
+
     from adhoc_queries_pointclouds_torch.shared import ClassQuery, DensityConfig
 
     data = dataset / "data" / "last"
     plan = QueryPlan(classification=ClassQuery(6))
     got = torch_engine.run_query(data, plan, device="cpu", block_size=BLOCK)
     assert got.match_count == jax_engine.run_query(data, plan, block_size=BLOCK).match_count > 0
-    for plan in (
-        QueryPlan(bounds=BoundsQuery(parse_aabb(BOXES["partial"])), density=DensityConfig(1.0)),
-        QueryPlan(bounds=BoundsQuery(parse_aabb(BOXES["partial"])), output_dir=dataset),
-        QueryPlan(bounds=BoundsQuery(parse_aabb(BOXES["partial"])), print_points=True),
-    ):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            torch_engine.run_query(data, plan, device="cpu")
+    box = BoundsQuery(parse_aabb(BOXES["partial"]))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        torch_engine.run_query(data, QueryPlan(bounds=box, density=DensityConfig(1.0)),
+                               device="cpu")
+    outs = []
+    for name, run in (("jax", jax_engine.run_query),
+                      ("torch", lambda *a, **kw: torch_engine.run_query(*a, device="cpu", **kw))):
+        buf = io.StringIO()
+        (tmp_path / name).mkdir()
+        printed = run(data, QueryPlan(bounds=box, print_points=True), block_size=BLOCK,
+                      print_stream=buf)
+        written = run(data, QueryPlan(bounds=box, output_dir=tmp_path / name), block_size=BLOCK)
+        outs.append((printed.match_count, buf.getvalue(), written.match_count,
+                     [f.read_bytes() for f in written.output_files]))
+    assert outs[0] == outs[1]
+    assert outs[1][0] == outs[1][2] == outs[1][1].count("\n") > 0 and outs[1][3]
