@@ -21,14 +21,9 @@ import sys
 from pathlib import Path
 
 from .engine import run_query
-from .shared import (
-    BoundsQuery,
-    ClassQuery,
-    QueryPlan,
-    TimeRangeQuery,
-    parse_aabb,
-    throughput_line,
-)
+from .models.query import BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery
+from .utils.aabb import parse_aabb
+from .utils.timing import throughput_line
 
 # dest -> flag, for flags whose queries are not ported yet
 _NOT_PORTED = {

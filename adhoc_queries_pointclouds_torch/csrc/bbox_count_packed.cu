@@ -11,44 +11,67 @@
 // i >= nv[k] are masked (padding rows carry lo = 0, hi = -1, nv = 0).
 //
 // What bounds it: device-memory reads, (kx + ky + kz) / 8 bytes per valid
-// point, each byte once; the unpack is a few shifts and ors per plane.
+// point, each byte once, as long as the compare stays cheap: rebuilding an
+// int32 residual costs three integer operations per point and plane, which
+// for a bit plane (an eighth of a byte) puts the limit on the integer pipes.
 //
-// What the design does about it: the widths are runtime arguments, so one
-// compiled kernel serves every width combination. Each thread rebuilds 8
-// consecutive points of each axis in registers (aqpc::unpack8), the 8-point
-// hit mask is counted with popc, and the CTA's sum reaches out[k] with one
-// atomicAdd.
+// What the design does about it (bbox_planes.cuh): the compare runs on the
+// planes as they lie, 32 points a word, as two borrow chains from the lowest
+// plane up, with every load of an axis started before its first compare. The
+// widths are runtime arguments, so one compiled kernel serves every width
+// combination. The grid is persistent, SM count x resident CTAs: a CTA
+// walks tiles of kChunkWords words (one word per thread) across all K rows,
+// keeps its count in registers while the row stays the same, and adds it to
+// out[k] with one atomicAdd per row it touched. out is zeroed by the
+// caller: that launch, and the one that joins los and his, are the floor
+// the (0, 0, 0) width shows.
+#include "bbox_planes.cuh"
 #include "block_count.cuh"
-#include "predicates.cuh"
+#include "collect.cuh"
 
 namespace {
 
+using aqpc::kChunkWords;
 using aqpc::kThreads;
 using aqpc::Planes;
 
-__global__ void __launch_bounds__(kThreads)
+template <bool Wide>
+__global__ void __launch_bounds__(kThreads, 2)
 bbox_count_packed_kernel(Planes ax, Planes ay, Planes az, const int32_t* __restrict__ bounds,
                          const int32_t* __restrict__ nvs, int32_t* __restrict__ out,
-                         int64_t block_size) {
-  const int64_t k = blockIdx.y;
-  int b[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) b[j] = bounds[k * 6 + j];
-  const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
-  const aqpc::PlaneRow rx = aqpc::plane_row(ax, k, block_size);
-  const aqpc::PlaneRow ry = aqpc::plane_row(ay, k, block_size);
-  const aqpc::PlaneRow rz = aqpc::plane_row(az, k, block_size);
-  const int64_t groups = (nv + 7) / 8;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-
+                         int64_t block_size, int64_t n_chunks, int64_t n_tiles) {
+  aqpc::BoxRow r;
+  int64_t row = -1;
   int count = 0;
-  for (int64_t g = tid; g < groups; g += stride) {
-    const int64_t left = nv - 8 * g;
-    const int valid = left >= 8 ? 8 : static_cast<int>(left);
-    count += __popc(aqpc::bbox_packed_mask8(rx, ry, rz, b, block_size, g, valid));
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {  // rows never decrease
+    const int64_t k = t / n_chunks;
+    if (k != row) {
+      if (row >= 0) {
+        aqpc::cta_add(count, out + row);
+        __syncthreads();  // cta_add's shared sums are free again
+      }
+      count = 0;
+      row = k;
+      r = aqpc::box_row(ax, ay, az, bounds, nvs, k, block_size);
+    }
+    const int64_t w = (t % n_chunks) * kChunkWords + threadIdx.x;
+    if (32 * w < r.nv) count += __popc(aqpc::box_word<Wide>(r, block_size, w));
   }
-  aqpc::cta_add(count, out + k);
+  if (row >= 0) aqpc::cta_add(count, out + row);
+}
+
+template <bool Wide>
+int launch(const Planes& ax, const Planes& ay, const Planes& az, const void* bounds,
+           const void* nvs, void* out, int64_t k_blocks, int64_t block_size, void* stream) {
+  static const int64_t resident = aqpc::resident_ctas(bbox_count_packed_kernel<Wide>);
+  const int64_t n_chunks = aqpc::mask_chunks(block_size);
+  const int64_t n_tiles = k_blocks * n_chunks;
+  const int64_t grid = n_tiles < resident ? n_tiles : resident;
+  bbox_count_packed_kernel<Wide><<<static_cast<unsigned>(grid), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      ax, ay, az, static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(nvs),
+      static_cast<int32_t*>(out), block_size, n_chunks, n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -65,11 +88,10 @@ extern "C" int aqpc_bbox_count_packed(const void* xp, const void* yp, const void
   if (!aqpc::width_ok(kx, 32, block_size) || !aqpc::width_ok(ky, 32, block_size) ||
       !aqpc::width_ok(kz, 32, block_size))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(aqpc::chunks_for((block_size + 7) / 8, 4)),
-                  static_cast<unsigned>(k_blocks));
-  bbox_count_packed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      aqpc::make_planes(xp, kx, block_size), aqpc::make_planes(yp, ky, block_size),
-      aqpc::make_planes(zp, kz, block_size), static_cast<const int32_t*>(bounds),
-      static_cast<const int32_t*>(nvs), static_cast<int32_t*>(out), block_size);
-  return static_cast<int>(cudaGetLastError());
+  const Planes ax = aqpc::make_planes(xp, kx, block_size);
+  const Planes ay = aqpc::make_planes(yp, ky, block_size);
+  const Planes az = aqpc::make_planes(zp, kz, block_size);
+  return aqpc::box_planes_wide(xp, yp, zp, block_size)
+             ? launch<true>(ax, ay, az, bounds, nvs, out, k_blocks, block_size, stream)
+             : launch<false>(ax, ay, az, bounds, nvs, out, k_blocks, block_size, stream);
 }

@@ -24,11 +24,15 @@
 // What the design does about it: one CTA per (chunk, block). On raw
 // columns each warp builds one mask word per pass, lane j testing row
 // 32w + j (neighbouring lanes on neighbouring addresses) and __ballot_sync
-// gathering the 32 results. On packed planes the unit is the count
-// kernels' 8-point group: lane l rebuilds group 4w' + l with aqpc::unpack8,
-// and four lanes OR their 8-bit masks into one word with two shuffles, so
-// a warp writes 8 words per pass. Counts stay in registers; each CTA writes
-// its chunk count and adds it to counts[k] with one integer atomic.
+// gathering the 32 results. On the packed time and dictionary planes the
+// unit is the count kernels' 8-point group: lane l rebuilds group 4w' + l
+// with aqpc::unpack8, and four lanes OR their 8-bit masks into one word
+// with two shuffles, so a warp writes 8 words per pass. Counts stay in
+// registers; each CTA writes its chunk count and adds it to counts[k] with
+// one integer atomic. The packed bbox entry compares in the packed domain
+// (bbox_planes.cuh): a thread makes one whole mask word, with no shuffle,
+// and a persistent grid of CTAs walks the (chunk, block) tiles.
+#include "bbox_planes.cuh"
 #include "block_count.cuh"
 #include "collect.cuh"
 #include "predicates.cuh"
@@ -127,15 +131,6 @@ struct TimeRows {
   __device__ bool operator()(int64_t i) const { return aqpc::in_time_range(h[i], l[i], q); }
 };
 
-struct BboxGroups {
-  PlaneRow x, y, z;
-  int b[6];
-  int64_t block_size;
-  __device__ unsigned operator()(int64_t g, int valid) const {
-    return aqpc::bbox_packed_mask8(x, y, z, b, block_size, g, valid);
-  }
-};
-
 struct DictGroups {
   PlaneRow c;
   int t;
@@ -184,15 +179,36 @@ mask_time_kernel(const int32_t* __restrict__ ths, const int32_t* __restrict__ tl
   mask_rows(p, aqpc::clamp_valid(nvs[k], block_size), o);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One thread per mask word of a tile (chunk c of block k); the CTA walks
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+template <bool Wide>
+__global__ void __launch_bounds__(kThreads, 2)
 mask_bbox_packed_kernel(Planes ax, Planes ay, Planes az, const int32_t* __restrict__ bounds,
-                        const int32_t* __restrict__ nvs, MaskOut o, int64_t block_size) {
-  const int64_t k = blockIdx.y;
-  BboxGroups p{aqpc::plane_row(ax, k, block_size), aqpc::plane_row(ay, k, block_size),
-               aqpc::plane_row(az, k, block_size), {}, block_size};
-#pragma unroll
-  for (int j = 0; j < 6; ++j) p.b[j] = bounds[k * 6 + j];
-  mask_groups(p, aqpc::clamp_valid(nvs[k], block_size), o);
+                        const int32_t* __restrict__ nvs, MaskOut o, int64_t k_blocks,
+                        int64_t block_size) {
+  aqpc::BoxRow r;
+  int64_t row = -1;
+  const int64_t n_tiles = o.n_chunks * k_blocks;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t k = t / o.n_chunks;
+    const int64_t c = t % o.n_chunks;
+    if (k != row) {
+      row = k;
+      r = aqpc::box_row(ax, ay, az, bounds, nvs, k, block_size);
+    }
+    const int64_t w = c * kChunkWords + threadIdx.x;
+    uint32_t word = 0;
+    if (w < o.n_words) {
+      if (32 * w < r.nv) word = aqpc::box_word<Wide>(r, block_size, w);
+      o.bits[k * o.n_words + w] = word;
+    }
+    const int count = aqpc::cta_sum(__popc(word));
+    if (threadIdx.x == 0) {
+      o.chunks[k * o.n_chunks + c] = count;
+      if (count) atomicAdd(o.counts + k, count);
+    }
+    __syncthreads();  // cta_sum's shared sums are free again
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -227,6 +243,22 @@ bool prepare(int64_t k_blocks, int64_t block_size, void* bits, void* counts, voi
 
 int done() { return static_cast<int>(cudaGetLastError()); }
 int refused() { return static_cast<int>(cudaErrorInvalidValue); }
+
+// The packed bbox entry's persistent grid: SM count x resident CTAs, no
+// more than there are tiles.
+template <bool Wide>
+int launch_bbox_packed(const Planes& ax, const Planes& ay, const Planes& az, const void* bounds,
+                       const void* nvs, const MaskOut& o, int64_t k_blocks, int64_t block_size,
+                       void* stream) {
+  static const int64_t resident = aqpc::resident_ctas(mask_bbox_packed_kernel<Wide>);
+  const int64_t n_tiles = o.n_chunks * k_blocks;
+  const int64_t grid = n_tiles < resident ? n_tiles : resident;
+  mask_bbox_packed_kernel<Wide><<<static_cast<unsigned>(grid), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      ax, ay, az, static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(nvs), o,
+      k_blocks, block_size);
+  return done();
+}
 
 }  // namespace
 
@@ -268,11 +300,13 @@ extern "C" int aqpc_mask_bbox_packed(const void* xp, const void* yp, const void*
   dim3 grid;
   MaskOut o;
   if (!prepare(k_blocks, block_size, bits, counts, chunks, &grid, &o)) return refused();
-  mask_bbox_packed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      aqpc::make_planes(xp, kx, block_size), aqpc::make_planes(yp, ky, block_size),
-      aqpc::make_planes(zp, kz, block_size), static_cast<const int32_t*>(bounds),
-      static_cast<const int32_t*>(nvs), o, block_size);
-  return done();
+  const Planes ax = aqpc::make_planes(xp, kx, block_size);
+  const Planes ay = aqpc::make_planes(yp, ky, block_size);
+  const Planes az = aqpc::make_planes(zp, kz, block_size);
+  return aqpc::box_planes_wide(xp, yp, zp, block_size)
+             ? launch_bbox_packed<true>(ax, ay, az, bounds, nvs, o, k_blocks, block_size, stream)
+             : launch_bbox_packed<false>(ax, ay, az, bounds, nvs, o, k_blocks, block_size,
+                                         stream);
 }
 
 // cls: (K, B) u8; targets, nvs: (K,) int32.

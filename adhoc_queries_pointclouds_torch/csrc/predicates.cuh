@@ -7,7 +7,8 @@
 //                     (hi, lo) int32 encoding of the f64 times
 //   class_matches     raw u8 class equality
 //   *_mask8           the packed forms over 8 consecutive points rebuilt
-//                     from bit-planar residuals (unpack_planes.cuh)
+//                     from bit-planar residuals (unpack_planes.cuh); the
+//                     packed bbox test is apart, in bbox_planes.cuh
 //
 // Their JAX counterparts are bbox_mask_jnp_multi, time_mask_jnp_multi,
 // class_mask_jnp_multi and the packed mask forms in
@@ -40,17 +41,6 @@ __device__ __forceinline__ int class_matches(uint8_t c, int t) {
 
 // Hit masks of points 8g..8g+7 (bit i = point 8g+i) for `valid` (1..8)
 // points below n_valid; bits past `valid` are 0.
-
-__device__ __forceinline__ unsigned bbox_packed_mask8(const PlaneRow& x, const PlaneRow& y,
-                                                      const PlaneRow& z, const int* b,
-                                                      int64_t block_size, int64_t g,
-                                                      int valid) {
-  unsigned m = group_valid_mask(valid);
-  m &= range_mask8(x.row, block_size, x.nbytes, x.nbits, b[0], b[3], g, valid, x.aligned);
-  m &= range_mask8(y.row, block_size, y.nbytes, y.nbits, b[1], b[4], g, valid, y.aligned);
-  m &= range_mask8(z.row, block_size, z.nbytes, z.nbits, b[2], b[5], g, valid, z.aligned);
-  return m;
-}
 
 // Dictionary codes equal to the target code t (len(dict) on a miss).
 __device__ __forceinline__ unsigned dict_mask8(const PlaneRow& c, int t, int64_t block_size,

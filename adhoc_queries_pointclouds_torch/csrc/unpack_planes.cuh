@@ -1,5 +1,7 @@
-// Bit-planar residual unpack shared by the packed-transport count kernels
-// (bbox, dictionary class, GPS time).
+// Bit-planar residual unpack shared by the packed-transport dictionary
+// class and GPS-time kernels; the layout and the Planes argument below also
+// serve the packed bbox kernels, which compare without unpacking
+// (bbox_planes.cuh).
 //
 // Layout of one column, one block row of the (K, nbytes*B + nbits*B/8) u8
 // stack (k = 8*nbytes + nbits bits): byte plane p holds bits 8p..8p+7 of

@@ -42,22 +42,15 @@ from pathlib import Path
 
 import numpy as np
 
-from . import host
+from . import host, index as index_mod
+from .formats import is_valid_file, open_point_cloud
+from .formats.las import has_gps_time
 from .parallel import step
 from .parallel.comm import LocalStepComm
 from .parallel.pipeline import BlockFeeder, task_gidx
-from .shared import (
-    AABB,
-    FileHits,
-    HitEmitter,
-    StageTimer,
-    clamp_bounds_to_i32,
-    has_gps_time,
-    index as index_mod,
-    is_valid_file,
-    local_query_bounds,
-    open_point_cloud,
-)
+from .sinks import FileHits, HitEmitter
+from .utils.aabb import AABB, clamp_bounds_to_i32, local_query_bounds
+from .utils.timing import StageTimer
 
 DEFAULT_BLOCK_SIZE = 1 << 21  # 2M points: 24 MiB of xyz per block
 # Blocks of files smaller than the block size are cut to a multiple of this,

@@ -34,7 +34,7 @@ import os
 
 import numpy as np
 
-from .shared import native
+from . import native
 
 
 def encode_f64_sortable(t) -> tuple:

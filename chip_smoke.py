@@ -8,14 +8,22 @@ sm_90a), with nvcc on CUDA_HOME:
 
 Phases, in order; the first fault raises and the script exits non-zero:
 
-  1. environment: card name and power limit (nvidia-smi), torch, CUDA and
+  1. environment: neither jax nor the JAX package is loaded (checked again
+     at the end); card name and power limit (nvidia-smi), torch, CUDA and
      nvcc versions; no CUDA device is an error
   2. build: nvcc builds the kernels of adhoc_queries_pointclouds_torch/csrc
+     and g++ the host codec of native/ (no codec is an error), and ptxas
+     reports the registers of the two packed bbox kernels
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
      points), exact equality; kernel and plain times (CUDA events, median of
-     25 runs, L2 flushed before each) and the bytes moved per second. The
-     collect kernels (one bit-mask entry per collect kind, and the ordered
+     25 runs, L2 flushed before each), the bytes moved per second, and the
+     bound: the bytes at 3.35 TB/s or the operations at 67 T/s, whichever
+     is larger. The two packed bbox kernels also run at widths that take
+     each branch of their compare, with bounds at and beyond both ends of
+     residual space, at block sizes 2^21, 2^21 - 8 and 2^21 - 8189, and
+     print the (0, 0, 0) floor beside every width's time. The collect
+     kernels (one bit-mask entry per collect kind, and the ordered
      compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
      1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
      unaligned block size
@@ -65,25 +73,31 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from adhoc_queries_pointclouds_torch import _build, cli, engine, host
+from adhoc_queries_pointclouds_torch import _build, cli, engine, index, native
+from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
+from adhoc_queries_pointclouds_torch.formats.las import encode_point_records, make_writeback_header
 from adhoc_queries_pointclouds_torch.host import packed_row_width
+from adhoc_queries_pointclouds_torch.models.query import BoundsQuery, QueryPlan
 from adhoc_queries_pointclouds_torch.ops import compact as C
 from adhoc_queries_pointclouds_torch.ops import predicate as P
-from adhoc_queries_pointclouds_torch.shared import (
-    BoundsQuery,
-    QueryPlan,
-    encode_point_records,
-    index,
-    make_writeback_header,
-    open_point_cloud,
-    parse_aabb,
-    synth,
-)
 from adhoc_queries_pointclouds_torch.tools import bboxprobe
+from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
 
 SEED = 20261016
 K, B = 4, 1 << 21  # AQPC_BLOCKS_PER_STEP blocks of DEFAULT_BLOCK_SIZE points
 PACKED_WIDTHS = (0, 4, 12, 20, 28, 32)
+# further width triples of the two packed bbox kernels: bit planes only, a
+# full set of bit planes, byte planes only, 1 to 3 byte planes with bit
+# planes on top, and the widest unsigned width
+BBOX_PACKED_WIDTHS = [(1, 1, 1), (7, 7, 7), (8, 8, 8), (9, 17, 25), (31, 31, 31)]
+# block sizes of the packed bbox kernels' narrow path: B % 8 == 0 but
+# B % 128 != 0, and B % 8 == 3 (byte planes only; the mask kernel's partial
+# last word)
+B_NARROW, B_BYTES_ONLY = B - 8, B - 8192 + 3
+# published peaks of one H100 SXM: device memory, and float32 outside the
+# tensor cores (integer compares and logic run no faster than that)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 TIMED_RUNS = 25
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 # Boxes over the generated datasets (files at x offsets 100000 + 1000 i,
@@ -133,7 +147,17 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
+def check_no_jax(when: str) -> None:
+    """The port and this script load no jax and nothing of the JAX package."""
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "adhoc_queries_pointclouds_tpu"))
+    if loaded:
+        fail(f"{when}: sys.modules holds {loaded}")
+    print(f"{when}: no jax, no jaxlib and no module of the JAX package in sys.modules")
+
+
 def phase_env() -> str:
+    check_no_jax("after the port's imports")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA device")
@@ -149,6 +173,33 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.library()
     print(f"built {_build.library_path()} in {time.perf_counter() - t0:.3f} s")
+    # the host codec (g++): the card's machine must not decode in Python
+    t0 = time.perf_counter()
+    lib = native.load()
+    if lib is None:
+        fail("the port's native codec did not build or load (g++): formats would decode in Python")
+    print(f"built {lib._name} in {time.perf_counter() - t0:.3f} s")
+    # registers, shared memory and spills of the two packed bbox kernels
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory(prefix="aqpc_ptxas_") as tmp:
+        jobs = [subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", f"{tmp}/{src}.o",
+             str(Path(_build.__file__).parent / "csrc" / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in ("bbox_count_packed.cu", "mask_bits.cu")]
+        for job in jobs:
+            text = job.communicate()[0]
+            if job.returncode != 0:
+                fail(f"nvcc -Xptxas -v failed:\n{text}")
+            lines = text.splitlines()
+            for n, line in enumerate(lines):
+                name = re.search(r"(bbox_count_packed_kernel|mask_bbox_packed_kernel)ILb([01])E",
+                                 line)
+                if "Compiling entry function" in line and name:
+                    loads = "wide" if name.group(2) == "1" else "narrow"
+                    facts = "; ".join(x.replace("ptxas info    :", "").strip()
+                                      for x in lines[n + 2:n + 4])
+                    print(f"ptxas {name.group(1)}<{loads} loads>: {facts}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -183,6 +234,71 @@ def rand_i32(gen, shape, dev, lo=I32_MIN, hi=I32_MAX) -> torch.Tensor:
     return (v + lo).to(torch.int32)
 
 
+def rand_planes(gen, dev, widths, block_size: int) -> list:
+    """One random (K, row width) u8 plane stack per width."""
+    return [torch.randint(0, 256, (K, packed_row_width(w, block_size)), dtype=torch.uint8,
+                          device=dev, generator=gen) for w in widths]
+
+
+def edge_planes(gen, dev, widths, block_size: int) -> list:
+    """Plane stacks in which about half of the residuals sit at the ends and
+    the middle of residual space (bot, bot + 1, mid - 1, mid, top - 1, top),
+    where the bounds of edge_bounds lie, and the rest anywhere in it."""
+    stacks = []
+    for w in widths:
+        top, bot = ((1 << w) - 1, 0) if w < 32 else (I32_MAX, I32_MIN)
+        mid = (top + bot) // 2
+        palette = torch.tensor([bot, min(bot + 1, top), max(mid - 1, bot), mid, max(top - 1, bot),
+                                top], dtype=torch.int64, device=dev)
+        shape = (K, block_size)
+        pick = torch.randint(0, len(palette), shape, device=dev, generator=gen)
+        anywhere = torch.randint(bot, top + 1, shape, dtype=torch.int64, device=dev, generator=gen)
+        r = torch.where(torch.rand(shape, device=dev, generator=gen) < 0.5, palette[pick], anywhere)
+        u = r & 0xFFFFFFFF  # two's complement at w = 32
+        parts = [((u >> (8 * p)) & 0xFF).to(torch.uint8) for p in range(w // 8)]
+        weights = 1 << torch.arange(8, dtype=torch.int64, device=dev)
+        for q in range(w % 8):  # little bit order, 8 points a byte
+            bit = (u >> (8 * (w // 8) + q)) & 1
+            parts.append((bit.view(K, block_size // 8, 8) * weights).sum(-1).to(torch.uint8))
+        stacks.append(torch.cat(parts, 1) if parts
+                      else torch.empty((K, 0), dtype=torch.uint8, device=dev))
+    return stacks
+
+
+def edge_bounds(widths, dev):
+    """Residual-space (K, 3) los/his at and beyond both ends of each axis's
+    residual space [bot, top] = [0, 2^w - 1] ([INT32_MIN, INT32_MAX] at
+    w = 32), as the engine's saturating clip of a far box makes them: whole
+    int32 range, exactly the space, one past each end, single values at each
+    end, ranges wholly above or below the space, hi < lo. Yields (label,
+    los, his): for each of three sets of four such ranges, once with every
+    axis on the set (rotated, so that the rows differ between axes) and once
+    with one axis on it and the others taking every residual."""
+    def clip(v):
+        return min(max(v, I32_MIN), I32_MAX)
+
+    sets = []
+    for w in widths:
+        top, bot = ((1 << w) - 1, 0) if w < 32 else (I32_MAX, I32_MIN)
+        mid = (top + bot) // 2
+        sets.append([
+            [(I32_MIN, I32_MAX), (bot, top), (clip(bot - 1), clip(top + 1)), (top, top)],
+            [(bot, bot), (clip(top + 1), I32_MAX), (I32_MIN, clip(bot - 1)), (mid, mid - 1)],
+            [(clip(bot + 1), clip(top - 1)), (I32_MAX, I32_MAX), (I32_MIN, I32_MIN), (-5, mid)],
+        ])
+    everything = (I32_MIN, I32_MAX)
+    for s in range(3):
+        for label, rows in (
+            (f"edge set {s} on every axis",
+             [[sets[a][s][(k + a) % 4] for a in range(3)] for k in range(K)]),
+            (f"edge set {s} on axis {s}",
+             [[sets[a][s][k] if a == s else everything for a in range(3)] for k in range(K)]),
+        ):
+            lo = torch.tensor([[r[0] for r in row] for row in rows], dtype=torch.int32, device=dev)
+            hi = torch.tensor([[r[1] for r in row] for row in rows], dtype=torch.int32, device=dev)
+            yield label, lo, hi
+
+
 def compare(name, kernel_fn, plain_fn, errs) -> None:
     got = kernel_fn()
     torch.cuda.synchronize()
@@ -195,14 +311,31 @@ def compare(name, kernel_fn, plain_fn, errs) -> None:
         fail(f"{name}: kernel disagrees with its plain version")
 
 
-def timed(timer, kernel_fn, plain_fn, nbytes: float, indent: str = "  ",
-          what: str = f"{K} full blocks") -> tuple:
-    """Kernel and plain times at the main path's shape, with bytes moved/s."""
+def packed_ops(k: int) -> float:
+    """Integer operations per point that a range test on a k-bit bit-planar
+    column needs at least, as csrc/bbox_planes.cuh does it: 2.5 per byte
+    plane, 1/16 per bit plane, and 3 to turn byte flags into point bits (1.5
+    with no bit plane on top)."""
+    nbytes, nbits = k // 8, k % 8
+    gather = 0 if nbytes == 0 else (1.5 if nbits == 0 else 3)
+    return 2.5 * nbytes + gather + nbits / 16
+
+
+def timed(timer, kernel_fn, plain_fn, nbytes: float, ops: float, indent: str = "  ",
+          what: str = f"{K} full blocks", floor_ms: float | None = None) -> dict:
+    """Kernel and plain times at the main path's shape beside the bound: the
+    larger of nbytes (every input read once, every output written once) at
+    the card's memory rate and ops at its operation rate. No single PyTorch
+    call computes any of these functions, so library_ms is None."""
     ms = timer.ms(kernel_fn)
     plain_ms = timer.ms(plain_fn)
-    print(f"{indent}time, {what}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
-          f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s)")
-    return ms, plain_ms
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    floor = "" if floor_ms is None else f", (0, 0, 0) floor {floor_ms:.4f} ms"
+    print(f"{indent}time, {what}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s){floor}, "
+          f"{nbytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({100 * bound_ms / ms:.0f} % of the kernel's time), plain {plain_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def phase_kernels(dev) -> dict:
@@ -240,21 +373,20 @@ def phase_kernels(dev) -> dict:
     compare("K=1 (bbox_count)", lambda: P.bbox_count(*one).reshape(1),
             lambda: P.bbox_count_multi(*(t[None] for t in one[:5]), nv_full[1:2]), errs)
     args = cases[1][1]
-    ms, plain_ms = timed(timer, lambda: P.bbox_count_multi_kernel(*args),
-                         lambda: P.bbox_count_multi(*args), 12 * K * B)
-    out["bbox_count_multi"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    t = timed(timer, lambda: P.bbox_count_multi_kernel(*args),
+              lambda: P.bbox_count_multi(*args), 12 * K * B, 12 * K * B)
+    out["bbox_count_multi"] = dict(max_abs_err=max(errs), **t)
 
     # kernel 2: bbox_count_packed over bit-planar residual planes
     errs = []
     print(f"bbox_count_packed, K={K}, B={B}:")
     nvs = torch.tensor([B, B - 5, 777, 0], **i32)  # the last row is padding
+    nv_mixed = torch.tensor([B, B - 5, 777, 1], **i32)
+    nv_narrow = torch.tensor([B_NARROW, B_NARROW - 1, 4097, 1], **i32)
+    nv_odd = torch.tensor([B_BYTES_ONLY, B_BYTES_ONLY - 1, 4097, 1], **i32)
     times = {}
-    for widths in [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)]:
-        planes = [
-            torch.randint(0, 256, (K, packed_row_width(w, B)), dtype=torch.uint8, device=dev,
-                          generator=gen)
-            for w in widths
-        ]
+    for widths in [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)] + BBOX_PACKED_WIDTHS:
+        planes = rand_planes(gen, dev, widths, B)
         # residual-space bounds: per-block boxes inside [0, 2^w) (any int32
         # at w = 32), as per-block bases give them; padding lo 0, hi -1
         tops = [(1 << w) - 1 if w < 32 else I32_MAX for w in widths]
@@ -266,13 +398,36 @@ def phase_kernels(dev) -> dict:
         args = (*planes, lo, hi, nvs, widths, B)
         compare(f"widths {widths}", lambda: P.bbox_count_packed_kernel(*args),
                 lambda: P.bbox_count_packed_multi(*args), errs)
+        # bounds at and beyond both ends of residual space, wide loads and
+        # (B % 128 != 0) the narrow path
+        wide = edge_planes(gen, dev, widths, B)
+        narrow = edge_planes(gen, dev, widths, B_NARROW)
+        for label, elo, ehi in edge_bounds(widths, dev):
+            args = (*wide, elo, ehi, nv_mixed, widths, B)
+            compare(f"widths {widths}, {label}", lambda: P.bbox_count_packed_kernel(*args),
+                    lambda: P.bbox_count_packed_multi(*args), errs)
+            args = (*narrow, elo, ehi, nv_narrow, widths, B_NARROW)
+            compare(f"widths {widths}, {label}, B={B_NARROW}",
+                    lambda: P.bbox_count_packed_kernel(*args),
+                    lambda: P.bbox_count_packed_multi(*args), errs)
+        del wide, narrow
+        if all(w % 8 == 0 for w in widths):  # byte planes only: any B
+            odd = edge_planes(gen, dev, widths, B_BYTES_ONLY)
+            for label, elo, ehi in edge_bounds(widths, dev):
+                args = (*odd, elo, ehi, nv_odd, widths, B_BYTES_ONLY)
+                compare(f"widths {widths}, {label}, B={B_BYTES_ONLY}",
+                        lambda: P.bbox_count_packed_kernel(*args),
+                        lambda: P.bbox_count_packed_multi(*args), errs)
+            del odd
         # timed as the main path runs it: K full blocks
         args = (*planes, lo, hi, nv_full, widths, B)
         times[widths] = timed(timer, lambda: P.bbox_count_packed_kernel(*args),
                               lambda: P.bbox_count_packed_multi(*args),
-                              sum(widths) / 8 * K * B, "    ")
-    ms, plain_ms = times[(20, 20, 20)]  # the widths of the e2e datasets' blocks
-    out["bbox_count_packed"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+                              sum(widths) / 8 * K * B + 32 * K,
+                              sum(packed_ops(w) for w in widths) * K * B, "    ",
+                              floor_ms=times.get((0, 0, 0), {}).get("ms"))
+    # (20, 20, 20): the widths of the e2e datasets' blocks
+    out["bbox_count_packed"] = dict(max_abs_err=max(errs), **times[(20, 20, 20)])
     kernels_class(dev, gen, timer, out)
     kernels_time(dev, gen, timer, out)
     kernels_collect(dev, gen, timer, out)
@@ -316,9 +471,9 @@ def kernels_class(dev, gen, timer, out) -> None:
             compare("K=1 (class_count_packed)",
                     lambda: P.class_count_packed(words[2], targets[2], nv_cases[0][1][2]).reshape(1),
                     lambda: plain(words[2:3], targets[2:3], nv_cases[0][1][2:3]), errs)
-        ms, plain_ms = timed(timer, lambda: kernel(col, targets, nv_full),
-                             lambda: plain(col, targets, nv_full), K * B)
-        out[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        t = timed(timer, lambda: kernel(col, targets, nv_full),
+                  lambda: plain(col, targets, nv_full), K * B, 2 * K * B)
+        out[name] = dict(max_abs_err=max(errs), **t)
 
     errs = []
     print(f"class_count_dict, K={K}, B={B}:")
@@ -333,9 +488,9 @@ def kernels_class(dev, gen, timer, out) -> None:
                 lambda: P.class_count_dict_multi(cp, codes, nvs, k, B), errs)
         times[k] = timed(timer, lambda: P.class_count_dict_kernel(cp, codes, nv_full, k, B),
                          lambda: P.class_count_dict_multi(cp, codes, nv_full, k, B),
-                         k / 8 * K * B, "    ")
-    ms, plain_ms = times[2]  # blocks of the e2e datasets hold at most 4 classes
-    out["class_count_dict"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+                         k / 8 * K * B, (packed_ops(k) + 1) * K * B, "    ")
+    # k = 2: blocks of the e2e datasets hold at most 4 classes
+    out["class_count_dict"] = dict(max_abs_err=max(errs), **times[2])
 
 
 def kernels_time(dev, gen, timer, out) -> None:
@@ -366,9 +521,9 @@ def kernels_time(dev, gen, timer, out) -> None:
     for name, qs, nvs in cases:
         compare(name, lambda: P.time_count_multi_kernel(ths, tls, qs, nvs),
                 lambda: P.time_count_multi(ths, tls, qs, nvs), errs)
-    ms, plain_ms = timed(timer, lambda: P.time_count_multi_kernel(ths, tls, q_rand, nv_full),
-                         lambda: P.time_count_multi(ths, tls, q_rand, nv_full), 8 * K * B)
-    out["time_count_multi"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    t = timed(timer, lambda: P.time_count_multi_kernel(ths, tls, q_rand, nv_full),
+              lambda: P.time_count_multi(ths, tls, q_rand, nv_full), 8 * K * B, 10 * K * B)
+    out["time_count_multi"] = dict(max_abs_err=max(errs), **t)
 
     errs = []
     print(f"time_count_packed, K={K}, B={B}:")
@@ -391,9 +546,9 @@ def kernels_time(dev, gen, timer, out) -> None:
         times[widths] = timed(
             timer, lambda: P.time_count_packed_kernel(*planes, qs, nv_full, widths, B),
             lambda: P.time_count_packed_multi(*planes, qs, nv_full, widths, B),
-            sum(widths) / 8 * K * B, "    ")
-    ms, plain_ms = times[(20, 32)]  # about the widths of the e2e datasets' blocks
-    out["time_count_packed"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+            sum(widths) / 8 * K * B, (sum(packed_ops(w) for w in widths) + 4) * K * B, "    ")
+    # (20, 32): about the widths of the e2e datasets' blocks
+    out["time_count_packed"] = dict(max_abs_err=max(errs), **times[(20, 32)])
 
 
 def partial_offsets(counts, nvs, block_size) -> tuple:
@@ -436,6 +591,23 @@ def compare_collect(name, kernel_fn, plain_fn, nvs, block_size, errs, want_count
     return got, off, total
 
 
+def compare_mask(name, kernel_fn, plain_fn, errs) -> None:
+    """One bit-mask entry against its plain version: words, counts and chunk
+    counts, with no compaction."""
+    got = kernel_fn()
+    torch.cuda.synchronize()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    same_shape = all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if w.numel() else 0
+              for g, w in zip(got, want))
+    errs.append(err)
+    print(f"  {name}: counts kernel {got.counts.tolist()} plain {want.counts.tolist()}; "
+          f"max_abs_err mask {err}")
+    if not same_shape or err:
+        fail(f"{name}: kernel disagrees with its plain version")
+
+
 def hit_rows(gen, dev, block_size: int) -> torch.Tensor:
     """(K, B) bool, block k's rows hit at DENSITIES[k]."""
     dens = torch.tensor(DENSITIES, device=dev)
@@ -462,13 +634,13 @@ def kernels_collect(dev, gen, timer, out) -> None:
     i32 = dict(dtype=torch.int32, device=dev)
     nv_full = torch.full((K,), B, **i32)
     nv_edges = torch.tensor([0, 1, B - 1, B], **i32)
-    bu = B - 8192 + 3  # B % 8 == 3: byte planes only, rows unaligned
+    bu = B_BYTES_ONLY  # B % 8 == 3: byte planes only, rows unaligned
     nv_u = torch.tensor([bu, bu - 1, 4097, 0], **i32)
     compact_errs: list[int] = []
     hit = hit_rows(gen, dev, B)
     want = hit.sum(1).tolist()
 
-    def raw_kind(name, args, kernel, plain, nbytes):
+    def raw_kind(name, args, kernel, plain, nbytes, ops):
         errs = {"mask": [], "compact": compact_errs}
         print(f"{name}, K={K}, B={B}, hit densities {DENSITIES}:")
         full = args(nv_full)
@@ -482,9 +654,9 @@ def kernels_collect(dev, gen, timer, out) -> None:
         un += (nv_u,)
         compare_collect(f"unaligned B={bu}", lambda: kernel(*un),
                         lambda: P.pack_mask_bits(plain(*un)), nv_u, bu, errs)
-        ms, plain_ms = timed(timer, lambda: kernel(*full), lambda: P.pack_mask_bits(plain(*full)),
-                             nbytes * K * B + K * B / 8)
-        out[name] = dict(max_abs_err=max(errs["mask"]), ms=ms, plain_ms=plain_ms)
+        t = timed(timer, lambda: kernel(*full), lambda: P.pack_mask_bits(plain(*full)),
+                  nbytes * K * B + K * B / 8, ops * K * B)
+        out[name] = dict(max_abs_err=max(errs["mask"]), **t)
         return mask, off, total
 
     # raw bbox: rows hit by construction, y and z always inside
@@ -495,19 +667,19 @@ def kernels_collect(dev, gen, timer, out) -> None:
     lo = torch.full((K, 3), -(2**29), **i32)
     hi = torch.full((K, 3), 2**29, **i32)
     mask, off, total = raw_kind("mask_bbox", lambda nv: (xs, ys, zs, lo, hi, nv),
-                                P.bbox_mask_bits, P.bbox_mask_multi, 12)
+                                P.bbox_mask_bits, P.bbox_mask_multi, 12, 12)
     print(f"compact_bits, blocks at densities {DENSITIES[1:3]} (the partial ones):")
-    ms, plain_ms = timed(
+    # operations: a popc and a scan step per mask word, a few per hit
+    compact_times = timed(
         timer, lambda: C.compact_bits(mask.bits, mask.chunks, off, total, B),
         lambda: C.compact_bits_plain(mask.bits, mask.chunks, off, total, B),
-        2 * B / 8 + 4 * total, what=f"{total} hits of 2 blocks")
-    compact_times = (ms, plain_ms)
+        2 * B / 8 + 4 * total, 2 * B / 32 * 8 + 4 * total, what=f"{total} hits of 2 blocks")
     del xs, ys, zs
 
     cls = torch.where(hit, 6, torch.randint(7, 256, (K, B), device=dev, generator=gen))
     cls = cls.to(torch.uint8)
     targets = torch.full((K,), 6, **i32)
-    raw_kind("mask_class", lambda nv: (cls, targets, nv), P.class_mask_bits, P.class_mask_multi, 1)
+    raw_kind("mask_class", lambda nv: (cls, targets, nv), P.class_mask_bits, P.class_mask_multi, 1, 2)
     del cls
 
     # raw time: hit rows have hi word -1, the others hi >= 0 (the sign
@@ -515,10 +687,14 @@ def kernels_collect(dev, gen, timer, out) -> None:
     ths = torch.where(hit, -1, rand_i32(gen, (K, B), dev, 0, I32_MAX)).to(torch.int32)
     tls = rand_i32(gen, (K, B), dev)
     qs = torch.tensor([[-1, I32_MIN, 0, I32_MIN]] * K, **i32)
-    raw_kind("mask_time", lambda nv: (ths, tls, qs, nv), P.time_mask_bits, P.time_mask_multi, 8)
+    raw_kind("mask_time", lambda nv: (ths, tls, qs, nv), P.time_mask_bits, P.time_mask_multi, 8, 10)
     del ths, tls
 
-    def packed_kind(name, label, make, kernel, plain, nbytes, main_case, cases, unaligned_case):
+    def packed_kind(name, label, make, kernel, plain, nbytes, ops, main_case, cases,
+                    unaligned_case, more=None, floor_case=None):
+        """One packed mask entry over its cases; more(case) yields further
+        (label, operands) held mask against mask; floor_case is the case
+        with no planes, whose time is printed beside every later one."""
         errs = {"mask": [], "compact": compact_errs}
         print(f"{name}, K={K}, B={B}, hit densities about {DENSITIES}:")
         times = {}
@@ -529,18 +705,20 @@ def kernels_collect(dev, gen, timer, out) -> None:
             edge = make(case, B, nv_edges)
             compare_collect(f"{label} {case}, n_valid 0, 1, B-1, B", lambda: kernel(*edge),
                             lambda: P.pack_mask_bits(plain(*edge)), nv_edges, B, errs)
+            for what, args in more(case) if more else ():
+                compare_mask(f"{label} {case}, {what}", lambda: kernel(*args),
+                             lambda: P.pack_mask_bits(plain(*args)), errs["mask"])
             times[case] = timed(timer, lambda: kernel(*full),
                                 lambda: P.pack_mask_bits(plain(*full)),
-                                (nbytes(case) + 1 / 8) * K * B, "    ")
+                                (nbytes(case) + 1 / 8) * K * B, ops(case) * K * B, "    ",
+                                floor_ms=times.get(floor_case, {}).get("ms"))
         un = make(unaligned_case, bu, nv_u)
         compare_collect(f"{label} {unaligned_case}, unaligned B={bu}", lambda: kernel(*un),
                         lambda: P.pack_mask_bits(plain(*un)), nv_u, bu, errs)
-        ms, plain_ms = times[main_case]
-        out[name] = dict(max_abs_err=max(errs["mask"]), ms=ms, plain_ms=plain_ms)
+        out[name] = dict(max_abs_err=max(errs["mask"]), **times[main_case])
 
     def planes(w, block_size):
-        return torch.randint(0, 256, (K, packed_row_width(w, block_size)), dtype=torch.uint8,
-                             device=dev, generator=gen)
+        return rand_planes(gen, dev, (w,), block_size)[0]
 
     def bbox_case(widths, block_size, nvs):
         # x holds the block's density, y and z take every residual
@@ -550,9 +728,27 @@ def kernels_collect(dev, gen, timer, out) -> None:
         hi = torch.tensor([[a[1] for a in r] for r in rows], **i32)
         return (*(planes(w, block_size) for w in widths), lo, hi, nvs, widths, block_size)
 
+    nv_mixed = torch.tensor([B, B - 5, 777, 1], **i32)
+    nv_narrow = torch.tensor([B_NARROW, B_NARROW - 1, 4097, 1], **i32)
+
+    def bbox_edges(widths):
+        # bounds at and beyond both ends of residual space, wide loads and
+        # (B % 128 != 0) the narrow path
+        wide = edge_planes(gen, dev, widths, B)
+        narrow = edge_planes(gen, dev, widths, B_NARROW)
+        for what, lo, hi in edge_bounds(widths, dev):
+            yield what, (*wide, lo, hi, nv_mixed, widths, B)
+            yield f"{what}, B={B_NARROW}", (*narrow, lo, hi, nv_narrow, widths, B_NARROW)
+        if all(w % 8 == 0 for w in widths):  # byte planes only: any B
+            odd = edge_planes(gen, dev, widths, bu)
+            for what, lo, hi in edge_bounds(widths, dev):
+                yield f"{what}, B={bu}", (*odd, lo, hi, nv_u, widths, bu)
+
     packed_kind("mask_bbox_packed", "widths", bbox_case, P.bbox_mask_bits_packed,
-                P.bbox_mask_packed_multi, lambda w: sum(w) / 8, (20, 20, 20),
-                [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)], (8, 16, 32))
+                P.bbox_mask_packed_multi, lambda w: sum(w) / 8,
+                lambda w: sum(packed_ops(k) for k in w), (20, 20, 20),
+                [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)] + BBOX_PACKED_WIDTHS,
+                (8, 16, 32), bbox_edges, (0, 0, 0))
 
     def time_case(widths, block_size, nvs):
         # the hi residual in [bot, bot + density * 2^k_hi); the lo residual
@@ -572,7 +768,8 @@ def kernels_collect(dev, gen, timer, out) -> None:
         return (planes(kh, block_size), planes(kl, block_size), qs, nvs, widths, block_size)
 
     packed_kind("mask_time_packed", "widths", time_case, P.time_mask_bits_packed,
-                P.time_mask_packed_multi, lambda w: sum(w) / 8, (20, 32),
+                P.time_mask_packed_multi, lambda w: sum(w) / 8,
+                lambda w: sum(packed_ops(k) for k in w) + 4, (20, 32),
                 [(w, w) for w in PACKED_WIDTHS] + [(20, 32), (4, 28)], (16, 32))
 
     def dict_case(k, block_size, nvs):
@@ -583,10 +780,10 @@ def kernels_collect(dev, gen, timer, out) -> None:
         return (cp, codes, nvs, k, block_size)
 
     packed_kind("mask_class_dict", "k", dict_case, P.class_mask_bits_dict,
-                P.class_mask_dict_multi, lambda k: k / 8, 2, [1, 2, 4, 8], 8)
+                P.class_mask_dict_multi, lambda k: k / 8, lambda k: packed_ops(k) + 1, 2,
+                [1, 2, 4, 8], 8)
 
-    ms, plain_ms = compact_times
-    out["compact_bits"] = dict(max_abs_err=max(compact_errs), ms=ms, plain_ms=plain_ms)
+    out["compact_bits"] = dict(max_abs_err=max(compact_errs), **compact_times)
 
 
 def kernels_probe(dev, gen, timer, out) -> None:
@@ -603,10 +800,10 @@ def kernels_probe(dev, gen, timer, out) -> None:
         compare(f"n_valid {nv}", lambda: P.bbox_probe_acc_kernel(x, y, z, lo, hi, nvt).reshape(1),
                 lambda: P.bbox_probe_acc(x, y, z, lo, hi, nvt).reshape(1), errs)
     nvt = torch.tensor(n, **i32)
-    ms, plain_ms = timed(timer, lambda: P.bbox_probe_acc_kernel(x, y, z, lo, hi, nvt),
-                         lambda: P.bbox_probe_acc(x, y, z, lo, hi, nvt), 12 * n,
-                         what=f"{n} points")
-    out["bbox_probe_acc"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    t = timed(timer, lambda: P.bbox_probe_acc_kernel(x, y, z, lo, hi, nvt),
+              lambda: P.bbox_probe_acc(x, y, z, lo, hi, nvt), 12 * n, 12 * n,
+              what=f"{n} points")
+    out["bbox_probe_acc"] = dict(max_abs_err=max(errs), **t)
     errs = []
     print(f"bbox_probe_acc_nomask, n={n}:")
     compare("aligned", lambda: P.bbox_probe_acc_nomask_kernel(x, y, z, lo, hi).reshape(1),
@@ -614,10 +811,10 @@ def kernels_probe(dev, gen, timer, out) -> None:
     compare("columns off 16-byte bounds",
             lambda: P.bbox_probe_acc_nomask_kernel(x[1:], y[1:], z[1:], lo, hi).reshape(1),
             lambda: P.bbox_probe_acc_nomask(x[1:], y[1:], z[1:], lo, hi).reshape(1), errs)
-    ms, plain_ms = timed(timer, lambda: P.bbox_probe_acc_nomask_kernel(x, y, z, lo, hi),
-                         lambda: P.bbox_probe_acc_nomask(x, y, z, lo, hi), 12 * n,
-                         what=f"{n} points")
-    out["bbox_probe_acc_nomask"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    t = timed(timer, lambda: P.bbox_probe_acc_nomask_kernel(x, y, z, lo, hi),
+              lambda: P.bbox_probe_acc_nomask(x, y, z, lo, hi), 12 * n, 12 * n,
+              what=f"{n} points")
+    out["bbox_probe_acc_nomask"] = dict(max_abs_err=max(errs), **t)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -951,6 +1148,7 @@ def main() -> int:
                 launches[kernel] = got[kernel]
     for name, s in seconds.items():
         print(f"phase {name}: {s:.1f} s")
+    check_no_jax("at the end of the run")
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": f"adhoc_queries_pointclouds_torch/csrc/{src}",

@@ -6,7 +6,7 @@ import pytest
 
 from adhoc_queries_pointclouds_tpu import cli as jax_cli
 from adhoc_queries_pointclouds_torch import cli as torch_cli
-from adhoc_queries_pointclouds_torch.shared import synth
+from adhoc_queries_pointclouds_torch.formats import synth
 
 BOXES = [
     "100200;200300;10;101500;200800;60",

@@ -20,6 +20,7 @@ from adhoc_queries_pointclouds_torch import host
 from adhoc_queries_pointclouds_torch.ops import compact as TC
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
 from adhoc_queries_pointclouds_torch.parallel import step
+from test_torch_cuda import EDGE_WIDTHS, packed_bbox_edge_case
 
 I32 = np.iinfo(np.int32)
 WIDTHS = [0, 4, 12, 20, 28, 32]
@@ -87,6 +88,22 @@ def test_bbox_mask_packed_matches_jax(w, B):
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), ref)
     assert ref[2].sum() == nvs[2] and not ref[1].any() and not ref[-1].any()
+
+
+# B = 4099: byte planes only, and the bit mask ends in a partial word
+@pytest.mark.parametrize("widths, B", [(w, 4096) for w in EDGE_WIDTHS] + [
+    (w, 4099) for w in EDGE_WIDTHS if all(k % 8 == 0 for k in w)])
+def test_bbox_mask_packed_at_the_ends_of_residual_space_matches_jax(widths, B):
+    """The mask form of the same cases, and its bit mask: the oracle of the
+    card's mask_bbox_packed held to the JAX package."""
+    args = packed_bbox_edge_case(widths, B)
+    ref = np.asarray(P.bbox_mask_packed_jnp_multi(*_j(*args), widths, B))
+    got = TP.bbox_mask_packed_multi(*_t(*args), widths, B)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    bits = TP.bbox_mask_bits_packed(*_t(*args), widths, B)
+    np.testing.assert_array_equal(TP.unpack_mask_bits(bits.bits, B).numpy(), ref)
+    np.testing.assert_array_equal(bits.counts.numpy(), ref.sum(1))
+    assert ref.any() and not ref.all()
 
 
 @pytest.mark.parametrize("w", WIDTHS)

@@ -15,16 +15,15 @@ import torch
 from adhoc_queries_pointclouds_torch import engine, host
 from adhoc_queries_pointclouds_torch.ops import compact as TC
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
-from adhoc_queries_pointclouds_torch.shared import (
+from adhoc_queries_pointclouds_torch import index as index_mod
+from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
+from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery,
     ClassQuery,
     QueryPlan,
     TimeRangeQuery,
-    index as index_mod,
-    open_point_cloud,
-    parse_aabb,
-    synth,
 )
+from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
 
 pytestmark = pytest.mark.cuda
 I32 = np.iinfo(np.int32)
@@ -124,6 +123,73 @@ def test_packed_kernel_matches_plain(dev, widths, B):
     got, ref = _both(TP.bbox_count_packed_kernel, args, dev, widths, B)
     assert torch.equal(got, ref)
     assert int(ref[0]) > 0
+
+
+# Width triples that take every branch of the packed bbox kernels' compare
+# (csrc/bbox_planes.cuh): no planes, bit planes only, byte planes only, 1 to
+# 3 byte planes with bit planes on top, the widest unsigned width, and raw
+# signed words.
+EDGE_WIDTHS = [(0, 0, 0), (1, 1, 1), (4, 4, 4), (7, 7, 7), (8, 8, 8), (9, 17, 25), (12, 20, 28),
+               (20, 20, 20), (28, 28, 28), (31, 31, 31), (32, 32, 32)]
+
+
+def packed_bbox_edge_case(widths, B, seed=0):
+    """numpy operands (xp, yp, zp, los, his, nvs) of a packed bbox step of 24
+    rows whose bounds lie at and beyond both ends of each axis's residual
+    space [bot, top] = [0, 2^w - 1] ([INT32_MIN, INT32_MAX] at w = 32), as
+    the engine's saturating clip of a far box makes them, over residuals of
+    which about half sit at bot, bot + 1, mid - 1, mid, top - 1 and top.
+    Rows 0-11 put every axis on an edge range (rotated between axes), rows
+    12-23 one axis, the others taking every residual. Also used by the CPU
+    tests that hold the plain versions to the JAX package."""
+    rng = np.random.default_rng(seed + 1000 * sum(widths) + B)
+    K = 24
+
+    def clip(v):
+        return min(max(v, int(I32.min)), int(I32.max))
+
+    planes, ranges = [], []
+    for w in widths:
+        top, bot = ((1 << w) - 1, 0) if w < 32 else (int(I32.max), int(I32.min))
+        mid = (top + bot) // 2
+        palette = np.array([bot, min(bot + 1, top), max(mid - 1, bot), mid, max(top - 1, bot),
+                            top], np.int64)
+        anywhere = rng.integers(bot, top, (K, B), endpoint=True)
+        r = np.where(rng.random((K, B)) < 0.5, palette[rng.integers(0, 6, (K, B))], anywhere)
+        out = np.zeros((K, host.packed_row_width(w, B)), np.uint8)
+        for j in range(K):
+            host.pack_bits_into(out[j], r[j].astype(np.int32), w, 0, B)
+        planes.append(out)
+        ranges.append([
+            (int(I32.min), int(I32.max)), (bot, top), (clip(bot - 1), clip(top + 1)), (top, top),
+            (bot, bot), (clip(top + 1), int(I32.max)), (int(I32.min), clip(bot - 1)),
+            (mid, mid - 1), (clip(bot + 1), clip(top - 1)), (int(I32.max), int(I32.max)),
+            (int(I32.min), int(I32.min)), (-5, mid),
+        ])
+    everything = (int(I32.min), int(I32.max))
+    rows = [[ranges[a][(k + a) % 12] for a in range(3)] for k in range(12)]
+    rows += [[ranges[a][k] if a == k % 3 else everything for a in range(3)] for k in range(12)]
+    los = np.array([[r[0] for r in row] for row in rows], np.int32)
+    his = np.array([[r[1] for r in row] for row in rows], np.int32)
+    nvs = np.resize(np.array([B, B - 5, 1, B - 33, B - 1, 777], np.int32), K)
+    return (*planes, los, his, nvs)
+
+
+def _edge_block_sizes(widths):
+    """B % 128 == 0 (wide loads), B % 8 == 0 only, and, for byte planes
+    only, B % 8 == 3."""
+    return [4096, 4104] + ([4099] if all(w % 8 == 0 for w in widths) else [])
+
+
+@pytest.mark.parametrize("widths", EDGE_WIDTHS)
+def test_packed_bbox_kernels_at_the_ends_of_residual_space(dev, widths):
+    for B in _edge_block_sizes(widths):
+        args = packed_bbox_edge_case(widths, B)
+        got, ref = _both(TP.bbox_count_packed_kernel, args, dev, widths, B)
+        assert torch.equal(got, ref), (B, got, ref)
+        assert int(ref.sum()) > 0
+        _, mask = _mask_both(TP.bbox_mask_bits_packed, args, dev, widths, B)
+        assert torch.equal(mask.counts, ref)
 
 
 @pytest.mark.parametrize("k", [8, 16, 24, 32])

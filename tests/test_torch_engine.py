@@ -17,17 +17,18 @@ import numpy as np
 import pytest
 
 from adhoc_queries_pointclouds_tpu import engine as jax_engine
+from adhoc_queries_pointclouds_tpu.formats import open_point_cloud as jax_open_point_cloud
+from adhoc_queries_pointclouds_tpu.models import query as jax_query
+from adhoc_queries_pointclouds_tpu.utils.aabb import parse_aabb as jax_parse_aabb
 from adhoc_queries_pointclouds_torch import engine as torch_engine
 from adhoc_queries_pointclouds_torch import host
-from adhoc_queries_pointclouds_torch.shared import (
-    BoundsQuery,
-    QueryPlan,
-    index as index_mod,
-    local_query_bounds,
+from adhoc_queries_pointclouds_torch import index as index_mod
+from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
+from adhoc_queries_pointclouds_torch.models import query as torch_query
+from adhoc_queries_pointclouds_torch.utils.aabb import (
     clamp_bounds_to_i32,
-    open_point_cloud,
+    local_query_bounds,
     parse_aabb,
-    synth,
 )
 
 FORMATS = synth.formats_available("las", "last", "lazer", "laz")
@@ -57,16 +58,15 @@ def indexed(dataset):
     """fmt -> (dir indexed by the JAX engine, dir indexed by the port), each
     built by that engine's own auto-build during a full scan; both builds
     must count the same."""
-    plan = _plan(BOXES["full_range"])
+    spec = dict(box=BOXES["full_range"])
     out = {}
     for fmt in FORMATS:
         jax_dir = dataset / f"jax_idx_{fmt}"
         torch_dir = dataset / f"torch_idx_{fmt}"
         shutil.copytree(dataset / "data" / fmt, jax_dir)
         shutil.copytree(dataset / "data" / fmt, torch_dir)
-        ref = jax_engine.run_query(jax_dir, plan, block_size=BLOCK, use_index=True)
-        got = torch_engine.run_query(torch_dir, plan, device="cpu", block_size=BLOCK,
-                                     use_index=True)
+        ref = run(jax_engine, jax_dir, spec, block_size=BLOCK, use_index=True)
+        got = run(torch_engine, torch_dir, spec, block_size=BLOCK, use_index=True)
         assert got.match_count == ref.match_count == 400_000
         for d in (jax_dir, torch_dir):
             assert len(list(d.glob("*.aqpc-idx"))) == 2
@@ -74,8 +74,27 @@ def indexed(dataset):
     return out
 
 
-def _plan(box: str) -> QueryPlan:
-    return QueryPlan(bounds=BoundsQuery(parse_aabb(box)))
+def make_plan(eng, *, box=None, cls=None, time=None, density=None, **fields):
+    """The QueryPlan of engine eng (jax_engine or torch_engine) from that
+    engine's own package's classes: box is a --bounds string, cls a class
+    value, time a (start, end) pair, density a cell size; fields are
+    QueryPlan's other fields (output_dir, print_points)."""
+    q, parse = (torch_query, parse_aabb) if eng is torch_engine else (jax_query, jax_parse_aabb)
+    return q.QueryPlan(
+        bounds=None if box is None else q.BoundsQuery(parse(box)),
+        classification=None if cls is None else q.ClassQuery(cls),
+        time_range=None if time is None else q.TimeRangeQuery(*time),
+        density=None if density is None else q.DensityConfig(density),
+        **fields,
+    )
+
+
+def run(eng, data, spec: dict, **kw):
+    """run_query of either engine over data with the plan make_plan(eng,
+    **spec); the port runs on the CPU."""
+    if eng is torch_engine:
+        kw.setdefault("device", "cpu")
+    return eng.run_query(data, make_plan(eng, **spec), **kw)
 
 
 def _oracle(data_dir, box: str) -> int:
@@ -94,14 +113,13 @@ def _oracle(data_dir, box: str) -> int:
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_count_matches_jax_engine(dataset, indexed, monkeypatch, fmt, use_index, pack, box):
     monkeypatch.setenv("AQPC_PACK", pack)
-    plan = _plan(BOXES[box])
+    spec = dict(box=BOXES[box])
     if use_index:
         jax_dir, torch_dir = indexed[fmt]
     else:
         jax_dir = torch_dir = dataset / "data" / fmt
-    ref = jax_engine.run_query(jax_dir, plan, block_size=BLOCK, use_index=use_index)
-    got = torch_engine.run_query(torch_dir, plan, device="cpu", block_size=BLOCK,
-                                 use_index=use_index)
+    ref = run(jax_engine, jax_dir, spec, block_size=BLOCK, use_index=use_index)
+    got = run(torch_engine, torch_dir, spec, block_size=BLOCK, use_index=use_index)
     assert got.match_count == ref.match_count
     assert got.files_searched == ref.files_searched
     assert got.points_scanned == ref.points_scanned
@@ -122,10 +140,10 @@ def test_index_built_by_either_engine_serves_the_other(dataset, indexed, monkeyp
         b = index_mod.load_index(torch_dir / f"{name}.{fmt}")
         assert a[0] == b[0]
         np.testing.assert_array_equal(a[1], b[1])
-    plan = _plan(BOXES["partial"])
+    spec = dict(box=BOXES["partial"])
     want = _oracle(dataset / "data" / fmt, BOXES["partial"])
-    got = torch_engine.run_query(jax_dir, plan, device="cpu", block_size=BLOCK)
-    ref = jax_engine.run_query(torch_dir, plan, block_size=BLOCK)
+    got = run(torch_engine, jax_dir, spec, block_size=BLOCK)
+    ref = run(jax_engine, torch_dir, spec, block_size=BLOCK)
     assert got.match_count == ref.match_count == want
     assert got.timer.counts["index_pruned_points"] > 0
 
@@ -149,8 +167,8 @@ def test_multi_range_blocks(dataset, indexed, monkeypatch, pack):
         multi += sum(len(t) == 3 for t in host._pack_range_tasks(i, scan, block))
         r.close()
     assert multi > 0
-    ref = jax_engine.run_query(jax_dir, _plan(box), block_size=block)
-    got = torch_engine.run_query(torch_dir, _plan(box), device="cpu", block_size=block)
+    ref = run(jax_engine, jax_dir, dict(box=box), block_size=block)
+    got = run(torch_engine, torch_dir, dict(box=box), block_size=block)
     assert got.match_count == ref.match_count == _oracle(dataset / "data" / fmt, box)
 
 
@@ -160,10 +178,12 @@ def test_discover_files_and_total_bounds_match_jax_engine(dataset, fmt):
     files = torch_engine.discover_files(data)
     assert files == jax_engine.discover_files(data) and len(files) == 2
     readers = [open_point_cloud(f) for f in files]
+    jax_readers = [jax_open_point_cloud(f) for f in files]
     box = torch_engine.get_total_bounds(readers)
-    assert box == jax_engine.get_total_bounds(readers)
+    ref = jax_engine.get_total_bounds(jax_readers)
+    assert (box.min, box.max) == (ref.min, ref.max)
     assert box.min[0] < box.max[0]
-    for r in readers:
+    for r in readers + jax_readers:
         r.close()
 
 
@@ -174,24 +194,19 @@ def test_non_bbox_plans_are_not_ported(dataset, tmp_path):
     test_torch_engine_collect.py)."""
     import io
 
-    from adhoc_queries_pointclouds_torch.shared import ClassQuery, DensityConfig
-
     data = dataset / "data" / "last"
-    plan = QueryPlan(classification=ClassQuery(6))
-    got = torch_engine.run_query(data, plan, device="cpu", block_size=BLOCK)
-    assert got.match_count == jax_engine.run_query(data, plan, block_size=BLOCK).match_count > 0
-    box = BoundsQuery(parse_aabb(BOXES["partial"]))
+    got = run(torch_engine, data, dict(cls=6), block_size=BLOCK)
+    assert got.match_count == run(jax_engine, data, dict(cls=6), block_size=BLOCK).match_count > 0
+    box = BOXES["partial"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_engine.run_query(data, QueryPlan(bounds=box, density=DensityConfig(1.0)),
-                               device="cpu")
+        run(torch_engine, data, dict(box=box, density=1.0))
     outs = []
-    for name, run in (("jax", jax_engine.run_query),
-                      ("torch", lambda *a, **kw: torch_engine.run_query(*a, device="cpu", **kw))):
+    for name, eng in (("jax", jax_engine), ("torch", torch_engine)):
         buf = io.StringIO()
         (tmp_path / name).mkdir()
-        printed = run(data, QueryPlan(bounds=box, print_points=True), block_size=BLOCK,
+        printed = run(eng, data, dict(box=box, print_points=True), block_size=BLOCK,
                       print_stream=buf)
-        written = run(data, QueryPlan(bounds=box, output_dir=tmp_path / name), block_size=BLOCK)
+        written = run(eng, data, dict(box=box, output_dir=tmp_path / name), block_size=BLOCK)
         outs.append((printed.match_count, buf.getvalue(), written.match_count,
                      [f.read_bytes() for f in written.output_files]))
     assert outs[0] == outs[1]

@@ -19,15 +19,9 @@ import pytest
 
 from adhoc_queries_pointclouds_tpu import engine as jax_engine
 from adhoc_queries_pointclouds_torch import engine as torch_engine
-from adhoc_queries_pointclouds_torch.shared import (
-    BoundsQuery,
-    ClassQuery,
-    QueryPlan,
-    index as index_mod,
-    open_point_cloud,
-    parse_aabb,
-    synth,
-)
+from adhoc_queries_pointclouds_torch import index as index_mod
+from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
+from test_torch_engine import run
 
 FORMATS = synth.formats_available("las", "last", "lazer", "laz")
 BLOCK = 1 << 14
@@ -80,10 +74,10 @@ def _oracle(data_dir, target: int) -> int:
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_class_count_matches_jax_engine(dataset, monkeypatch, fmt, use_index, pack, target):
     monkeypatch.setenv("AQPC_PACK", pack)
-    plan = QueryPlan(classification=ClassQuery(target))
+    spec = dict(cls=target)
     data = dataset / (f"idx_{fmt}" if use_index else f"data/{fmt}")
-    ref = jax_engine.run_query(data, plan, block_size=BLOCK, use_index=use_index)
-    got = torch_engine.run_query(data, plan, device="cpu", block_size=BLOCK, use_index=use_index)
+    ref = run(jax_engine, data, spec, block_size=BLOCK, use_index=use_index)
+    got = run(torch_engine, data, spec, block_size=BLOCK, use_index=use_index)
     assert got.match_count == ref.match_count
     assert got.files_searched == ref.files_searched == 2
     assert got.points_scanned == ref.points_scanned
@@ -104,11 +98,10 @@ def test_class_count_matches_jax_engine(dataset, monkeypatch, fmt, use_index, pa
 def test_class_count_block_size_not_multiple_of_4(dataset, monkeypatch, pack, block):
     monkeypatch.setenv("AQPC_PACK", pack)
     for target in (6, 2):
-        plan = QueryPlan(classification=ClassQuery(target))
+        spec = dict(cls=target)
         for data, use_index in ((dataset / "data" / "last", False), (dataset / "idx_last", True)):
-            ref = jax_engine.run_query(data, plan, block_size=block, use_index=use_index)
-            got = torch_engine.run_query(data, plan, device="cpu", block_size=block,
-                                         use_index=use_index)
+            ref = run(jax_engine, data, spec, block_size=block, use_index=use_index)
+            got = run(torch_engine, data, spec, block_size=block, use_index=use_index)
             assert got.match_count == ref.match_count == _oracle(dataset / "data" / "last", target)
 
 
@@ -116,25 +109,21 @@ def test_class_and_time_plans_build_no_index(tmp_path, monkeypatch):
     """Index auto-build is for bbox scans only: a class or time run on an
     unindexed copy writes no sidecar, and a sidecar auto-built by a bbox scan
     (conservative class bitmap, no GPS ranges) leaves the counts exact."""
-    from adhoc_queries_pointclouds_torch.shared import TimeRangeQuery
-
     monkeypatch.setenv("AQPC_PACK", "1")
     write_data(tmp_path, seed=12)
     data = tmp_path / "last"
-    plans = [QueryPlan(classification=ClassQuery(6)),
-             QueryPlan(time_range=TimeRangeQuery(0.3, 1.4))]
-    want = [torch_engine.run_query(data, p, device="cpu", block_size=BLOCK, use_index=False)
-            .match_count for p in plans]
-    for p, n in zip(plans, want):
-        got = torch_engine.run_query(data, p, device="cpu", block_size=BLOCK)
+    specs = [dict(cls=6), dict(time=(0.3, 1.4))]
+    want = [run(torch_engine, data, p, block_size=BLOCK, use_index=False).match_count
+            for p in specs]
+    for p, n in zip(specs, want):
+        got = run(torch_engine, data, p, block_size=BLOCK)
         assert got.match_count == n > 0
         assert "index_built_files" not in got.timer.counts
     assert not list(data.glob("*.aqpc-idx"))
-    bbox = QueryPlan(bounds=BoundsQuery(parse_aabb("-1e9;-1e9;-1e9;1e9;1e9;1e9")))
-    torch_engine.run_query(data, bbox, device="cpu", block_size=BLOCK)
+    run(torch_engine, data, dict(box="-1e9;-1e9;-1e9;1e9;1e9;1e9"), block_size=BLOCK)
     assert len(list(data.glob("*.aqpc-idx"))) == 2
-    for p, n in zip(plans, want):
-        got = torch_engine.run_query(data, p, device="cpu", block_size=BLOCK)
-        ref = jax_engine.run_query(data, p, block_size=BLOCK)
+    for p, n in zip(specs, want):
+        got = run(torch_engine, data, p, block_size=BLOCK)
+        ref = run(jax_engine, data, p, block_size=BLOCK)
         assert got.match_count == ref.match_count == n
         assert got.timer.counts.get("index_pruned_points", 0) == 0

@@ -26,30 +26,25 @@ import pytest
 from adhoc_queries_pointclouds_tpu import engine as jax_engine
 from adhoc_queries_pointclouds_tpu.formats.las import write_las
 from adhoc_queries_pointclouds_torch import engine as torch_engine
+from adhoc_queries_pointclouds_torch import index as index_mod
+from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
-from adhoc_queries_pointclouds_torch.shared import (
-    BoundsQuery,
-    ClassQuery,
-    QueryPlan,
-    TimeRangeQuery,
-    index as index_mod,
-    open_point_cloud,
-    parse_aabb,
-    synth,
-)
+from test_torch_engine import run
 
 FORMATS = synth.formats_available("las", "last", "lazer", "laz")
 BLOCK = 1 << 14
 # 2 files x 200k points (4 index blocks of 65k each) at x offsets 100000 and
-# 101000, GPS times at 200k points/s: file 0 spans [0, 1) s, file 1 [1, 2) s
+# 101000, GPS times at 200k points/s: file 0 spans [0, 1) s, file 1 [1, 2) s.
+# Each query is the arguments of test_torch_engine.make_plan, which builds
+# each engine's plan from its own package's classes.
 QUERIES = {
     # z <= 60: in file 0 it contains index blocks 1 and 3 and straddles 0
     # and 2, so the scan ranges are split by a contained block
-    "bbox": dict(bounds=BoundsQuery(parse_aabb("99999;199999;-1;102001;201001;60"))),
+    "bbox": dict(box="99999;199999;-1;102001;201001;60"),
     # in some clusters' blocks only (seed 8, 8 clusters)
-    "class": dict(classification=ClassQuery(6)),
+    "class": dict(cls=6),
     # straddles the file boundary
-    "time": dict(time_range=TimeRangeQuery(0.3, 1.4)),
+    "time": dict(time=(0.3, 1.4)),
 }
 
 
@@ -75,11 +70,8 @@ def dataset(tmp_path_factory):
 def _collect(eng, data, query, out, **kw):
     """One collect run of either engine into a fresh directory out."""
     out.mkdir(parents=True)
-    plan = QueryPlan(output_dir=out, **query)
-    if eng is torch_engine:
-        kw.setdefault("device", "cpu")
     kw.setdefault("block_size", BLOCK)
-    return eng.run_query(data, plan, keep_hits=True, **kw)
+    return run(eng, data, dict(output_dir=out, **query), keep_hits=True, **kw)
 
 
 def _same(got, ref, count_positive=True):
@@ -147,10 +139,10 @@ def test_print_points_text_matches_jax(dataset, monkeypatch, pack, pred):
     monkeypatch.setenv("AQPC_PACK", pack)
     data = dataset / "idx_last"
     texts = []
-    for eng, kw in ((jax_engine, {}), (torch_engine, {"device": "cpu"})):
+    for eng in (jax_engine, torch_engine):
         buf = io.StringIO()
-        res = eng.run_query(data, QueryPlan(print_points=True, **QUERIES[pred]),
-                            block_size=BLOCK, print_stream=buf, **kw)
+        res = run(eng, data, dict(print_points=True, **QUERIES[pred]), block_size=BLOCK,
+                  print_stream=buf)
         texts.append((res.match_count, buf.getvalue()))
     (n_ref, ref), (n_got, got) = texts
     assert n_got == n_ref > 0 and got == ref
@@ -190,7 +182,7 @@ def test_full_match_streams_with_spool_spill(dataset, tmp_path, monkeypatch, pac
     the spool spills to disk: the LAS files are still byte-identical."""
     monkeypatch.setenv("AQPC_PACK", pack)
     monkeypatch.setenv("AQPC_SPOOL_MB", "0.25")
-    query = dict(bounds=BoundsQuery(parse_aabb("-1e9;-1e9;-1e9;1e9;1e9;1e9")))
+    query = dict(box="-1e9;-1e9;-1e9;1e9;1e9;1e9")
     kw = dict(use_index=False)
     ref = _collect(jax_engine, dataset / "data" / "lazer", query, tmp_path / "jax", **kw)
     got = _collect(torch_engine, dataset / "data" / "lazer", query, tmp_path / "torch", **kw)
@@ -230,7 +222,7 @@ def test_class_collect_single_class_and_absent_blocks(tmp_path, monkeypatch, pac
     write_las(data / "one.las", pos, cls, color, rng.integers(0, 65536, n).astype(np.uint16),
               scale=(0.001, 0.001, 0.001), offset=(100000.0, 200000.0, 0.0))
     for target in (2, 1, 6, 9):
-        query = dict(classification=ClassQuery(target))
+        query = dict(cls=target)
         ref = _collect(jax_engine, data, query, tmp_path / f"j{target}", block_size=8192)
         TP.reset_launches()
         got = _collect(torch_engine, data, query, tmp_path / f"t{target}", block_size=8192)
@@ -246,10 +238,9 @@ def test_force_collect_matches_jax_engine(dataset, monkeypatch, pack, pred):
     path, and nothing is kept or written."""
     monkeypatch.setenv("AQPC_PACK", pack)
     data = dataset / "idx_last"
-    plan = QueryPlan(**QUERIES[pred])
-    ref = jax_engine.run_query(data, plan, block_size=BLOCK, force_collect=True)
-    got = torch_engine.run_query(data, plan, device="cpu", block_size=BLOCK, force_collect=True)
-    counted = torch_engine.run_query(data, plan, device="cpu", block_size=BLOCK)
+    ref = run(jax_engine, data, QUERIES[pred], block_size=BLOCK, force_collect=True)
+    got = run(torch_engine, data, QUERIES[pred], block_size=BLOCK, force_collect=True)
+    counted = run(torch_engine, data, QUERIES[pred], block_size=BLOCK)
     assert got.match_count == ref.match_count == counted.match_count > 0
     assert got.points_scanned == ref.points_scanned
     assert got.hits == [] and got.output_files == []

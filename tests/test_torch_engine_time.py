@@ -13,12 +13,8 @@ import pytest
 
 from adhoc_queries_pointclouds_tpu import engine as jax_engine
 from adhoc_queries_pointclouds_torch import engine as torch_engine
-from adhoc_queries_pointclouds_torch.shared import (
-    QueryPlan,
-    TimeRangeQuery,
-    open_point_cloud,
-    synth,
-)
+from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
+from test_torch_engine import run
 from test_torch_engine_class import BLOCK, FORMATS, exact_index_copy, write_data
 
 # files are 200k points at 200k points/s of one flight line: file 0 holds
@@ -59,10 +55,10 @@ def _oracle(data_dir, t0: float, t1: float) -> int:
 def test_time_count_matches_jax_engine(dataset, monkeypatch, fmt, use_index, pack, name):
     monkeypatch.setenv("AQPC_PACK", pack)
     t0, t1 = RANGES[name]
-    plan = QueryPlan(time_range=TimeRangeQuery(t0, t1))
+    spec = dict(time=(t0, t1))
     data = dataset / (f"idx_{fmt}" if use_index else f"data/{fmt}")
-    ref = jax_engine.run_query(data, plan, block_size=BLOCK, use_index=use_index)
-    got = torch_engine.run_query(data, plan, device="cpu", block_size=BLOCK, use_index=use_index)
+    ref = run(jax_engine, data, spec, block_size=BLOCK, use_index=use_index)
+    got = run(torch_engine, data, spec, block_size=BLOCK, use_index=use_index)
     assert got.match_count == ref.match_count == _oracle(dataset / "data" / fmt, t0, t1)
     assert got.points_scanned == ref.points_scanned
     assert (got.match_count == 0) == (name == "nothing")
@@ -76,20 +72,19 @@ def test_time_count_matches_jax_engine(dataset, monkeypatch, fmt, use_index, pac
 def test_time_count_block_size_not_multiple_of_4(dataset, monkeypatch, pack):
     monkeypatch.setenv("AQPC_PACK", pack)
     t0, t1 = RANGES["straddling"]
-    plan = QueryPlan(time_range=TimeRangeQuery(t0, t1))
+    spec = dict(time=(t0, t1))
     for data, use_index in ((dataset / "data" / "lazer", False), (dataset / "idx_lazer", True)):
-        ref = jax_engine.run_query(data, plan, block_size=40_003, use_index=use_index)
-        got = torch_engine.run_query(data, plan, device="cpu", block_size=40_003,
-                                     use_index=use_index)
+        ref = run(jax_engine, data, spec, block_size=40_003, use_index=use_index)
+        got = run(torch_engine, data, spec, block_size=40_003, use_index=use_index)
         assert got.match_count == ref.match_count == _oracle(dataset / "data" / "lazer", t0, t1)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_time_range_over_gps_less_files_raises(tmp_path, fmt):
     synth.write_dataset(tmp_path, n_files=1, points_per_file=1000, seed=2, formats=(fmt,))
-    plan = QueryPlan(time_range=TimeRangeQuery(0.0, 1.0))
+    spec = dict(time=(0.0, 1.0))
     with pytest.raises(ValueError, match="does not contain GPS times!") as want:
-        jax_engine.run_query(tmp_path / fmt, plan)
+        run(jax_engine, tmp_path / fmt, spec)
     with pytest.raises(ValueError, match="does not contain GPS times!") as got:
-        torch_engine.run_query(tmp_path / fmt, plan, device="cpu")
+        run(torch_engine, tmp_path / fmt, spec)
     assert str(got.value) == str(want.value)

@@ -206,7 +206,7 @@ def test_encode_f64_sortable(seed):
 @pytest.mark.parametrize("native_codec", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("n_present", [1, 2, 3, 16, 17, 200, 256])
 def test_class_dict_encode(monkeypatch, native_codec, n_present):
-    from adhoc_queries_pointclouds_torch.shared import native
+    from adhoc_queries_pointclouds_torch import native
 
     if not native_codec:
         monkeypatch.setattr(native, "dict_encode_u8", lambda col: None)

@@ -1,9 +1,11 @@
-"""The port imports no jax, and a CUDA run without CUDA raises.
+"""The port imports no jax and nothing of the JAX package, and a CUDA run
+without CUDA raises.
 
-The jax check runs in a subprocess: this test process has jax loaded
-already (tests/conftest.py imports it).
+The import check runs in a subprocess: this test process has jax and the
+JAX package loaded already (tests/conftest.py imports jax).
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -12,27 +14,31 @@ import pytest
 import torch
 
 from adhoc_queries_pointclouds_torch import engine
-from adhoc_queries_pointclouds_torch.shared import (
+from adhoc_queries_pointclouds_torch.formats import synth
+from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery,
     ClassQuery,
     QueryPlan,
     TimeRangeQuery,
-    parse_aabb,
-    synth,
 )
+from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
 
 ROOT = Path(__file__).resolve().parent.parent
+JAX_PACKAGE = "adhoc_queries_pointclouds_tpu"
 
 _PROGRAM = r"""
 import pathlib, sys, tempfile
 import adhoc_queries_pointclouds_torch
-from adhoc_queries_pointclouds_torch import cli, engine, host
+from adhoc_queries_pointclouds_torch import cli, engine, host, index, native, sinks
+from adhoc_queries_pointclouds_torch.formats import las, last, laz, lazer, lz4py, synth
+from adhoc_queries_pointclouds_torch.models.query import (
+    BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery,
+)
 from adhoc_queries_pointclouds_torch.ops import compact, predicate
 from adhoc_queries_pointclouds_torch.parallel import comm, pipeline, step
 from adhoc_queries_pointclouds_torch.tools import bboxprobe
-from adhoc_queries_pointclouds_torch.shared import (
-    BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery, parse_aabb, synth,
-)
+from adhoc_queries_pointclouds_torch.utils import timing
+from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
 with tempfile.TemporaryDirectory() as d:
     synth.write_dataset(d, n_files=1, points_per_file=5000, seed=1, formats=("last",),
                         point_format=3)
@@ -56,15 +62,31 @@ with tempfile.TemporaryDirectory() as d:
             assert res.match_count == sum(h.count for h in res.hits) > 0
             assert [f.name for f in res.output_files] == ["matching_points_0.las"]
 bboxprobe.main(["--n", "4096", "--device", "cpu"])
-print(sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "adhoc_queries_pointclouds_tpu")))
 """
 
 
 def test_port_imports_no_jax():
+    """After counts, collects and the probe tool in a fresh process,
+    sys.modules holds no jax, no jaxlib and nothing of the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_no_import_line_names_jax_or_the_jax_package():
+    """No import or from line of the port's modules or of chip_smoke.py names
+    jax or the JAX package."""
+    sources = sorted((ROOT / "adhoc_queries_pointclouds_torch").rglob("*.py"))
+    sources.append(ROOT / "chip_smoke.py")
+    assert len(sources) > 25
+    line = re.compile(rf"^\s*(import|from)\s.*\b(jax|jaxlib|{JAX_PACKAGE})\b")
+    found = [f"{f.relative_to(ROOT)}:{n}: {text.strip()}"
+             for f in sources
+             for n, text in enumerate(f.read_text().splitlines(), 1) if line.match(text)]
+    assert found == []
 
 
 def test_cuda_without_cuda_raises(tmp_path, monkeypatch):

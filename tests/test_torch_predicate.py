@@ -15,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 from adhoc_queries_pointclouds_tpu.ops import predicate as P
 from adhoc_queries_pointclouds_torch import host
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
+from test_torch_cuda import EDGE_WIDTHS, packed_bbox_edge_case
 
 I32 = np.iinfo(np.int32)
 
@@ -138,6 +139,19 @@ def test_bbox_count_packed_byte_planes_only(k):
     args, _ = _packed_case(rng, K, B, widths)
     ref = np.asarray(P.bbox_count_packed_jnp_multi(*_j(*args), widths, B))
     np.testing.assert_array_equal(TP.bbox_count_packed_kernel(*_t(*args), widths, B).numpy(), ref)
+
+
+@pytest.mark.parametrize("B", [4096, 4104])  # B % 128 == 0, and B % 8 == 0 only
+@pytest.mark.parametrize("widths", EDGE_WIDTHS)
+def test_bbox_count_packed_at_the_ends_of_residual_space_matches_jnp(widths, B):
+    """Bounds at and beyond both ends of residual space, at widths that take
+    every branch of the card kernel's compare: the plain version, the oracle
+    the kernel is held to on the card, is itself held to the JAX package."""
+    args = packed_bbox_edge_case(widths, B)
+    ref = np.asarray(P.bbox_count_packed_jnp_multi(*_j(*args), widths, B))
+    got = TP.bbox_count_packed_kernel(*_t(*args), widths, B)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ref.sum() > 0 and (ref == 0).any()
 
 
 def test_k32_raw_words_wrap_into_sign_bit():
