@@ -1,15 +1,18 @@
-"""Command line of the port: bbox, class and GPS-time counts and collects on
-one device.
+"""Command line of the port: bbox, class and GPS-time counts and collects,
+and max-density grid sampling, on one device.
 
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds "x0;y0;z0;x1;y1;z1"
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6 -o OUT_DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --time-range "start;end" --print-points
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --density 100 -o OUT_DIR
 
 The query flags and output lines are those of adhoc_queries_pointclouds_tpu/
 cli.py (cmd_query, cli.py:101-193): "Searching N files...", one "Wrote
 OUT_DIR/matching_points_{i}.las" per input file with hits under -o, "Found
 N matching points", the closing throughput line, and --stats; --print-points
-streams each hit as a "Found point: ..." line. --device (default cuda) names
+streams each hit as a "Found point: ..." line. --density X keeps at most one
+point per X^3 m^3 grid cell, per input file (--density-scope file) or over
+the whole query (global, the default: one output file). --device (default cuda) names
 the device; cuda without a card is an error, never a silent run on the CPU.
 Flags of queries the port does not run yet exit with status 2.
 """
@@ -21,14 +24,12 @@ import sys
 from pathlib import Path
 
 from .engine import run_query
-from .models.query import BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery
+from .models.query import BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery
 from .utils.aabb import parse_aabb
 from .utils.timing import throughput_line
 
 # dest -> flag, for flags whose queries are not ported yet
 _NOT_PORTED = {
-    "density": "--density",
-    "density_scope": "--density-scope",
     "resident": "--resident",
     "repeat": "--repeat",
     "distributed": "--distributed",
@@ -53,9 +54,13 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument("-o", "--output",
                         help="Output directory: one matching_points_{i}.las per input file with hits")
-    parser.add_argument("--density", type=float, help="(not yet ported)")
-    parser.add_argument("--density-scope", choices=["file", "global"],
-                        help="(not yet ported)")
+    parser.add_argument("--density", type=float, help="Maximum density: one point per X^3 m^3")
+    parser.add_argument(
+        "--density-scope",
+        choices=["file", "global"],
+        default="global",
+        help="Dedupe grid per input file (reference --parallel semantics) or globally",
+    )
     parser.add_argument("--parallel", action="store_true", help="(parity no-op: always parallel)")
     parser.add_argument("--optimized", action="store_true", help="(parity no-op: always optimized)")
     parser.add_argument("--print-points", action="store_true",
@@ -86,7 +91,7 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
 def cmd_query(args: argparse.Namespace) -> int:
     used = [flag for dest, flag in _NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
     if used:
-        print(f"not yet ported: {', '.join(used)} (the port runs counts and collects only)",
+        print(f"not yet ported: {', '.join(used)} (the port runs counts, collects and density)",
               file=sys.stderr)
         return 2
     maybe_bounds = parse_aabb(args.bounds) if args.bounds else None
@@ -111,6 +116,7 @@ def cmd_query(args: argparse.Namespace) -> int:
         bounds=BoundsQuery(maybe_bounds) if maybe_bounds is not None else None,
         classification=ClassQuery(maybe_class) if maybe_class is not None else None,
         time_range=maybe_time,
+        density=DensityConfig(args.density, args.density_scope) if args.density else None,
         output_dir=Path(args.output) if args.output else None,
         print_points=args.print_points,
         parity_quirk=args.parity_quirk,

@@ -26,6 +26,27 @@ inline int64_t mask_chunks(int64_t block_size) {
   return (mask_words(block_size) + kChunkWords - 1) / kChunkWords;
 }
 
+// Where a mask kernel writes: bits (K, n_words) uint32, counts (K,) int32
+// zeroed by the caller, chunks (K, n_chunks) int32.
+struct MaskOut {
+  uint32_t* bits;
+  int32_t* counts;
+  int32_t* chunks;
+  int64_t n_words;
+  int64_t n_chunks;
+};
+
+// The chunk's count into chunks[k, c] and counts[k], for the CTA of chunk
+// blockIdx.x of block blockIdx.y. Every thread calls it.
+__device__ __forceinline__ void finish_chunk(int count, const MaskOut& o) {
+  const int64_t k = blockIdx.y;
+  count = cta_sum(count);
+  if (threadIdx.x == 0) {
+    o.chunks[k * o.n_chunks + blockIdx.x] = count;
+    if (count) atomicAdd(o.counts + k, count);
+  }
+}
+
 // Exclusive prefix sum of v over the CTA in thread order, and the CTA total
 // in *total. Every thread must call it (it holds two __syncthreads).
 __device__ __forceinline__ int cta_exclusive_scan(int v, int* total) {

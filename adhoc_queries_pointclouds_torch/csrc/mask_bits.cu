@@ -42,28 +42,12 @@ namespace {
 using aqpc::kChunkWords;
 using aqpc::kThreads;
 using aqpc::kWarps;
+using aqpc::MaskOut;
+using aqpc::finish_chunk;
 using aqpc::Planes;
 using aqpc::PlaneRow;
 
 constexpr unsigned kFull = 0xffffffffu;
-
-struct MaskOut {
-  uint32_t* bits;
-  int32_t* counts;
-  int32_t* chunks;
-  int64_t n_words;
-  int64_t n_chunks;
-};
-
-// The chunk's count into chunks[k, c] and counts[k]. Every thread calls it.
-__device__ __forceinline__ void finish_chunk(int count, const MaskOut& o) {
-  const int64_t k = blockIdx.y;
-  count = aqpc::cta_sum(count);
-  if (threadIdx.x == 0) {
-    o.chunks[k * o.n_chunks + blockIdx.x] = count;
-    if (count) atomicAdd(o.counts + k, count);
-  }
-}
 
 // Raw columns: lane j of a warp tests row 32w + j; pred(i) reads row i.
 template <class RowPred>

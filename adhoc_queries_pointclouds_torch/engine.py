@@ -1,9 +1,9 @@
-"""Query engine of the port: bbox, class and GPS-time counts and collects
-over a set of point-cloud files.
+"""Query engine of the port: bbox, class and GPS-time counts and collects,
+and max-density grid sampling, over a set of point-cloud files.
 
 The counterpart of adhoc_queries_pointclouds_tpu/engine.py run_query,
 _run_count (engine.py:395-924), _run_collect and _run_collect_mesh
-(engine.py:932-1439):
+(engine.py:932-1439) and _run_density (engine.py:1441-1849):
 
   host decode-ahead feeder -> K blocks per step -> H2D copy -> one kernel
   launch per step -> int32 step totals, read back a few steps behind the
@@ -27,7 +27,11 @@ bbox scan of an unindexed file writes its sidecar (min/max only: its class
 bitmap is all-present and it has no GPS ranges, so it prunes nothing for
 class and time plans). The index format is the JAX package's.
 
-Density plans are not ported yet and raise.
+A density plan (--density) keeps at most one point per grid cell, the one
+closest to the cell's centre, per file or over the whole query: K-block
+steps run the predicate and the candidate selection of ops/density.py on
+the device, the candidates' indices come back, and the host resolves them
+exactly in f64 (GridSpec3D, WinnerAccum) and emits the winners.
 """
 
 from __future__ import annotations
@@ -43,12 +47,13 @@ from pathlib import Path
 import numpy as np
 
 from . import host, index as index_mod
+from .ops import density as density_ops
 from .formats import is_valid_file, open_point_cloud
 from .formats.las import has_gps_time
 from .parallel import step
 from .parallel.comm import LocalStepComm
-from .parallel.pipeline import BlockFeeder, task_gidx
-from .sinks import FileHits, HitEmitter
+from .parallel.pipeline import BlockFeeder, BlockTask, task_gidx
+from .sinks import FileHits, HitEmitter, concat_hits, empty_hits, gather_hits
 from .utils.aabb import AABB, clamp_bounds_to_i32, local_query_bounds
 from .utils.timing import StageTimer
 
@@ -56,6 +61,34 @@ DEFAULT_BLOCK_SIZE = 1 << 21  # 2M points: 24 MiB of xyz per block
 # Blocks of files smaller than the block size are cut to a multiple of this,
 # as the JAX engine does off the TPU, so both engines cut identical blocks.
 BLOCK_QUANTUM = 8192
+
+_libc = None
+
+
+def _init_malloc() -> None:
+    """Pin glibc's mmap threshold so multi-MB block buffers never graduate
+    into sbrk arenas.
+
+    glibc's M_MMAP_THRESHOLD is DYNAMIC: freeing an mmap'd chunk raises the
+    threshold (up to 32 MiB), after which the engine's 4-24 MiB per-block
+    column copies are carved from arena heaps whose freed chunks are kept,
+    not returned, and anonymous RSS then grows with the bytes scanned.
+    Pinning the threshold at 1 MiB keeps every block-sized buffer an mmap
+    that free() returns to the OS. AQPC_MALLOC_PIN=0 disables."""
+    global _libc
+    if os.environ.get("AQPC_MALLOC_PIN", "1") == "0":
+        return
+    try:
+        import ctypes
+
+        _libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        M_MMAP_THRESHOLD = -3
+        _libc.mallopt(M_MMAP_THRESHOLD, 1 << 20)
+    except Exception:
+        _libc = None
+
+
+_init_malloc()
 
 
 def discover_files(input_path) -> list[Path]:
@@ -107,11 +140,6 @@ class QueryResult:
         return self.points_scanned / 1e6 / max(self.elapsed_seconds, 1e-12)
 
 
-def _require_ported(plan) -> None:
-    if plan.density is not None:
-        raise NotImplementedError("not yet ported: density plans")
-
-
 def run_query(
     input_path,
     plan,
@@ -125,9 +153,12 @@ def run_query(
     keep_going: bool = False,
     use_index: bool = True,
     print_stream=None,
+    density_grid_bounds: AABB | None = None,
+    density_state_out: dict | None = None,
 ) -> QueryResult:
     """Count or collect the points of a file or directory that match plan's
-    predicate: its closed box, its class, or its half-open GPS-time range.
+    predicate: its closed box, its class, or its half-open GPS-time range;
+    with plan.density, keep of them one point per grid cell.
 
     device: the torch.device (or its name) every step runs on. "cuda" runs
     the hand-written kernels and raises when CUDA is absent; "cpu" runs
@@ -140,8 +171,12 @@ def run_query(
     print_stream: stream matching points here as they are found (the
     reference's StdOutCollector, collect_points.rs:46-70). Defaults to
     sys.stdout when plan.print_points is set.
+    density_grid_bounds: the density grid's bounds; default the query box,
+    else the union of the files' header bounds. Runs that split one query
+    over several file lists share one grid this way.
+    density_state_out: a dict that receives the winners (WINNER_DTYPE rows)
+    of a density plan: under "global", or under "file" a dict by file index.
     """
-    _require_ported(plan)
     comm = LocalStepComm(device)
     if print_stream is None and plan.print_points:
         print_stream = sys.stdout
@@ -200,10 +235,23 @@ def run_query(
             file_bounds[i] = (lo, hi)
         active.append(i)
 
+    grid = None
+    if plan.density is not None:
+        if density_grid_bounds is not None:
+            grid_bounds = density_grid_bounds
+        elif is_bounds:
+            grid_bounds = plan.bounds.bounds
+        else:
+            grid_bounds = get_total_bounds(readers)
+        grid = density_ops.GridSpec3D.create(grid_bounds, plan.density.cell_size)
+
     # Optional block min/max sidecar index: exact results are preserved, the
     # index only removes work. A full bbox scan of an unindexed file builds
     # its sidecar on the fly; class and time loaders read no positions, so
-    # their collectors would never complete.
+    # their collectors would never complete. Density plans skip the
+    # auto-build: the grid needs every in-box point, so a sidecar can only
+    # prune disjoint blocks for them, and collecting per-block min/max runs
+    # on the host's critical path.
     file_indices_meta: dict[int, tuple] = {}
     index_collectors: dict[int, index_mod.IndexCollector] = {}
     if use_index:
@@ -211,17 +259,19 @@ def run_query(
             info = index_mod.load_index(files[i])
             if info is not None:
                 file_indices_meta[i] = info
-        if is_bounds and os.environ.get("AQPC_AUTO_INDEX", "1") != "0":
+        if (is_bounds and plan.density is None
+                and os.environ.get("AQPC_AUTO_INDEX", "1") != "0"):
             for i in active:
                 if i not in file_indices_meta:
                     index_collectors[i] = index_mod.IndexCollector(readers[i].point_count)
 
     if plan.collects_points or keep_hits or force_collect:
         match_count, hits, output_files = _run_collect(
-            plan, readers, active, file_bounds,
+            plan, readers, active, file_bounds, grid,
             block_size=block_size, workers=workers, prefetch=prefetch, timer=timer,
             keep_hits=keep_hits, block_index=file_indices_meta,
             index_collectors=index_collectors, print_stream=print_stream, comm=comm,
+            density_state_out=density_state_out,
         )
     else:
         match_count = _run_count(
@@ -546,18 +596,27 @@ def _run_count(
 
 
 def _run_collect(
-    plan, readers, active, file_bounds, *, block_size, workers, prefetch, timer,
-    keep_hits, block_index, index_collectors, print_stream, comm,
+    plan, readers, active, file_bounds, grid, *, block_size, workers, prefetch, timer,
+    keep_hits, block_index, index_collectors, print_stream, comm, density_state_out,
 ):
-    """Collect-path entry (engine.py:932-972 without its density branch):
-    every hit goes to one HitEmitter, which writes one LAS per input file
-    with hits, prints, or keeps hits, in file order."""
+    """Collect-path entry (engine.py:932-972): every hit goes to one
+    HitEmitter, which writes one LAS per input file with hits (one file in
+    all for a global-scope density plan), prints, or keeps hits, in file
+    order. Density plans go to the grid-sampling pipeline."""
     emitter = HitEmitter(
         readers,
         output_dir=plan.output_dir,
         print_stream=print_stream,
         keep_hits=keep_hits,
     )
+    if plan.density is not None:
+        # density runs host-local: nothing of it crosses participants
+        _run_density(
+            plan, readers, active, file_bounds, grid, emitter,
+            block_size=block_size, workers=workers, prefetch=prefetch, timer=timer,
+            block_index=block_index, state_out=density_state_out, comm=comm,
+        )
+        return emitter.total, emitter.all_hits, emitter.output_files
     _collect_steps(
         plan, readers, active, file_bounds, emitter,
         block_size=block_size, workers=workers, prefetch=prefetch, timer=timer,
@@ -726,3 +785,336 @@ def _collect_steps(
         if emit_error:
             raise emit_error[0]
     timer.seconds["decode_cpu"] += feeder.decode_seconds
+
+
+# ---------------------------------------------------------------------------
+# density path (max-density grid sampling)
+# ---------------------------------------------------------------------------
+
+
+def _density_block_tasks(file_idx, n, block_size, idx_info, plan, file_bounds, timer) -> list:
+    """Per-engine-block density tasks with sidecar bbox/GPS pruning
+    (engine.py:269-299). Only DISJOINT can skip: a CONTAINED block still has
+    to flow through the grid (unlike counting, density needs the points
+    themselves)."""
+    tasks = []
+    for b in range((n + block_size - 1) // block_size):
+        start = b * block_size
+        stop = min(start + block_size, n)
+        cls_b = None
+        if idx_info is not None and plan.bounds is not None:
+            lo, hi = file_bounds[file_idx]
+            cls_b = index_mod.classify_block(idx_info[1], idx_info[0], start, stop, lo, hi)
+        elif idx_info is not None and plan.time_range is not None and idx_info[3] is not None:
+            cls_b = index_mod.classify_time_block(
+                idx_info[3], idx_info[0], start, stop,
+                plan.time_range.start, plan.time_range.end)
+        if cls_b == index_mod.DISJOINT:
+            timer.counts["index_skipped_blocks"] += 1
+            timer.counts["index_pruned_points"] += stop - start
+            continue
+        tasks.append((file_idx, b, start, stop))
+    return tasks
+
+
+def _density_feeder(plan, readers, tasks, file_bounds, *, block_size, pack, workers,
+                    prefetch) -> BlockFeeder:
+    """The density path's feeder (engine.py:1483-1525): every block carries
+    its positions, as raw x/y/z columns or (packed transport) as the raw
+    columns with per-axis (base, width) for the plane extraction at stack
+    time; class and time plans add the raw u8 class column or the encoded
+    (hi, lo) GPS-time words."""
+    is_bounds = plan.bounds is not None
+    is_time = plan.time_range is not None
+
+    def load(file_idx, start, stop):
+        r = readers[file_idx]
+        cols = {"pos": r.column("position", start, stop)}
+        if is_time:
+            cols["th"], cols["tl"] = host.encode_f64_sortable(r.column("gps_time", start, stop))
+        elif not is_bounds:
+            cols["cls"] = np.ascontiguousarray(r.column("classification", start, stop))
+        return cols
+
+    def transform(file_idx, cols):
+        # a whole-block transform, so that multi-range (index-packed) class
+        # tasks residualize the concatenated block
+        pos = cols.pop("pos")
+        if pack:
+            out = host._packed_xyz_cols(pos, block_size)
+        else:
+            out = {key: np.ascontiguousarray(pos[:, a]) for a, key in enumerate("xyz")}
+        out.update(cols)  # cls / th, tl ride raw
+        return out
+
+    return BlockFeeder(
+        tasks, load, block_size,
+        file_bounds=file_bounds, workers=workers, prefetch=prefetch, pad=False,
+        transform_fn=transform,
+    )
+
+
+def _density_operands(plan, comm, *, block_size, pack):
+    """The function (batch, rows) -> (kind, n_pred, arrays, extra, xyz_at,
+    widths, stacks) of one density step. arrays[:n_pred] are the predicate's
+    operands as _step_operands stacks them (the bbox predicate in the step's
+    transport, class and time raw); arrays[xyz_at:xyz_at + 3] are the x/y/z
+    the candidate selection reads: the bbox predicate's own rows or planes,
+    else raw rows or planes of their own after the predicate's operands. In
+    the packed transport widths are the planes' and the last array is the
+    (rows, 3) int32 bases; in the raw one widths is None. stacks is the point
+    payload (the h2d bytes)."""
+    is_bounds = plan.bounds is not None
+    predicate_operands = _step_operands(plan, comm, block_size=block_size,
+                                        pack=pack and is_bounds)
+
+    def operands(batch, rows):
+        kind, arrays, stacks, extra = predicate_operands(batch, rows)
+        n_pred = len(arrays)
+        widths = None
+        if is_bounds:
+            xyz_at = 0
+            if pack:
+                widths = extra[0]
+        else:
+            xyz_at = n_pred
+            if pack:
+                widths = tuple(int(k) for k in
+                               np.maximum.reduce([t.columns["w"] for t in batch]))
+                xyz = [host._stack_planes(batch, key, a, rows, widths[a], block_size)
+                       for a, key in enumerate(("xp", "yp", "zp"))]
+            else:
+                xyz = [host._stack_rows(batch, key, rows, block_size, np.int32)
+                       for key in "xyz"]
+            arrays = (*arrays, *xyz)
+            stacks = [*stacks, *xyz]
+        if pack:
+            bases = np.stack([t.columns["base"].astype(np.int32) for t in batch]
+                             + [np.zeros(3, np.int32)] * (rows - len(batch)))
+            arrays = (*arrays, bases)
+        return kind, n_pred, arrays, extra, xyz_at, widths, stacks
+
+    return operands
+
+
+def _host_hit_mask(plan, task, xyz_keys, q_enc):
+    """The exact host-side predicate mask of one block, or None when no row
+    matches (engine.py:1600-1630): it mirrors the device predicate bit for
+    bit (closed int32 box, lexicographic half-open encoded time range, u8
+    equality). A block with no predicate hit has no density candidate, so it
+    skips both the copy to the device and the device step; the hit count of
+    the others sizes the leaders table."""
+    if plan.bounds is not None:
+        m = None
+        for a, key in enumerate(xyz_keys):
+            col = task.columns[key]
+            ma = (col >= task.lo[a]) & (col <= task.hi[a])
+            m = ma if m is None else m & ma
+            if not m.any():
+                return None
+        return m
+    if plan.time_range is not None:
+        th, tl = task.columns["th"], task.columns["tl"]
+        ge = (th > q_enc[0]) | ((th == q_enc[0]) & (tl >= q_enc[1]))
+        if not ge.any():
+            return None
+        m = ge & ((th < q_enc[2]) | ((th == q_enc[2]) & (tl < q_enc[3])))
+    else:
+        m = task.columns["cls"] == plan.classification.classification
+    return m if m.any() else None
+
+
+def _run_density(
+    plan, readers, active, file_bounds, grid, emitter, *, block_size, workers, prefetch,
+    timer, block_index, state_out, comm,
+):
+    """Grid-sampling (max-density) collection, f64-exact (engine.py:
+    1441-1843).
+
+    Device: one step runs the query predicate and the candidate selection
+    of ops/density.py over K blocks of a file (interior cells certified
+    against the file's exact integer boundary tables; each cell's leader,
+    the points within the f32 error margin of it and the uncertifiable
+    points survive). The host reads the per-block candidate counts a few
+    steps behind the dispatch, gives each block an offset, and one
+    compaction launch returns the candidates' indices in an exact-size
+    buffer: there is no cap and no retry. Host: exact f64 reference cell
+    keys and d2 of the candidates, merged into the sparse running grid
+    state, per file or globally (main.rs:156 vs 129-133).
+
+    Blocks with no predicate hit never leave the host, and blocks with at
+    most block_size / 8 hits are gathered on the host and shipped together
+    as x/y/z alone, every row a hit, at their true length.
+    """
+    is_bounds = plan.bounds is not None
+    is_time = plan.time_range is not None
+    scope = plan.density.scope
+    blocks_per_step = int(os.environ.get("AQPC_BLOCKS_PER_STEP", "4"))
+    rows_per_step = comm.batch_rows(max(1, blocks_per_step))
+    pack = host._pack_transport_enabled()
+    # packed loads keep the raw absolute columns under xp/yp/zp (the planes
+    # are cut at stack time), so the host reads them directly either way
+    xyz_keys = ("xp", "yp", "zp") if pack else ("x", "y", "z")
+    q_enc = None
+    if is_time:
+        q_enc = np.asarray(
+            host.encode_f64_scalar(plan.time_range.start)
+            + host.encode_f64_scalar(plan.time_range.end),
+            np.int32,
+        )
+    operands = _density_operands(plan, comm, block_size=block_size, pack=pack)
+    # deferred-merge accumulators (ops/density.py WinnerAccum): the same
+    # fold as a per-block merge_winners_host, O(N log N) in total
+    global_acc = density_ops.WinnerAccum()
+    sparse_max = block_size // 8
+
+    with timer.stage("scan"):
+        for file_seq, file_idx in enumerate(active):
+            r = readers[file_idx]
+            n = r.point_count
+            scale, offset = r.header.scale, r.header.offset
+            tables_dev = density_ops.tables_to_device(
+                grid.file_tables(scale, offset), comm.device())
+            acc = density_ops.WinnerAccum() if scope == "file" else global_acc
+
+            idx_info = block_index.get(file_idx)
+            if idx_info is not None and not is_bounds and not is_time:
+                # class sub-block pruning at file scope, packed into full
+                # multi-range blocks (see _plan_tasks)
+                ranges = index_mod.class_present_ranges(
+                    idx_info[2], idx_info[0], 0, n, plan.classification.classification)
+                kept = sum(e - s for s, e in ranges)
+                if kept < n:
+                    timer.counts["index_skipped_blocks"] += max((n - kept) // idx_info[0], 1)
+                    timer.counts["index_pruned_points"] += n - kept
+                tasks = host._pack_range_tasks(file_idx, ranges, block_size)
+            else:
+                tasks = _density_block_tasks(file_idx, n, block_size, idx_info, plan,
+                                             file_bounds, timer)
+            feeder = _density_feeder(plan, readers, tasks, file_bounds, block_size=block_size,
+                                     pack=pack, workers=workers, prefetch=prefetch)
+
+            def merge_candidates(task, local_idx):
+                # exact key and d2 straight from the gathered raw int32
+                # columns (no (n, 3) f64 world array)
+                with timer.stage("exact"):
+                    winners = grid.make_winners_raw(
+                        *(task.columns[key][local_idx] for key in xyz_keys),
+                        scale, offset, task_gidx(task, local_idx), file_idx)
+                with timer.stage("merge"):
+                    acc.add(winners, file_seq)
+
+            pending: deque = deque()  # (batch, BitMask, B) of steps not yet read back
+
+            def process(batch, mask, step_block):
+                with timer.stage("d2h", mask.counts.nbytes):
+                    counts = comm.fetch(mask.counts)
+                offsets = np.full(len(counts), -1, np.int64)
+                total = 0
+                for j in range(len(batch)):
+                    if counts[j]:
+                        offsets[j] = total
+                        total += int(counts[j])
+                if not total:
+                    return
+                (offsets_dev,) = comm.put((offsets,))
+                idx_dev = step.collect_indices(mask, offsets_dev, total, step_block)
+                with timer.stage("d2h", 4 * total):
+                    idx_np = comm.fetch(idx_dev)
+                for j, task in enumerate(batch):
+                    if counts[j]:
+                        merge_candidates(task, idx_np[offsets[j] : offsets[j] + int(counts[j])])
+
+            def drain(limit: int):
+                while len(pending) > limit:
+                    process(*pending.popleft())
+
+            batch: list = []
+            batch_hits: list[int] = []
+
+            def flush():
+                nonlocal batch, batch_hits
+                kind, n_pred, arrays, extra, xyz_at, widths, stacks = operands(
+                    batch, comm.step_rows(len(batch), rows_per_step))
+                dev = _put(comm, timer, arrays, stacks)
+                mask = step.density_mask(
+                    kind, dev[:n_pred], extra, dev[xyz_at : xyz_at + 3], tables_dev, block_size,
+                    bases=dev[-1] if pack else None, widths=widths,
+                    slots=density_ops.table_slots(max(batch_hits)))
+                pending.append((batch, mask, block_size))
+                batch, batch_hits = [], []
+                drain(comm.inflight() - 1)
+
+            sparse_cols: list[tuple] = []
+            sparse_gidx: list[np.ndarray] = []
+            sparse_total = 0
+
+            def flush_sparse():
+                nonlocal sparse_cols, sparse_gidx, sparse_total
+                if not sparse_total:
+                    return
+                cols = [np.concatenate([c[a] for c in sparse_cols]) for a in range(3)]
+                task = BlockTask(file_idx, -1, 0, sparse_total, dict(zip(xyz_keys, cols)),
+                                 gidx_map=np.concatenate(sparse_gidx))
+                sparse_cols, sparse_gidx, sparse_total = [], [], 0
+                arrays = (*(c[None] for c in cols), np.asarray([task.n_valid], np.int32))
+                *xyz_dev, nvs_dev = _put(comm, timer, arrays, arrays[:3])
+                mask = step.density_mask_gathered(
+                    tuple(xyz_dev), nvs_dev, tables_dev, task.n_valid,
+                    slots=density_ops.table_slots(task.n_valid))
+                pending.append(([task], mask, task.n_valid))
+                drain(comm.inflight() - 1)
+
+            for task in feeder:
+                with timer.stage("prefilter"):
+                    m = _host_hit_mask(plan, task, xyz_keys, q_enc)
+                    nhits = 0 if m is None else int(np.count_nonzero(m))
+                if not nhits:
+                    timer.counts["host_prefiltered_blocks"] += 1
+                    continue
+                if nhits > sparse_max:
+                    batch.append(task)
+                    batch_hits.append(nhits)
+                    if len(batch) == rows_per_step:
+                        flush()
+                    continue
+                idx = np.nonzero(m)[0]
+                sparse_cols.append(tuple(task.columns[key][idx] for key in xyz_keys))
+                sparse_gidx.append(task_gidx(task, idx))
+                sparse_total += nhits
+                timer.counts["density_sparse_blocks"] += 1
+                if sparse_total >= block_size - sparse_max:
+                    flush_sparse()
+            flush_sparse()
+            if batch:
+                flush()
+            drain(0)
+            timer.seconds["decode_cpu"] += feeder.decode_seconds
+
+            if scope == "file":
+                with timer.stage("merge"):
+                    file_state = acc.result()
+                if state_out is not None:
+                    state_out.setdefault("file", {})[file_idx] = file_state
+                with timer.stage("emit"):
+                    emitter.emit_hits(file_idx, _winners_to_hits(file_state, r, file_idx))
+                    emitter.finalize_file(file_idx)
+
+    if scope == "global":
+        with timer.stage("merge"):
+            global_state = global_acc.result()
+        if state_out is not None:
+            state_out["global"] = global_state
+        with timer.stage("emit"):
+            combined: list[FileHits] = []
+            for file_idx in np.unique(global_state["file_idx"]):
+                sub = global_state[global_state["file_idx"] == file_idx]
+                combined.append(_winners_to_hits(sub, readers[file_idx], int(file_idx)))
+            emitter.emit_hits(-1, concat_hits(combined))
+            emitter.finalize_file(-1)
+
+
+def _winners_to_hits(state: np.ndarray, reader, file_idx: int) -> FileHits:
+    if len(state) == 0:
+        return empty_hits(file_idx)
+    return gather_hits(reader, np.sort(state["gidx"]), file_idx)

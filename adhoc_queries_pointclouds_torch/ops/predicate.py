@@ -49,6 +49,10 @@ launches = {
     "mask_time": 0,
     "mask_time_packed": 0,
     "compact_bits": 0,
+    "density_leaders": 0,
+    "density_leaders_packed": 0,
+    "density_candidates": 0,
+    "density_candidates_packed": 0,
     "bbox_probe_acc": 0,
     "bbox_probe_acc_nomask": 0,
 }

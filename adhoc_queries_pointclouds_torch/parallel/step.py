@@ -17,13 +17,19 @@ collect_mask runs the kind's predicate into a BitMask (true per-block
 counts included); once the engine has read the counts it gives each
 partial block an offset, and collect_indices compacts exactly those
 blocks' hits. There is no cap.
+
+The density step is the counterpart of sharded_density and
+sharded_density_packed (mesh.py:311-413): the kind's predicate through the
+same bit-mask wrappers, then ops/density.py's candidate selection over the
+step's x/y/z among the predicate's hits. Its result is a BitMask too, so
+collect_indices finishes it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import compact, predicate
+from ..ops import compact, density, predicate
 
 # collect kind (mesh.py:233-280) -> bit-mask wrapper; packed kinds take
 # extra = (widths, block_size), class_dict (k, block_size)
@@ -104,6 +110,31 @@ def collect_mask(kind: str, arrays: tuple, extra: tuple = ()) -> predicate.BitMa
     """The predicate of one collect step over its (rows, ...) operands, as
     sharded_collect takes them: kind and extra as in _MASKS."""
     return _MASKS[kind](*arrays, *extra)
+
+
+def density_mask(kind: str, arrays: tuple, extra: tuple, xyz: tuple, tables: dict,
+                 block_size: int, *, bases=None, widths=None,
+                 slots: int | None = None) -> predicate.BitMask:
+    """The candidates of one density step: the predicate of kind over its
+    operands (arrays and extra as in collect_mask; the last array is the
+    (rows,) n_valid), then the candidate selection over xyz: three (rows, B)
+    int32 rows, or (widths given) three plane stacks with bases (rows, 3)
+    int32. tables are the file's (density.tables_to_device); slots sizes the
+    leaders table (density.table_slots of the step's largest hit count)."""
+    mask = _MASKS[kind](*arrays, *extra)
+    return density.density_candidates_bits(xyz, mask, arrays[-1], tables, block_size,
+                                           bases=bases, widths=widths, slots=slots)
+
+
+def density_mask_gathered(xyz: tuple, nvs, tables: dict, n: int, *,
+                          slots: int | None = None) -> predicate.BitMask:
+    """The candidates of host-gathered predicate hits: xyz are three (rows,
+    n) int32 rows in which every row below n_valid is a hit (the density
+    path's sparse blocks, engine.py:1759-1797)."""
+    bits = torch.full((xyz[0].shape[0], predicate.mask_words(n)), -1, dtype=torch.int32,
+                      device=xyz[0].device)
+    return density.density_candidates_bits(xyz, predicate.BitMask(bits, None, None), nvs,
+                                           tables, n, slots=slots)
 
 
 def collect_indices(mask: predicate.BitMask, offsets, total: int,

@@ -26,10 +26,15 @@ Phases, in order; the first fault raises and the script exits non-zero:
      kernels (one bit-mask entry per collect kind, and the ordered
      compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
      1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
-     unaligned block size
+     unaligned block size. The density kernels (per-cell leaders, then the
+     candidates' bit mask) run raw and packed at the same hit densities and
+     n_valid, over grids with about one and with over a hundred points per
+     cell, with points beyond the grid, at the int32 extremes, exact d2
+     ties and a degenerate axis; the leaders table, the mask and the
+     compacted indices equal the plain version's
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
-     (2 x 2M), five paths, each with the launch counters set to 0 just
+     (2 x 2M), six paths, each with the launch counters set to 0 just
      before it and read just after:
        bbox: counts in both transports with the sidecar index off,
          auto-built and read, each equal to a numpy f64 oracle;
@@ -48,6 +53,13 @@ Phases, in order; the first fault raises and the script exits non-zero:
        time: a --time-range that straddles files, in both transports with
          the index off and exact, each equal to a numpy f64 oracle;
        probe: the bbox probe tool at 2^24 points, every bbox row equal;
+       density: --density with -o over LAST 64M (a box in global and file
+         scope, both transports, index off and read, with a cell that keeps
+         most hits and one that keeps under 1 %; class 6 with no box, whose
+         grid is the files' total bounds, with the exact index) and LAZER
+         (one run, and a --print-points run, byte-identical to --device
+         cpu); every written LAS file, read back, holds exactly the winners
+         of an independent numpy f64 oracle;
      every kernel of a path must have launched in it
 
 It prints the nvidia-smi line and a JSON object of per-kernel numbers on the
@@ -79,9 +91,10 @@ from adhoc_queries_pointclouds_torch.formats.las import encode_point_records, ma
 from adhoc_queries_pointclouds_torch.host import packed_row_width
 from adhoc_queries_pointclouds_torch.models.query import BoundsQuery, QueryPlan
 from adhoc_queries_pointclouds_torch.ops import compact as C
+from adhoc_queries_pointclouds_torch.ops import density as D
 from adhoc_queries_pointclouds_torch.ops import predicate as P
 from adhoc_queries_pointclouds_torch.tools import bboxprobe
-from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
+from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
 
 SEED = 20261016
 K, B = 4, 1 << 21  # AQPC_BLOCKS_PER_STEP blocks of DEFAULT_BLOCK_SIZE points
@@ -131,6 +144,10 @@ KERNELS = {
     "mask_time": ("mask_bits.cu", _TPU + "ops/predicate.py:235"),
     "mask_time_packed": ("mask_bits.cu", _TPU + "ops/predicate.py:537"),
     "compact_bits": ("compact_bits.cu", _TPU + "ops/compact.py:86"),
+    "density_leaders": ("density.cu", _TPU + "ops/density.py:339"),
+    "density_leaders_packed": ("density.cu", _TPU + "ops/density.py:339"),
+    "density_candidates": ("density.cu", _TPU + "ops/density.py:339"),
+    "density_candidates_packed": ("density.cu", _TPU + "ops/density.py:339"),
     "bbox_probe_acc": ("bbox_probe.cu", "tools/bboxprobe.py:60"),
     "bbox_probe_acc_nomask": ("bbox_probe.cu", "tools/bboxprobe.py:87"),
 }
@@ -431,6 +448,7 @@ def phase_kernels(dev) -> dict:
     kernels_class(dev, gen, timer, out)
     kernels_time(dev, gen, timer, out)
     kernels_collect(dev, gen, timer, out)
+    kernels_density(dev, gen, timer, out)
     kernels_probe(dev, gen, timer, out)
     return out
 
@@ -786,6 +804,210 @@ def kernels_collect(dev, gen, timer, out) -> None:
     out["compact_bits"] = dict(max_abs_err=max(compact_errs), **compact_times)
 
 
+# The density kernels' data: file-local coordinates at scale 0.001 over a
+# grid of 2^20 x 2^20 x 2^17 units (1048.576 x 1048.576 x 131.072 m), so
+# that 20-, 20- and 17-bit residuals above base 0 cover it exactly.
+DENSITY_BITS = (20, 20, 17)
+DENSITY_SCALE, DENSITY_OFFSET = (0.001,) * 3, (0.0,) * 3
+# cell sizes: over a hundred, about thirteen and about one point per cell
+# at 2^21 points a block
+DENSITY_CELLS = {"contended": 30.0, "main": 10.0, "sparse": 4.1}
+
+
+def density_tables(dev, cell: float, zmax: float = 131.072) -> dict:
+    grid = D.GridSpec3D.create(AABB((0.0, 0.0, 0.0), (1048.576, 1048.576, zmax)), cell)
+    return D.tables_to_device(grid.file_tables(DENSITY_SCALE, DENSITY_OFFSET), dev)
+
+
+def planes_of(r: torch.Tensor, w: int) -> torch.Tensor:
+    """(K, B) int64 residuals in [0, 2^w) -> their (K, row width) u8 plane
+    stack (byte planes, then bit planes in little bit order)."""
+    k_blocks, block_size = r.shape
+    parts = [((r >> (8 * p)) & 0xFF).to(torch.uint8) for p in range(w // 8)]
+    weights = 1 << torch.arange(8, dtype=torch.int64, device=r.device)
+    for q in range(w % 8):
+        bit = (r >> (8 * (w // 8) + q)) & 1
+        parts.append((bit.view(k_blocks, block_size // 8, 8) * weights).sum(-1).to(torch.uint8))
+    return torch.cat(parts, 1) if parts else torch.empty((k_blocks, 0), dtype=torch.uint8,
+                                                         device=r.device)
+
+
+def table_leaders(table: torch.Tensor, k_blocks: int) -> list:
+    """The leaders table of density_leaders -> per block (keys ascending
+    (int64), their values' f32 bit patterns (int32))."""
+    slots = table.numel() // (3 * k_blocks)
+    keys = table[: 2 * k_blocks * slots].view(torch.int64).view(k_blocks, slots)
+    vals = table[2 * k_blocks * slots:].view(k_blocks, slots)
+    out = []
+    for k in range(k_blocks):
+        used = keys[k] != -1
+        order = torch.argsort(keys[k][used])
+        out.append((keys[k][used][order], vals[k][used][order]))
+    return out
+
+
+def compare_density(name, xyz, rows, nvs, tables, block_size, errs, packed=None,
+                    want_all=False) -> None:
+    """Both density kernels against their plain versions on one step: the
+    leaders table (every occupied cell's key and least d2, bit for bit), the
+    candidates' BitMask (words, counts, chunk counts), and the indices the
+    compaction makes of it, ascending. packed = (planes, bases, widths)
+    takes the packed entries over the same points. want_all: every valid
+    predicate hit must come out (flagged points survive wholesale)."""
+    k_blocks = rows.shape[0]
+    mask = P.pack_mask_bits(rows & P._valid(nvs, block_size, rows.device))
+    slots = D.table_slots(int(mask.counts.max()))
+    if packed is None:
+        points, kw = xyz, {}
+    else:
+        points, kw = packed[0], dict(bases=packed[1], widths=packed[2])
+    table = D.density_leaders(points, mask.bits, nvs, tables, block_size, slots=slots, **kw)
+    got = D.density_candidates(points, mask.bits, nvs, tables, table, block_size, **kw)
+    torch.cuda.synchronize()
+    want_leaders = D.density_leaders_plain(*xyz, rows, nvs, tables)
+    want = P.pack_mask_bits(D.density_candidates_plain(*xyz, rows, nvs, tables))
+    torch.cuda.synchronize()
+    lead_err = 0
+    for (gk, gv), (wk, wv) in zip(table_leaders(table, k_blocks), want_leaders):
+        same = gk.shape == wk.shape and torch.equal(gk, wk) and torch.equal(
+            gv, wv.view(torch.int32))
+        lead_err = max(lead_err, 0 if same else 1)
+    same_shape = all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
+    mask_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if w.numel() else 0
+                   for g, w in zip(got, want))
+    counts = want.counts.tolist()
+    offsets = [sum(counts[:j]) if c else -1 for j, c in enumerate(counts)]
+    off = torch.tensor(offsets, dtype=torch.int64, device=rows.device)
+    idx = C.compact_bits(got.bits, got.chunks, off, sum(counts), block_size)
+    torch.cuda.synchronize()
+    ref = torch.nonzero(P.unpack_mask_bits(want.bits, block_size))[:, 1].to(torch.int32)
+    idx_err = int((idx.to(torch.int64) - ref.to(torch.int64)).abs().max()) if len(ref) else 0
+    errs["leaders"].append(lead_err)
+    errs["candidates"].append(mask_err)
+    errs["compact"].append(idx_err)
+    cells = [len(k) for k, _ in want_leaders]
+    print(f"  {name}: predicate hits {mask.counts.tolist()}, occupied cells {cells}, candidates "
+          f"kernel {got.counts.tolist()} plain {counts}; max_abs_err leaders {lead_err}, "
+          f"mask {mask_err}, indices {idx_err}")
+    if not same_shape or lead_err or mask_err or idx_err or idx.shape != ref.shape:
+        fail(f"{name}: a density kernel disagrees with its plain version")
+    if want_all and counts != mask.counts.tolist():
+        fail(f"{name}: {counts} candidates of {mask.counts.tolist()} flagged points")
+
+
+def kernels_density(dev, gen, timer, out) -> None:
+    """The density kernels (density.cu), raw and packed, against their
+    plain versions; times with the table's clearing inside the window."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    nv_full = torch.full((K,), B, **i32)
+    nv_edges = torch.tensor([0, 1, B - 1, B], **i32)
+    bu = B_BYTES_ONLY
+    nv_u = torch.tensor([bu, bu - 1, 4097, 0], **i32)
+    errs = {"leaders": [], "candidates": [], "compact": []}
+    hit = hit_rows(gen, dev, B)
+    everything = torch.ones((K, B), dtype=torch.bool, device=dev)
+    res = [torch.randint(0, 1 << w, (K, B), dtype=torch.int64, device=dev, generator=gen)
+           for w in DENSITY_BITS]
+    # points beyond the max face, at the int32 extremes and below the grid,
+    # and exact d2 ties around the centre of cell (0, 0, 0) of the 10 m grid
+    special = torch.tensor([[1 << 20, 5, 5], [1048576 + 77, 9, 9], [I32_MAX, 5, 5],
+                            [I32_MIN, 5, 5], [5, I32_MAX, 5], [5, 5, I32_MIN], [-3, -3, -3],
+                            [5100, 5000, 5000], [4900, 5000, 5000], [5000, 5100, 5000],
+                            [5000, 5000, 4900], [5000, 5000, 5101]], dtype=torch.int64, device=dev)
+    xyz = [r.clone() for r in res]
+    for a in range(3):
+        xyz[a][:, 64 : 64 + len(special)] = special[:, a]
+    xyz = [t.to(torch.int32) for t in xyz]
+    tables = {name: density_tables(dev, cell) for name, cell in DENSITY_CELLS.items()}
+
+    print(f"density_leaders and density_candidates, K={K}, B={B}, hit densities {DENSITIES}:")
+    for name, t in tables.items():
+        compare_density(f"{name} grid, n_valid B", xyz, hit, nv_full, t, B, errs)
+        compare_density(f"{name} grid, n_valid 0, 1, B-1, B", xyz, hit, nv_edges, t, B, errs)
+    compare_density("main grid, every row a hit", xyz, everything, nv_full, tables["main"], B, errs)
+    # ties: of the five points around the centre of cell (0, 0, 0), the four
+    # at distance 100 tie exactly and survive; the one at 101 does not
+    ties = torch.zeros((K, B), dtype=torch.bool, device=dev)
+    ties[:, 71:76] = True
+    got = D.density_candidates_bits(xyz, P.pack_mask_bits(ties), nv_full, tables["main"], B)
+    if got.counts.tolist() != [4] * K:
+        fail(f"exact d2 ties: {got.counts.tolist()} candidates a block, built with 4")
+    uxyz = [unaligned(t, bu) for t in xyz]
+    compare_density(f"main grid, unaligned B={bu}", uxyz, unaligned(hit, bu), nv_u,
+                    tables["main"], bu, errs)
+    # a degenerate axis (zero extent in z: dims 0): cell 0 of z holds every
+    # point below the int32 maximum; and a grid every point lies beyond
+    compare_density("degenerate z axis", xyz, hit, nv_full, density_tables(dev, 10.0, 0.0), B, errs)
+    far = [t + (1 << 22) for t in xyz[:1]] + xyz[1:]
+    compare_density("every point beyond the max face", far, hit, nv_full, tables["main"], B, errs,
+                    want_all=True)
+
+    t_main = tables["main"]
+    mask_all = P.pack_mask_bits(everything)
+    slots = D.table_slots(B)
+    table = D.density_leaders(xyz, mask_all.bits, nv_full, t_main, B, slots=slots)
+    # at least 60 integer and float operations a point and pass
+    ops = 60 * K * B
+    times = {
+        "density_leaders": timed(
+            timer, lambda: D.density_leaders(xyz, mask_all.bits, nv_full, t_main, B, slots=slots),
+            lambda: D.density_leaders_plain(*xyz, everything, nv_full, t_main),
+            (12 + 1 / 8) * K * B, ops),
+        "density_candidates": timed(
+            timer, lambda: D.density_candidates(xyz, mask_all.bits, nv_full, t_main, table, B),
+            lambda: P.pack_mask_bits(D.density_candidates_plain(*xyz, everything, nv_full, t_main)),
+            (12 + 2 / 8) * K * B, ops),
+    }
+
+    print(f"density_leaders_packed and density_candidates_packed, K={K}, B={B}:")
+    perrs = {"leaders": [], "candidates": [], "compact": errs["compact"]}
+    # the raw case's own points as (20, 20, 20) planes above base 0: the
+    # widths of the end-to-end datasets' blocks
+    zero = torch.zeros((K, 3), **i32)
+    main_w = (20, 20, 20)
+    main_planes = [planes_of(r, w) for r, w in zip(res, main_w)]
+    main_xyz = [r.to(torch.int32) for r in res]
+    compare_density(f"widths {main_w}, main grid", main_xyz, hit, nv_full, t_main, B, perrs,
+                    packed=(main_planes, zero, main_w))
+    compare_density(f"widths {main_w}, main grid, every row a hit", main_xyz, everything, nv_full,
+                    t_main, B, perrs, packed=(main_planes, zero, main_w))
+    for widths in [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)]:
+        planes = rand_planes(gen, dev, widths, B)
+        # bases that centre each axis's residual range on the grid (0 at 32
+        # bits, where the residual is the coordinate)
+        bases = torch.tensor([[0 if w == 32 else (1 << (bits - 1)) - ((1 << w) >> 1)
+                               for w, bits in zip(widths, DENSITY_BITS)]] * K, **i32)
+        bases[1] += 1000
+        pxyz = D.unpack_xyz(planes, bases, widths, B)
+        for label, nvs in (("n_valid B", nv_full), ("n_valid 0, 1, B-1, B", nv_edges)):
+            compare_density(f"widths {widths}, main grid, {label}", pxyz, hit, nvs, t_main, B,
+                            perrs, packed=(planes, bases, widths))
+    odd_w = (8, 16, 32)
+    planes = rand_planes(gen, dev, odd_w, bu)
+    bases = torch.tensor([[1 << 19, 1 << 19, 0]] * K, **i32)
+    compare_density(f"widths {odd_w}, unaligned B={bu}", D.unpack_xyz(planes, bases, odd_w, bu),
+                    unaligned(hit, bu), nv_u, t_main, bu, perrs, packed=(planes, bases, odd_w))
+    packed = dict(bases=zero, widths=main_w)
+    ptable = D.density_leaders(main_planes, mask_all.bits, nv_full, t_main, B, slots=slots, **packed)
+    pbytes = sum(main_w) / 8
+    times["density_leaders_packed"] = timed(
+        timer, lambda: D.density_leaders(main_planes, mask_all.bits, nv_full, t_main, B,
+                                         slots=slots, **packed),
+        lambda: D.density_leaders_plain(*D.unpack_xyz(main_planes, zero, main_w, B), everything,
+                                        nv_full, t_main),
+        (pbytes + 1 / 8) * K * B, ops)
+    times["density_candidates_packed"] = timed(
+        timer, lambda: D.density_candidates(main_planes, mask_all.bits, nv_full, t_main, ptable, B,
+                                            **packed),
+        lambda: P.pack_mask_bits(D.density_candidates_plain(
+            *D.unpack_xyz(main_planes, zero, main_w, B), everything, nv_full, t_main)),
+        (pbytes + 2 / 8) * K * B, ops)
+    for name, t in times.items():
+        e = perrs if name.endswith("_packed") else errs
+        key = "leaders" if "leaders" in name else "candidates"
+        out[name] = dict(max_abs_err=max(e[key] + e["compact"]), **t)
+
+
 def kernels_probe(dev, gen, timer, out) -> None:
     """The bbox probe variants (bbox_probe.cu) at the probe tool's size."""
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1097,6 +1319,138 @@ def path_collect(datasets) -> None:
             fail(f"{small.name} --print-points: the card's text differs from the CPU's")
 
 
+def density_oracle(data_dir: Path, match, cell: float, scope: str, bounds=None) -> list:
+    """The numpy oracle of a density query, independent of GridSpec3D: the
+    reference's f64 cell (w - bmin) * dims / ext, truncated (negative and
+    NaN to 0), its masked bit-packed key, and d2 to the unmasked cell's
+    centre summed x, y, z in order; per key the least (d2, file order,
+    point index) wins. bounds: the grid's (min, max), default the union of
+    the files' header bounds. Returns the predicate's hit count and the
+    written files as written_oracle gives them: one (header, records) per
+    input file with winners (scope file), or one in all, the files' winners
+    in file order (scope global)."""
+    files = point_files(data_dir)
+    readers = [open_point_cloud(f) for f in files]
+    if bounds is None:
+        bounds = (np.min([r.header.bounds.min for r in readers], 0),
+                  np.max([r.header.bounds.max for r in readers], 0))
+    bmin = np.asarray(bounds[0], np.float64)
+    ext = np.asarray(bounds[1], np.float64) - bmin
+    ncf = np.ceil(ext / cell)
+    dims = np.maximum(ncf, 0.0)
+    bits = [int(np.ceil(np.log2(v))) if v > 1 else 0 for v in ncf]
+    keys, d2s, fidx, pidx = [], [], [], []
+    for i, r in enumerate(readers):
+        rows = np.nonzero(match(r))[0]
+        if not len(rows):
+            continue
+        w = r.positions_world()[rows]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            c = (w - bmin) * dims / ext
+        c = np.where(np.isnan(c), 0.0, np.maximum(c, 0.0)).astype(np.uint64)
+        d = w - ((c.astype(np.float64) + 0.5) * cell + bmin)
+        d2s.append((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
+        key = np.zeros(len(rows), np.uint64)
+        shift = 0
+        for a in range(3):
+            key |= (c[:, a] & np.uint64((1 << bits[a]) - 1)) << np.uint64(shift)
+            shift += bits[a]
+        keys.append(key)
+        fidx.append(np.full(len(rows), i, np.int64))
+        pidx.append(rows)
+    want = []
+    if keys:
+        key, d2, fi, pi = (np.concatenate(v) for v in (keys, d2s, fidx, pidx))
+        if scope == "file":
+            key = key + (fi.astype(np.uint64) << np.uint64(sum(bits)))  # one grid per file
+        # stable: ties on (key, d2) keep file order, then point order
+        order = np.lexsort((d2, key))
+        first = np.ones(len(order), bool)
+        first[1:] = key[order][1:] != key[order][:-1]
+        win_f, win_p = fi[order][first], pi[order][first]
+        parts = []
+        for i, r in enumerate(readers):
+            rows = np.sort(win_p[win_f == i])
+            if len(rows):
+                parts.append((r.positions_world()[rows], r.column("classification")[rows],
+                              r.column("color")[rows], r.column("intensity")[rows]))
+        if scope == "global" and parts:
+            parts = [tuple(np.concatenate([p[j] for p in parts]) for j in range(4))]
+        for pos, cls, color, intensity in parts:
+            header = make_writeback_header(len(pos), pos.min(0), pos.max(0), point_format=2)
+            want.append((header, encode_point_records(header, pos, cls, color, intensity)))
+    for r in readers:
+        r.close()
+    return sum(len(p) for p in pidx), want
+
+
+def path_density(datasets) -> None:
+    """--density with -o over LAST 64M and LAZER 4M, and one --print-points
+    run; the exact sidecars of the collect path are in place."""
+    big, small = datasets[0][0], datasets[2][0]
+    box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
+
+    def in_box(box):
+        return lambda r: box.contains_points(r.positions_world())
+
+    def is_class(r):
+        return r.column("classification") == 6
+
+    # (query, match, grid bounds, cell, scope, [(AQPC_PACK, index read)]): a
+    # 0.5 m cell keeps most of the small box's hits, a 25 m one under 1 %
+    last_runs = [
+        (["--bounds", E2E_BOX_SMALL], in_box(box_s), (box_s.min, box_s.max), 0.5, "global",
+         [("1", False), ("0", False)]),
+        (["--bounds", E2E_BOX_SMALL], in_box(box_s), (box_s.min, box_s.max), 25.0, "file",
+         [("1", True), ("0", True)]),
+        (["--bounds", E2E_BOX_LARGE], in_box(box_l), (box_l.min, box_l.max), 25.0, "global",
+         [("1", False), ("0", True)]),
+        (["--class", "6"], is_class, None, 5.0, "global", [("1", True), ("0", True)]),
+    ]
+    with tempfile.TemporaryDirectory(prefix="aqpc_density_") as tmp:
+        tmp = Path(tmp)
+        for q, (query, match, bounds, cell, scope, runs) in enumerate(last_runs):
+            t0 = time.perf_counter()
+            hits, want = density_oracle(big, match, cell, scope, bounds)
+            n_want = sum(len(recs) for _, recs in want)
+            print(f"{big.name}: {' '.join(query)} --density {cell} --density-scope {scope}: "
+                  f"oracle {n_want} winners of {hits} hits ({100 * n_want / hits:.2f} %) in "
+                  f"{len(want)} files ({time.perf_counter() - t0:.1f} s)")
+            flags = [*query, "--density", str(cell), "--density-scope", scope]
+            for n, (pack, use_index) in enumerate(runs):
+                out_dir = tmp / f"last_{q}_{n}"
+                cli_collect(big, flags, pack, use_index, want, out_dir)
+                shutil.rmtree(out_dir)
+            del want
+        flags = ["--bounds", E2E_BOX_SMALL, "--density", "2.0"]
+        _, want = density_oracle(small, in_box(box_s), 2.0, "global", (box_s.min, box_s.max))
+        dirs = [tmp / f"lazer_{device}" for device in ("cuda", "cpu")]
+        for device, out_dir in zip(("cuda", "cpu"), dirs):
+            cli_collect(small, flags, "1", True, want, out_dir, device)
+        names = sorted(p.name for p in dirs[0].iterdir())
+        if names != sorted(p.name for p in dirs[1].iterdir()) or not all(
+                filecmp.cmp(dirs[0] / f, dirs[1] / f, shallow=False) for f in names):
+            fail(f"{small.name} -o {' '.join(flags)}: the card's files differ from the CPU's")
+        print(f"  {small.name} -o {' '.join(flags)}: {len(names)} files byte-identical to the "
+              f"--device cpu run's")
+        box_p = parse_aabb(E2E_BOX_PRINT)
+        want = sum(len(recs) for _, recs in density_oracle(
+            small, in_box(box_p), 5.0, "global", (box_p.min, box_p.max))[1])
+        texts = []
+        for device in ("cuda", "cpu"):
+            out = run_cli(["-i", str(small), "--bounds", E2E_BOX_PRINT, "--density", "5.0",
+                           "--device", device, "--print-points"], "1")
+            lines = [line for line in out.splitlines() if line.startswith("Found point: (")]
+            texts.append(lines)
+            print(f"  {small.name} --print-points --bounds {E2E_BOX_PRINT} --density 5.0 on "
+                  f"{device}: {len(lines)} points printed, oracle {want}")
+            if len(lines) != want or f"Found {want} matching points" not in out:
+                fail(f"{small.name} --density --print-points on {device}: {len(lines)} lines, "
+                     f"oracle {want}")
+        if texts[0] != texts[1]:
+            fail(f"{small.name} --density --print-points: the card's text differs from the CPU's")
+
+
 def path_probe(datasets) -> None:
     """The bbox probe tool at 2^24 points: every bbox row, the two probe
     variants among them, gives the same count (the tool raises if not)."""
@@ -1112,6 +1466,8 @@ PATHS = {
     "class": (path_class, ("class_count_multi", "class_count_words", "class_count_dict")),
     "time": (path_time, ("time_count_multi", "time_count_packed")),
     "probe": (path_probe, ("bbox_probe_acc", "bbox_probe_acc_nomask")),
+    "density": (path_density, ("density_leaders", "density_leaders_packed", "density_candidates",
+                               "density_candidates_packed", "compact_bits")),
 }
 
 
@@ -1145,7 +1501,7 @@ def main() -> int:
             for kernel in path_kernels:
                 if got[kernel] == 0:
                     fail(f"the {name} path never launched {kernel}")
-                launches[kernel] = got[kernel]
+                launches.setdefault(kernel, got[kernel])  # a shared kernel: its first path's
     for name, s in seconds.items():
         print(f"phase {name}: {s:.1f} s")
     check_no_jax("at the end of the run")

@@ -62,6 +62,11 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, flag):
         # timing line), and -o writes the JAX CLI's files byte for byte
         _same_collect_output(data, capsys, tmp_path, flag)
         return
+    if flag[0] in ("--density", "--density-scope"):
+        # ported: --density samples the box's points; --density-scope alone
+        # is the plain count, as in the JAX CLI
+        _same_density_output(data, capsys, tmp_path, flag, ["--bounds", BOXES[0]])
+        return
     args = ["-i", str(data), "--bounds", BOXES[0], "--device", "cpu", *flag]
     assert torch_cli.main(args) != 0
     err = capsys.readouterr().err
@@ -96,6 +101,50 @@ def _same_collect_output(data, capsys, tmp_path, flag):
             assert a.read_bytes() == b.read_bytes()
     else:
         assert sum(line.startswith("Found point: (") for line in got) == n
+
+
+def _same_density_output(data, capsys, tmp_path, flags, query):
+    """Both CLIs over data with the same flags: the same lines (but the
+    timing line and --stats' timings), and with -o the same LAS bytes."""
+    outs = []
+    for name, cli, extra in (("jax", jax_cli, []), ("torch", torch_cli, ["--device", "cpu"])):
+        out_dir = tmp_path / name
+        out_dir.mkdir()
+        args = ["-i", str(data), *query, "--block-size", "16384", *extra]
+        args += [a if a != "OUT" else str(out_dir) for a in flags]
+        assert cli.main(args) == 0
+        lines = capsys.readouterr().out.replace(str(out_dir), "OUT").splitlines()
+        assert lines[-1].startswith("Searched ")
+        outs.append((lines[:-1], [f.read_bytes() for f in sorted(out_dir.glob("*.las"))]))
+    assert outs[0] == outs[1]
+    assert _found("\n".join(outs[1][0])) > 0
+    return outs[1]
+
+
+@pytest.mark.parametrize("scope", [[], ["--density-scope", "file"], ["--density-scope", "global"]],
+                         ids=["default", "file", "global"])
+@pytest.mark.parametrize("sink", [["-o", "OUT"], ["--print-points"], []],
+                         ids=["output", "print", "count"])
+def test_density_output_matches_jax_cli(data, capsys, tmp_path, sink, scope):
+    lines, files = _same_density_output(data, capsys, tmp_path,
+                                        ["--density", "25", *scope, *sink],
+                                        ["--bounds", BOXES[0]])
+    n = _found("\n".join(lines))
+    plain = _found(_run_torch(data, capsys, ["--bounds", BOXES[0]]))
+    assert 0 < n < plain  # the grid thins the box's points
+    if sink == ["-o", "OUT"]:
+        per_file = scope == ["--density-scope", "file"]
+        wrote = [line for line in lines if line.startswith("Wrote ")]
+        assert wrote == [f"Wrote OUT/matching_points_{j}.las" for j in range(2 if per_file else 1)]
+        assert len(files) == len(wrote)
+    if sink == ["--print-points"]:
+        assert sum(line.startswith("Found point: (") for line in lines) == n
+
+
+def _run_torch(data, capsys, query):
+    assert torch_cli.main(["-i", str(data), *query, "--block-size", "16384",
+                           "--device", "cpu"]) == 0
+    return capsys.readouterr().out
 
 
 @pytest.fixture(scope="module")
@@ -147,3 +196,11 @@ def test_time_range_over_gps_less_data_raises_as_jax_cli(data):
     with pytest.raises(ValueError) as got:
         torch_cli.main([*args, "--device", "cpu"])
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("query", [["--class", "6"], ["--time-range", "0.05;0.2"]])
+def test_density_without_a_box_matches_jax_cli(gps_data, capsys, tmp_path, query):
+    """Class and time plans take the files' total bounds as the grid."""
+    lines, files = _same_density_output(gps_data, capsys, tmp_path,
+                                        ["--density", "50", "-o", "OUT"], query)
+    assert len(files) == 1 and "Wrote OUT/matching_points_0.las" in lines

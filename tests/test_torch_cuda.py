@@ -14,16 +14,18 @@ import torch
 
 from adhoc_queries_pointclouds_torch import engine, host
 from adhoc_queries_pointclouds_torch.ops import compact as TC
+from adhoc_queries_pointclouds_torch.ops import density as TD
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
 from adhoc_queries_pointclouds_torch import index as index_mod
 from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery,
     ClassQuery,
+    DensityConfig,
     QueryPlan,
     TimeRangeQuery,
 )
-from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
+from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
 
 pytestmark = pytest.mark.cuda
 I32 = np.iinfo(np.int32)
@@ -646,3 +648,145 @@ def test_collect_on_cuda_matches_cpu(dev, tmp_path, monkeypatch, pack):
             for a, b in zip(got.hits, ref.hits):
                 np.testing.assert_array_equal(a.position_world, b.position_world)
                 np.testing.assert_array_equal(a.classification, b.classification)
+
+
+# ------------------------------------------------------------------ density
+
+
+def _density_step(rng, K, B, cell, zmax=100.0):
+    """K blocks over a 1000 x 1000 x zmax m grid at scale 0.001: points
+    inside, beyond the max face, below the grid and at the int32 extremes."""
+    grid = TD.GridSpec3D.create(AABB((0.0, 0.0, 0.0), (1000.0, 1000.0, zmax)), cell)
+    tables = grid.file_tables((0.001,) * 3, (0.0,) * 3)
+    xyz = [rng.integers(0, top, (K, B)).astype(np.int32) for top in (10**6, 10**6, 10**5)]
+    edge = np.array([I32.min, I32.max, 10**6, 10**6 + 9, -7, 5000, 5100, 4900], np.int32)
+    for a in range(3):
+        xyz[a][:, : min(B, 8)] = np.roll(edge, a)[: min(B, 8)]
+    rows = rng.random((K, B)) < np.array([0.0, 0.001, 0.5, 1.0])[:K, None]
+    nvs = np.array([B, B, max(B - 1, 0), B, 1, 0][:K], np.int32)
+    return tables, xyz, rows, nvs
+
+
+def _density_both(dev, tables, xyz, rows, nvs, B, **packed):
+    """The density entry on the card and on the CPU over the same operands."""
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        t = TD.tables_to_device(tables, d)
+        mask = TP.pack_mask_bits(torch.from_numpy(rows).to(d))
+        kw = {k: (v.to(d) if torch.is_tensor(v) else v) for k, v in packed.items()}
+        got = TD.density_candidates_bits(tuple(torch.from_numpy(a).to(d) for a in xyz), mask,
+                                         torch.from_numpy(nvs).to(d), t, B,
+                                         slots=TD.table_slots(int(mask.counts.max())), **kw)
+        outs.append([g.cpu() for g in got])
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("cell", [2.0, 10.0, 100.0], ids=["sparse", "main", "contended"])
+@pytest.mark.parametrize("B", [8, 4096, 8192 + 24, 8192 + 3, 262144])
+def test_density_kernels_match_plain(dev, B, cell):
+    rng = np.random.default_rng(B)
+    tables, xyz, rows, nvs = _density_step(rng, 4, B, cell)
+    before = dict(TP.launches)
+    got, ref = _density_both(dev, tables, xyz, rows, nvs, B)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert TP.launches["density_leaders"] == before["density_leaders"] + 1
+    assert TP.launches["density_candidates"] == before["density_candidates"] + 1
+    assert int(got[1].sum()) > 0
+
+
+def test_density_kernels_degenerate_axis_and_full_table(dev):
+    """A zero-extent axis puts every point in its cell 0; a table with fewer
+    slots than cells loses no candidate (the kernel keeps what it cannot
+    look up), so the result is a superset of the plain version's."""
+    rng = np.random.default_rng(5)
+    B = 4096
+    tables, xyz, rows, nvs = _density_step(rng, 4, B, 10.0, zmax=0.0)
+    got, ref = _density_both(dev, tables, xyz, rows, nvs, B)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    tables, xyz, rows, nvs = _density_step(rng, 4, B, 100.0)  # 100 cells, 64 slots
+    t = TD.tables_to_device(tables, dev)
+    mask = TP.pack_mask_bits(torch.from_numpy(rows).to(dev))
+    small = TD.density_candidates_bits(tuple(torch.from_numpy(a).to(dev) for a in xyz), mask,
+                                       torch.from_numpy(nvs).to(dev), t, B, slots=64)
+    _, ref = _density_both(dev, tables, xyz, rows, nvs, B)
+    have = TP.unpack_mask_bits(small.bits.cpu(), B)
+    want = TP.unpack_mask_bits(ref[0], B)
+    assert bool((have | ~want).all()) and int(have.sum()) > int(want.sum())
+
+
+@pytest.mark.parametrize("widths", [(0, 4, 12), (20, 20, 20), (28, 32, 8), (3, 7, 13)], ids=str)
+@pytest.mark.parametrize("B", [4096, 8192 + 24])
+def test_density_packed_kernels_match_plain(dev, B, widths):
+    rng = np.random.default_rng(B + sum(widths))
+    K = 4
+    tables, xyz, rows, nvs = _density_step(rng, K, B, 10.0)
+    planes, bases = [], np.zeros((K, 3), np.int32)
+    for a, w in enumerate(widths):
+        if w < 32:
+            span = (1 << w)
+            bases[:, a] = (10**6 if a < 2 else 10**5) // 2 - span // 2
+            xyz[a] = (bases[:, a, None] + rng.integers(0, max(span, 1), (K, B))).astype(np.int32)
+        out = np.zeros((K, host.packed_row_width(w, B)), np.uint8)
+        for k in range(K):
+            host.pack_bits_into(out[k], xyz[a][k], w, int(bases[k, a]), B)
+        planes.append(out)
+    got, ref = _density_both(dev, tables, planes, rows, nvs, B,
+                             bases=torch.from_numpy(bases), widths=widths)
+    raw_ref = TP.pack_mask_bits(TD.density_candidates_plain(
+        *(torch.from_numpy(a) for a in xyz), torch.from_numpy(rows), torch.from_numpy(nvs),
+        TD.tables_to_device(tables, "cpu")))
+    for g, r, w in zip(got, ref, raw_ref):
+        assert torch.equal(g, r) and torch.equal(g, w)
+
+
+def test_density_wrappers_refuse_bad_operands(dev):
+    rng = np.random.default_rng(9)
+    B = 4096
+    tables, xyz, rows, nvs = _density_step(rng, 4, B, 10.0)
+    t = TD.tables_to_device(tables, dev)
+    mask = TP.pack_mask_bits(torch.from_numpy(rows).to(dev))
+    pts = tuple(torch.from_numpy(a).to(dev) for a in xyz)
+    nv = torch.from_numpy(nvs).to(dev)
+    with pytest.raises(TypeError):
+        TD.density_candidates_bits((pts[0].long(), *pts[1:]), mask, nv, t, B)
+    with pytest.raises(ValueError):
+        TD.density_candidates_bits(pts, mask, nv.cpu(), t, B)
+    with pytest.raises(ValueError):
+        TD.density_candidates_bits(pts, mask, nv, dict(t, cfx=t["cfx"][:-1]), B)
+    with pytest.raises(ValueError):
+        TD.density_candidates_bits(pts, mask, nv, t, B, slots=100)
+
+
+@pytest.mark.parametrize("pack", ["1", "0"])
+@pytest.mark.parametrize("spec", [
+    dict(bounds=BoundsQuery(parse_aabb("100200;200300;10;101500;200800;60"))),
+    dict(classification=ClassQuery(6)),
+    dict(time_range=TimeRangeQuery(0.1, 0.9)),
+], ids=["box", "class", "time"])
+@pytest.mark.parametrize("scope", ["file", "global"])
+def test_density_engine_matches_cpu(dev, tmp_path, monkeypatch, scope, spec, pack):
+    """run_query of a density plan on the card and on the CPU: the same
+    winners, field by field."""
+    monkeypatch.setenv("AQPC_PACK", pack)
+    synth.write_dataset(tmp_path, n_files=2, points_per_file=150_000, seed=3, formats=("last",),
+                        clustered=True, point_format=3)
+    plan = QueryPlan(density=DensityConfig(6.0, scope), **spec)
+    states = []
+    for d in ("cuda", "cpu"):
+        state = {}
+        before = dict(TP.launches)
+        res = engine.run_query(tmp_path / "last", plan, device=d, block_size=1 << 15,
+                               density_state_out=state)
+        states.append((res.match_count, state))
+        suffix = "_packed" if pack == "1" else ""
+        launched = TP.launches[f"density_candidates{suffix}"] - before[f"density_candidates{suffix}"]
+        assert (launched > 0) == (d == "cuda")
+    (n_got, got), (n_ref, ref) = states
+    assert n_got == n_ref > 0
+    pairs = ([(got["global"], ref["global"])] if scope == "global"
+             else [(got["file"][i], ref["file"][i]) for i in sorted(ref["file"])])
+    for a, b in pairs:
+        assert np.array_equal(a, b)

@@ -188,18 +188,20 @@ def test_discover_files_and_total_bounds_match_jax_engine(dataset, fmt):
 
 
 def test_non_bbox_plans_are_not_ported(dataset, tmp_path):
-    """Density plans still raise; a class count and the collecting plans
-    (-o, --print-points) now run (the class, time and collect parity grids
-    are in test_torch_engine_class.py, test_torch_engine_time.py and
-    test_torch_engine_collect.py)."""
+    """Every plan kind runs now: a class count, a density plan and the
+    collecting plans (-o, --print-points). The class, time, collect and
+    density parity grids are in test_torch_engine_class.py,
+    test_torch_engine_time.py, test_torch_engine_collect.py and
+    test_torch_engine_density.py."""
     import io
 
     data = dataset / "data" / "last"
     got = run(torch_engine, data, dict(cls=6), block_size=BLOCK)
     assert got.match_count == run(jax_engine, data, dict(cls=6), block_size=BLOCK).match_count > 0
     box = BOXES["partial"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run(torch_engine, data, dict(box=box, density=1.0))
+    dense = run(torch_engine, data, dict(box=box, density=1.0), block_size=BLOCK)
+    ref = run(jax_engine, data, dict(box=box, density=1.0), block_size=BLOCK)
+    assert 0 < dense.match_count == ref.match_count < _oracle(data, box)
     outs = []
     for name, eng in (("jax", jax_engine), ("torch", torch_engine)):
         buf = io.StringIO()

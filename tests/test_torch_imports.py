@@ -18,6 +18,7 @@ from adhoc_queries_pointclouds_torch.formats import synth
 from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery,
     ClassQuery,
+    DensityConfig,
     QueryPlan,
     TimeRangeQuery,
 )
@@ -32,9 +33,9 @@ import adhoc_queries_pointclouds_torch
 from adhoc_queries_pointclouds_torch import cli, engine, host, index, native, sinks
 from adhoc_queries_pointclouds_torch.formats import las, last, laz, lazer, lz4py, synth
 from adhoc_queries_pointclouds_torch.models.query import (
-    BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery,
+    BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery,
 )
-from adhoc_queries_pointclouds_torch.ops import compact, predicate
+from adhoc_queries_pointclouds_torch.ops import compact, density, predicate
 from adhoc_queries_pointclouds_torch.parallel import comm, pipeline, step
 from adhoc_queries_pointclouds_torch.tools import bboxprobe
 from adhoc_queries_pointclouds_torch.utils import timing
@@ -61,6 +62,15 @@ with tempfile.TemporaryDirectory() as d:
                 time_range=p.time_range), device="cpu", keep_hits=True)
             assert res.match_count == sum(h.count for h in res.hits) > 0
             assert [f.name for f in res.output_files] == ["matching_points_0.las"]
+            # the density path: both scopes
+            for scope in ("file", "global"):
+                state = {}
+                res = engine.run_query(pathlib.Path(d) / "last", QueryPlan(
+                    density=DensityConfig(30.0, scope), bounds=p.bounds,
+                    classification=p.classification, time_range=p.time_range),
+                    device="cpu", block_size=2048, density_state_out=state,
+                    density_grid_bounds=parse_aabb("99000;199000;-10;102000;202000;200"))
+                assert 0 < res.match_count < 5000 and sorted(state) == [scope]
 bboxprobe.main(["--n", "4096", "--device", "cpu"])
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "adhoc_queries_pointclouds_tpu")))
@@ -68,7 +78,7 @@ print(sorted(m for m in sys.modules
 
 
 def test_port_imports_no_jax():
-    """After counts, collects and the probe tool in a fresh process,
+    """After counts, collects, density queries and the probe tool in a fresh process,
     sys.modules holds no jax, no jaxlib and nothing of the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -100,6 +110,7 @@ def test_cuda_without_cuda_raises(tmp_path, monkeypatch):
         QueryPlan(time_range=TimeRangeQuery(0.0, 1.0)),
         QueryPlan(classification=ClassQuery(2), print_points=True),
         QueryPlan(bounds=BoundsQuery(parse_aabb("0;0;0;1;1;1")), output_dir=tmp_path),
+        QueryPlan(classification=ClassQuery(2), density=DensityConfig(5.0)),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             engine.run_query(tmp_path / "last", plan, device="cuda")
