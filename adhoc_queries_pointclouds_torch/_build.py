@@ -43,10 +43,10 @@ _ENTRY_POINTS = {
     "aqpc_mask_time": [_P] * 7 + [_I, _I, _P],
     "aqpc_mask_time_packed": [_P] * 7 + [_I] * 4 + [_P],
     "aqpc_compact_bits": [_P] * 4 + [_I, _I, _P],
-    "aqpc_density_leaders": [_P] * 20 + [_I] * 6 + [_P],
-    "aqpc_density_leaders_packed": [_P] * 21 + [_I] * 9 + [_P],
-    "aqpc_density_candidates": [_P] * 23 + [_I] * 6 + [_P],
-    "aqpc_density_candidates_packed": [_P] * 24 + [_I] * 9 + [_P],
+    "aqpc_density_leaders": [_P] * 20 + [_I] * 7 + [_P],
+    "aqpc_density_leaders_packed": [_P] * 21 + [_I] * 10 + [_P],
+    "aqpc_density_candidates": [_P] * 23 + [_I] * 7 + [_P],
+    "aqpc_density_candidates_packed": [_P] * 24 + [_I] * 10 + [_P],
     "aqpc_bbox_probe_acc": [_P] * 8 + [_I, _I, _P],
     "aqpc_bbox_probe_acc_nomask": [_P] * 7 + [_I, _I, _P],
 }

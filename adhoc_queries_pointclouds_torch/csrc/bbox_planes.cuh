@@ -84,20 +84,6 @@ inline bool box_planes_wide(const void* xp, const void* yp, const void* zp,
   return block_size % 128 == 0 && addr % 16 == 0;
 }
 
-// SM count x resident CTAs of `kernel` at kThreads threads: the size of a
-// persistent grid.
-template <class Kernel>
-inline int64_t resident_ctas(Kernel kernel) {
-  int device = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  const int64_t n = static_cast<int64_t>(sms) * per_sm;
-  return n < 1 ? 1 : n;
-}
-
 // The axis of row k with its int32 residual-space bounds made unsigned;
 // clears *some when no residual can lie in them.
 __device__ __forceinline__ BoxAxis box_axis(const Planes& p, int64_t k, int lo, int hi,

@@ -47,6 +47,20 @@ __device__ __forceinline__ int64_t clamp_valid(int64_t nv, int64_t block_size) {
   return nv < 0 ? 0 : (nv > block_size ? block_size : nv);
 }
 
+// SM count x resident CTAs of `kernel` at kThreads threads: the size of a
+// persistent grid.
+template <class Kernel>
+inline int64_t resident_ctas(Kernel kernel) {
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const int64_t n = static_cast<int64_t>(sms) * per_sm;
+  return n < 1 ? 1 : n;
+}
+
 // Number of CTAs along one block's row so that each thread handles about
 // `items_per_thread` work items of `n_items`.
 inline int64_t chunks_for(int64_t n_items, int64_t items_per_thread) {

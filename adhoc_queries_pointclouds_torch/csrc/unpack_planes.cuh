@@ -64,7 +64,9 @@ __device__ __forceinline__ PlaneRow plane_row(const Planes& p, int64_t k, int64_
 
 // Residuals r[i] of points 8g+i of one row. `valid` (1..8) is the number of
 // points of the group below n_valid; bytes of points past it are not read
-// and their r[i] are unspecified.
+// and their r[i] are unspecified. Streaming: the loads are __ldcs (evict
+// first), for a kernel that keeps other data hot in L2.
+template <bool Streaming = false>
 __device__ __forceinline__ void unpack8(const uint8_t* __restrict__ row, int64_t block_size,
                                         int nbytes, int nbits, int64_t g, int valid,
                                         bool aligned, uint32_t (&r)[8]) {
@@ -73,7 +75,8 @@ __device__ __forceinline__ void unpack8(const uint8_t* __restrict__ row, int64_t
   for (int p = 0; p < nbytes; ++p) {
     const uint8_t* src = row + p * block_size + 8 * g;
     if (aligned && valid == 8) {
-      const uint2 w = *reinterpret_cast<const uint2*>(src);
+      const uint2* src2 = reinterpret_cast<const uint2*>(src);
+      const uint2 w = Streaming ? __ldcs(src2) : *src2;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         r[i] |= ((w.x >> (8 * i)) & 0xffu) << (8 * p);
@@ -82,13 +85,14 @@ __device__ __forceinline__ void unpack8(const uint8_t* __restrict__ row, int64_t
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        if (i < valid) r[i] |= static_cast<uint32_t>(src[i]) << (8 * p);
+        if (i < valid)
+          r[i] |= static_cast<uint32_t>(Streaming ? __ldcs(src + i) : src[i]) << (8 * p);
     }
   }
   const uint8_t* bits = row + nbytes * block_size + g;
   const int64_t bit_plane = block_size / 8;
   for (int q = 0; q < nbits; ++q) {
-    const uint32_t byte = bits[q * bit_plane];
+    const uint32_t byte = Streaming ? __ldcs(bits + q * bit_plane) : bits[q * bit_plane];
 #pragma unroll
     for (int i = 0; i < 8; ++i) r[i] |= ((byte >> i) & 1u) << (8 * nbytes + q);
   }

@@ -975,6 +975,7 @@ def _run_density(
             scale, offset = r.header.scale, r.header.offset
             tables_dev = density_ops.tables_to_device(
                 grid.file_tables(scale, offset), comm.device())
+            cells = density_ops.grid_cells(tables_dev)  # sizes the leaders table with the hits
             acc = density_ops.WinnerAccum() if scope == "file" else global_acc
 
             idx_info = block_index.get(file_idx)
@@ -1040,7 +1041,7 @@ def _run_density(
                 mask = step.density_mask(
                     kind, dev[:n_pred], extra, dev[xyz_at : xyz_at + 3], tables_dev, block_size,
                     bases=dev[-1] if pack else None, widths=widths,
-                    slots=density_ops.table_slots(max(batch_hits)))
+                    slots=density_ops.table_slots(max(batch_hits), cells))
                 pending.append((batch, mask, block_size))
                 batch, batch_hits = [], []
                 drain(comm.inflight() - 1)
@@ -1061,7 +1062,7 @@ def _run_density(
                 *xyz_dev, nvs_dev = _put(comm, timer, arrays, arrays[:3])
                 mask = step.density_mask_gathered(
                     tuple(xyz_dev), nvs_dev, tables_dev, task.n_valid,
-                    slots=density_ops.table_slots(task.n_valid))
+                    slots=density_ops.table_slots(task.n_valid, cells))
                 pending.append(([task], mask, task.n_valid))
                 drain(comm.inflight() - 1)
 

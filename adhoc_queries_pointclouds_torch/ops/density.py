@@ -36,6 +36,11 @@ sort, no cap and no retry:
   density_candidates_bits   both passes: the step's entry
   density_candidates_plain  the plain PyTorch version (torch.unique and
                             scatter_reduce_), taken for CPU tensors only
+  table_slots, slot_bytes   the table's size and slot layout: slots by the
+                            cells a block can hold, one 8-byte word a slot
+                            below 2^32 cells
+  table_leaders             the table decoded, in density_leaders_plain's
+                            form
 
 The result is a BitMask in the collect path's layout, so ops/compact.py
 compact_bits turns it into ascending candidate indices. Two rules differ
@@ -501,15 +506,68 @@ def tables_to_device(tables: dict, device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device) for k in TABLE_KEYS}
 
 
-def table_slots(n_points: int) -> int:
+def table_slots(n_points: int, cells: int | None = None) -> int:
     """Slots per block of the leaders table for a block with at most
-    n_points predicate hits: the power of two >= 2 * n_points (load factor
-    <= 1/2), at least 64."""
-    return max(64, 1 << (2 * max(int(n_points), 1) - 1).bit_length())
+    n_points predicate hits over a grid of `cells` cells (grid_cells): the
+    power of two >= 2 * min(n_points, cells) (load factor <= 1/2), at least
+    64. Without cells, by the hits alone."""
+    n = int(n_points) if cells is None else min(int(n_points), int(cells))
+    return max(64, 1 << (2 * max(n, 1) - 1).bit_length())
+
+
+def slot_bytes(cells: int) -> int:
+    """Bytes of one slot of the leaders table over a grid of `cells` cells,
+    the one place the layout is chosen: below 2^32 cells one uint64 word,
+    key << 32 | d2 bits (a key then never reaches 0xFFFFFFFF, so the
+    all-ones word is "empty"); else 16 bytes, (uint64 key, uint32 d2 bits,
+    pad). Either way a slot lies in one 32-byte sector."""
+    return 8 if int(cells) < 1 << 32 else 16
 
 
 def _table_dims(tables: dict) -> tuple[int, int, int]:
     return tuple(int(tables[f"cr{a}"].shape[0]) for a in "xyz")
+
+
+def grid_cells(tables: dict) -> int:
+    """The cell count of the grid of a file's tables (a degenerate axis
+    counts one cell), from the tables' shapes: no device read."""
+    dx, dy, dz = _table_dims(tables)
+    return dx * dy * dz
+
+
+def _table_slots_of(table, k_blocks: int, cells: int) -> int:
+    """Slots per block of a leaders table of K blocks over a grid of `cells`
+    cells; raises if its size fits no layout."""
+    words = slot_bytes(cells) // 4
+    slots, rest = divmod(table.numel(), max(k_blocks, 1) * words)
+    if rest or slots < 1 or slots & (slots - 1):
+        raise ValueError(
+            f"a leaders table of {table.numel()} int32 words fits no layout for {k_blocks} "
+            f"blocks of {slot_bytes(cells)}-byte slots (a power of two of them a block)")
+    return slots
+
+
+def table_leaders(table, k_blocks: int, cells: int) -> list:
+    """A leaders table of density_leaders over a grid of `cells` cells ->
+    per block (the occupied cells' keys ascending as unsigned 64-bit numbers,
+    in int64; their d2 bit patterns, int32): density_leaders_plain's result
+    with its values viewed as int32."""
+    slots = _table_slots_of(table, k_blocks, cells)
+    if slot_bytes(cells) == 8:
+        halves = table.view(k_blocks, slots, 2)  # little-endian: d2 bits, then key
+        keys = halves[:, :, 1].to(torch.int64) & 0xFFFFFFFF
+        vals = halves[:, :, 0]
+        used = halves[:, :, 1] != -1
+    else:
+        keys = table.view(torch.int64).view(k_blocks, slots, 2)[:, :, 0]
+        vals = table.view(k_blocks, slots, 4)[:, :, 2]
+        used = keys != -1
+    out = []
+    for k in range(k_blocks):
+        key, val = keys[k][used[k]], vals[k][used[k]]
+        order = torch.argsort(key ^ (-(1 << 63)))  # unsigned order
+        out.append((key[order], val[order]))
+    return out
 
 
 def _wrap_i32(v64):
@@ -678,19 +736,23 @@ def _operands(xyz, mask_bits, nvs, tables, block_size, bases, widths):
 def density_leaders(xyz, mask_bits, nvs, tables: dict, block_size: int, *, bases=None,
                     widths=None, slots: int | None = None):
     """Pass 1 on CUDA tensors: xyz as in density_candidates_bits, the
-    predicate's mask words -> the leaders table, an int32 tensor of K x
-    slots uint64 keys then K x slots uint32 f32 bit patterns (slots a power
-    of two per block; a block with more occupied cells than slots loses
-    nothing: pass 2 keeps every point whose cell it does not find). The
-    entry clears the table before the kernel fills it."""
+    predicate's mask words -> the leaders table, an int32 tensor of K
+    regions of `slots` slots (a power of two; default: for a full block,
+    table_slots(block_size, grid_cells(tables))) in the layout slot_bytes
+    picks for the grid (table_leaders decodes it). A block with more
+    occupied cells than slots loses nothing: pass 2 keeps every point whose
+    cell it does not find. The entry clears the table before the kernel
+    fills it."""
     k_blocks = xyz[0].shape[0]
-    slots = table_slots(block_size) if slots is None else int(slots)
+    cells = grid_cells(tables)
+    slots = table_slots(block_size, cells) if slots is None else int(slots)
     if slots < 1 or slots & (slots - 1):
         raise ValueError(f"slots must be a power of two, got {slots}")
     suffix, points, tabs, sizes = _operands(xyz, mask_bits, nvs, tables, block_size, bases, widths)
-    table = torch.empty(k_blocks * slots * 3, dtype=torch.int32, device=xyz[0].device)
+    nbytes = slot_bytes(cells)
+    table = torch.empty(k_blocks * slots * nbytes // 4, dtype=torch.int32, device=xyz[0].device)
     predicate.run(f"density_leaders{suffix}", (*points, mask_bits, nvs, *tabs, table),
-                  (k_blocks, block_size, slots, *sizes))
+                  (k_blocks, block_size, slots, nbytes, *sizes))
     return table
 
 
@@ -699,12 +761,14 @@ def density_candidates(xyz, mask_bits, nvs, tables: dict, table, block_size: int
     """Pass 2 on CUDA tensors: the operands of density_leaders and its
     table -> the candidates' BitMask."""
     k_blocks = xyz[0].shape[0]
-    slots = table.numel() // (3 * k_blocks)
-    _check(table, "table", torch.int32, (k_blocks * slots * 3,), xyz[0].device)
+    cells = grid_cells(tables)
+    slots = _table_slots_of(table, k_blocks, cells)
+    nbytes = slot_bytes(cells)
+    _check(table, "table", torch.int32, (k_blocks * slots * nbytes // 4,), xyz[0].device)
     suffix, points, tabs, sizes = _operands(xyz, mask_bits, nvs, tables, block_size, bases, widths)
     return predicate._launch_mask(f"density_candidates{suffix}",
                                   (*points, mask_bits, nvs, *tabs, table),
-                                  (k_blocks, block_size, slots, *sizes))
+                                  (k_blocks, block_size, slots, nbytes, *sizes))
 
 
 def density_candidates_bits(xyz, mask: BitMask, nvs, tables: dict, block_size: int, *,
@@ -717,8 +781,10 @@ def density_candidates_bits(xyz, mask: BitMask, nvs, tables: dict, block_size: i
     are rebuilt to absolute int32. mask: the step's predicate. nvs: (K,)
     int32. tables: tables_to_device(GridSpec3D.file_tables(...)) of the
     file, of a grid GridSpec3D.create accepted (at most 2^64 cells). slots:
-    table slots per block, a power of two of at least twice the largest
-    block's predicate hit count (table_slots); default: for a full block.
+    table slots per block, a power of two of at least twice the cells the
+    largest block can hold, the fewer of its predicate hits and the grid's
+    cells (table_slots(hits, grid_cells(tables))); default: for a full
+    block.
 
     CPU tensors take the plain version; CUDA tensors launch the two kernels
     of csrc/density.cu or raise. Replaces density_candidates_multi

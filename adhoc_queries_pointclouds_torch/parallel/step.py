@@ -120,7 +120,8 @@ def density_mask(kind: str, arrays: tuple, extra: tuple, xyz: tuple, tables: dic
     (rows,) n_valid), then the candidate selection over xyz: three (rows, B)
     int32 rows, or (widths given) three plane stacks with bases (rows, 3)
     int32. tables are the file's (density.tables_to_device); slots sizes the
-    leaders table (density.table_slots of the step's largest hit count)."""
+    leaders table (density.table_slots of the step's largest hit count and
+    the grid's cells)."""
     mask = _MASKS[kind](*arrays, *extra)
     return density.density_candidates_bits(xyz, mask, arrays[-1], tables, block_size,
                                            bases=bases, widths=widths, slots=slots)

@@ -10,8 +10,10 @@ one JSON object per line:
   {"profile": ...}  per query and transport (AQPC_PACK 1 and 0): a warm-up
     run, then one run_query on the card under torch.profiler: the wall, the
     StageTimer's seconds and counts, the union of the device's busy
-    intervals, the idle share (1 - busy / wall) and the device time by
-    kernel name;
+    intervals, the idle share (1 - busy / wall), the device time by
+    kernel name (the 12 largest), the density kernels' device time with the
+    leaders table's clearing (every kernel named density_, and every
+    memset: the query makes no other), and the port's kernel launches;
   {"rss": ...}      per query and AQPC_MALLOC_PIN 1 and 0: the peak resident
     set of a fresh process that runs the query once: resource.getrusage's
     ru_maxrss, and VmHWM of /proc/self/status where the kernel gives it.
@@ -41,6 +43,7 @@ from pathlib import Path
 import torch
 
 from .. import engine
+from ..ops import predicate
 from ..formats import synth
 from ..models.query import BoundsQuery, DensityConfig, QueryPlan
 from ..utils.aabb import parse_aabb
@@ -73,7 +76,7 @@ def run(data: Path, name: str):
 
 def busy_seconds(events) -> tuple[float, dict]:
     """Union of the device intervals of a profiler trace, and the device
-    time by kernel (or copy) name."""
+    time by kernel (or copy) name, in ms."""
     spans, by_name = [], {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -89,7 +92,7 @@ def busy_seconds(events) -> tuple[float, dict]:
         if e > end:
             busy += e - max(s, end)
             end = e
-    return busy / 1e6, {k: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]}
+    return busy / 1e6, {k: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])}
 
 
 def profile(data: Path, name: str, pack: str, smi: str) -> dict:
@@ -97,16 +100,21 @@ def profile(data: Path, name: str, pack: str, smi: str) -> dict:
     run(data, name)  # warm: kernels built and loaded, files in the page cache
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    predicate.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         res = run(data, name)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, by_name = busy_seconds(prof.events())
+    density_ms = sum(ms for kernel, ms in by_name.items()
+                     if "density_" in kernel or kernel.startswith("Memset"))
     return {"profile": name, "AQPC_PACK": pack, "card": smi, "found": res.match_count,
             "wall_s": wall, "stage_s": dict(res.timer.seconds), "counts": dict(res.timer.counts),
             "h2d_bytes": res.timer.bytes.get("h2d", 0), "device_busy_s": busy,
-            "idle_share": 1.0 - busy / wall, "device_ms_by_name": by_name}
+            "idle_share": 1.0 - busy / wall, "density_device_ms": density_ms,
+            "launches": {k: v for k, v in predicate.launches.items() if v},
+            "device_ms_by_name": dict(list(by_name.items())[:12])}
 
 
 def child(data: Path, name: str) -> None:

@@ -5,12 +5,12 @@
 
 bbox_count_packed and mask_bbox_packed run at the main path's shape (K = 4
 full blocks of 2^21 points) over random planes at each width triple, first
-against their plain versions (exact), then timed: CUDA events around each
-launch, the 50 MB L2 flushed before it, median and least of --runs (the
-wrapper's launches are timed with the kernel, so a busy host lifts single
-runs and at times the median; the least run shows the card's part). One
-line per width: both times, the bytes each must move, and the bound at
-3.35 TB/s.
+against their plain versions (exact), then timed with
+kernel_timer.KernelTimer (each call's time, the host's enqueue inside the
+window, the 50 MB L2 flushed before it; median and least of --runs: a busy
+host lifts single runs, the least shows the card's part). One line per
+width: both
+times, the bytes each must move, and the bound at 3.35 TB/s.
 The last line is one JSON object with every number and the card's name and
 power limit.
 
@@ -26,10 +26,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+if __package__:
+    from .kernel_timer import KernelTimer
+else:  # run as a file: its own directory is on sys.path, the --root tree is not yet
+    from kernel_timer import KernelTimer
 
 K, B = 4, 1 << 21
 WIDTHS = [(w, w, w) for w in (0, 4, 12, 20, 28, 32)] + [
@@ -60,21 +64,8 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = KernelTimer(dev, args.runs).times
     nv = torch.full((K,), B, dtype=torch.int32, device=dev)
-
-    def ms(fn) -> tuple[float, float]:
-        fn()
-        times = []
-        for _ in range(args.runs):
-            flush.zero_()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times), min(times)
 
     print(f"tree {args.root}; card {card}; K={K}, B={B}, median of {args.runs} runs")
     rows = []

@@ -16,22 +16,27 @@ Phases, in order; the first fault raises and the script exits non-zero:
      reports the registers of the two packed bbox kernels
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
-     points), exact equality; kernel and plain times (CUDA events, median of
-     25 runs, L2 flushed before each), the bytes moved per second, and the
-     bound: the bytes at 3.35 TB/s or the operations at 67 T/s, whichever
-     is larger. The two packed bbox kernels also run at widths that take
-     each branch of their compare, with bounds at and beyond both ends of
-     residual space, at block sizes 2^21, 2^21 - 8 and 2^21 - 8189, and
-     print the (0, 0, 0) floor beside every width's time. The collect
+     points), exact equality; kernel and plain times (tools/kernel_timer.py:
+     median and least of 25 runs, L2 flushed before each; each call's time,
+     "ms", and the kernel call's device work alone, "device_ms"), the bytes
+     moved per second of device time, and the bound: the bytes at
+     3.35 TB/s or the operations at 67 T/s, whichever is larger. The two
+     packed bbox kernels also run at widths that take each branch of their
+     compare, with bounds at and beyond both ends of residual space, at
+     block sizes 2^21, 2^21 - 8 and 2^21 - 8189, and print the (0, 0, 0)
+     floor beside every width's time. The collect
      kernels (one bit-mask entry per collect kind, and the ordered
      compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
      1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
      unaligned block size. The density kernels (per-cell leaders, then the
      candidates' bit mask) run raw and packed at the same hit densities and
      n_valid, over grids with about one and with over a hundred points per
-     cell, with points beyond the grid, at the int32 extremes, exact d2
-     ties and a degenerate axis; the leaders table, the mask and the
-     compacted indices equal the plain version's
+     cell, over 2^32 cells, with points beyond the grid, at the int32
+     extremes, exact d2 ties and a degenerate axis, the table sized as the
+     engine sizes it; the leaders (through ops/density.py table_leaders),
+     the mask and the compacted indices equal the plain version's; then
+     every row a hit at the 30, 10 and 4.1 m grids, raw and packed, held
+     and timed by tools/density_bench.py's grid_case
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
      (2 x 2M), six paths, each with the launch counters set to 0 just
@@ -75,7 +80,6 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -93,7 +97,8 @@ from adhoc_queries_pointclouds_torch.models.query import BoundsQuery, QueryPlan
 from adhoc_queries_pointclouds_torch.ops import compact as C
 from adhoc_queries_pointclouds_torch.ops import density as D
 from adhoc_queries_pointclouds_torch.ops import predicate as P
-from adhoc_queries_pointclouds_torch.tools import bboxprobe
+from adhoc_queries_pointclouds_torch.tools import bboxprobe, density_bench
+from adhoc_queries_pointclouds_torch.tools.kernel_timer import KernelTimer
 from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
 
 SEED = 20261016
@@ -222,28 +227,6 @@ def phase_build() -> None:
 # ---------------------------------------------------------------- phase 3
 
 
-class Timer:
-    """Median device time of one call: CUDA events around each run, with
-    the 50 MB L2 flushed before it so every run reads from device memory."""
-
-    def __init__(self, dev):
-        self._flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-
-    def ms(self, fn) -> float:
-        fn()  # warm
-        times = []
-        for _ in range(TIMED_RUNS):
-            self._flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-
 def rand_i32(gen, shape, dev, lo=I32_MIN, hi=I32_MAX) -> torch.Tensor:
     """Uniform int32 in [lo, hi], made on the card."""
     span = hi - lo + 1
@@ -342,23 +325,36 @@ def timed(timer, kernel_fn, plain_fn, nbytes: float, ops: float, indent: str = "
           what: str = f"{K} full blocks", floor_ms: float | None = None) -> dict:
     """Kernel and plain times at the main path's shape beside the bound: the
     larger of nbytes (every input read once, every output written once) at
-    the card's memory rate and ops at its operation rate. No single PyTorch
+    the card's memory rate and ops at its operation rate. ms and plain_ms
+    are the calls' times (the host's enqueue inside the window), device_ms
+    the kernel call's device work only (kernel_timer.py), each the median of
+    TIMED_RUNS, the least printed beside the kernel's. No single PyTorch
     call computes any of these functions, so library_ms is None."""
-    ms = timer.ms(kernel_fn)
-    plain_ms = timer.ms(plain_fn)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
-    bound_ms, bound_by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    ms, least = timer.times(kernel_fn)
+    device_ms, device_least = timer.times(kernel_fn, device=True)
+    plain_ms, _ = timer.times(plain_fn)
+    bound_ms, bound_by = bound_of(nbytes, ops)
     floor = "" if floor_ms is None else f", (0, 0, 0) floor {floor_ms:.4f} ms"
-    print(f"{indent}time, {what}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s){floor}, "
-          f"{nbytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({100 * bound_ms / ms:.0f} % of the kernel's time), plain {plain_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"{indent}time, {what}: kernel {ms:.4f} ms (least {least:.4f}; device "
+          f"{device_ms:.4f}, least {device_least:.4f}; {nbytes / device_ms / 1e6:.1f} GB/s)"
+          f"{floor}, {nbytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({100 * bound_ms / device_ms:.0f} % of the kernel's device time), "
+          f"plain {plain_ms:.4f} ms")
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def bound_of(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time for nbytes at the card's memory rate and ops at its
+    operation rate, in ms, and which of the two it is."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    timer = Timer(dev)
+    timer = KernelTimer(dev, TIMED_RUNS)
     i32 = dict(dtype=torch.int32, device=dev)
     out = {}
 
@@ -410,7 +406,8 @@ def phase_kernels(dev) -> dict:
         bots = [0 if w < 32 else I32_MIN for w in widths]
         a = torch.stack([rand_i32(gen, (K,), dev, b, t) for b, t in zip(bots, tops)], 1)
         c = torch.stack([rand_i32(gen, (K,), dev, b, t) for b, t in zip(bots, tops)], 1)
-        lo, hi = torch.minimum(a, c), torch.maximum(a, c)
+        box_lo, box_hi = torch.minimum(a, c), torch.maximum(a, c)
+        lo, hi = box_lo.clone(), box_hi.clone()
         lo[-1], hi[-1] = 0, -1
         args = (*planes, lo, hi, nvs, widths, B)
         compare(f"widths {widths}", lambda: P.bbox_count_packed_kernel(*args),
@@ -436,12 +433,13 @@ def phase_kernels(dev) -> dict:
                         lambda: P.bbox_count_packed_kernel(*args),
                         lambda: P.bbox_count_packed_multi(*args), errs)
             del odd
-        # timed as the main path runs it: K full blocks
-        args = (*planes, lo, hi, nv_full, widths, B)
+        # timed as the main path runs it: K full blocks, each with its box
+        # (an empty box, as on a padding row, skips its block's planes)
+        args = (*planes, box_lo, box_hi, nv_full, widths, B)
+        nbytes = sum(widths) / 8 * K * B + 32 * K
+        ops = sum(packed_ops(w) for w in widths) * K * B
         times[widths] = timed(timer, lambda: P.bbox_count_packed_kernel(*args),
-                              lambda: P.bbox_count_packed_multi(*args),
-                              sum(widths) / 8 * K * B + 32 * K,
-                              sum(packed_ops(w) for w in widths) * K * B, "    ",
+                              lambda: P.bbox_count_packed_multi(*args), nbytes, ops, "    ",
                               floor_ms=times.get((0, 0, 0), {}).get("ms"))
     # (20, 20, 20): the widths of the e2e datasets' blocks
     out["bbox_count_packed"] = dict(max_abs_err=max(errs), **times[(20, 20, 20)])
@@ -485,10 +483,16 @@ def kernels_class(dev, gen, timer, out) -> None:
             compare("K=1 (class_count)",
                     lambda: P.class_count(cls[1], targets[1], nv_cases[0][1][1]).reshape(1),
                     lambda: plain(cls[1:2], targets[1:2], nv_cases[0][1][1:2]), errs)
+            timed(timer, lambda: P.class_count(cls[1], targets[1], nv_full[1]),
+                  lambda: plain(cls[1:2], targets[1:2], nv_full[1:2]), B, 2 * B,
+                  what="K=1 (class_count), one full block")
         else:
             compare("K=1 (class_count_packed)",
                     lambda: P.class_count_packed(words[2], targets[2], nv_cases[0][1][2]).reshape(1),
                     lambda: plain(words[2:3], targets[2:3], nv_cases[0][1][2:3]), errs)
+            timed(timer, lambda: P.class_count_packed(words[2], targets[2], nv_full[2]),
+                  lambda: plain(words[2:3], targets[2:3], nv_full[2:3]), B, 2 * B,
+                  what="K=1 (class_count_packed), one full block")
         t = timed(timer, lambda: kernel(col, targets, nv_full),
                   lambda: plain(col, targets, nv_full), K * B, 2 * K * B)
         out[name] = dict(max_abs_err=max(errs), **t)
@@ -804,59 +808,31 @@ def kernels_collect(dev, gen, timer, out) -> None:
     out["compact_bits"] = dict(max_abs_err=max(compact_errs), **compact_times)
 
 
-# The density kernels' data: file-local coordinates at scale 0.001 over a
-# grid of 2^20 x 2^20 x 2^17 units (1048.576 x 1048.576 x 131.072 m), so
-# that 20-, 20- and 17-bit residuals above base 0 cover it exactly.
-DENSITY_BITS = (20, 20, 17)
-DENSITY_SCALE, DENSITY_OFFSET = (0.001,) * 3, (0.0,) * 3
-# cell sizes: over a hundred, about thirteen and about one point per cell
-# at 2^21 points a block
-DENSITY_CELLS = {"contended": 30.0, "main": 10.0, "sparse": 4.1}
-
-
-def density_tables(dev, cell: float, zmax: float = 131.072) -> dict:
-    grid = D.GridSpec3D.create(AABB((0.0, 0.0, 0.0), (1048.576, 1048.576, zmax)), cell)
-    return D.tables_to_device(grid.file_tables(DENSITY_SCALE, DENSITY_OFFSET), dev)
-
-
-def planes_of(r: torch.Tensor, w: int) -> torch.Tensor:
-    """(K, B) int64 residuals in [0, 2^w) -> their (K, row width) u8 plane
-    stack (byte planes, then bit planes in little bit order)."""
-    k_blocks, block_size = r.shape
-    parts = [((r >> (8 * p)) & 0xFF).to(torch.uint8) for p in range(w // 8)]
-    weights = 1 << torch.arange(8, dtype=torch.int64, device=r.device)
-    for q in range(w % 8):
-        bit = (r >> (8 * (w // 8) + q)) & 1
-        parts.append((bit.view(k_blocks, block_size // 8, 8) * weights).sum(-1).to(torch.uint8))
-    return torch.cat(parts, 1) if parts else torch.empty((k_blocks, 0), dtype=torch.uint8,
-                                                         device=r.device)
-
-
-def table_leaders(table: torch.Tensor, k_blocks: int) -> list:
-    """The leaders table of density_leaders -> per block (keys ascending
-    (int64), their values' f32 bit patterns (int32))."""
-    slots = table.numel() // (3 * k_blocks)
-    keys = table[: 2 * k_blocks * slots].view(torch.int64).view(k_blocks, slots)
-    vals = table[2 * k_blocks * slots:].view(k_blocks, slots)
-    out = []
-    for k in range(k_blocks):
-        used = keys[k] != -1
-        order = torch.argsort(keys[k][used])
-        out.append((keys[k][used][order], vals[k][used][order]))
-    return out
+# The density kernels' data (tools/density_bench.py, whose timings these
+# repeat): file-local coordinates at scale 0.001 over a grid of 2^20 x 2^20
+# x 2^17 units (1048.576 x 1048.576 x 131.072 m), so that 20-, 20- and
+# 17-bit residuals above base 0 cover it exactly; cells of 30, 10 and 4.1 m
+# put about 340, 13 and one point in a cell at 2^21 points a block, and
+# 0.05 m cells make a grid of over 2^32 cells (16-byte table slots).
+DENSITY_BITS = density_bench.BITS
+DENSITY_CELLS = density_bench.CELLS
+DENSITY_FINE_CELL = 0.05
 
 
 def compare_density(name, xyz, rows, nvs, tables, block_size, errs, packed=None,
-                    want_all=False) -> None:
-    """Both density kernels against their plain versions on one step: the
-    leaders table (every occupied cell's key and least d2, bit for bit), the
-    candidates' BitMask (words, counts, chunk counts), and the indices the
-    compaction makes of it, ascending. packed = (planes, bases, widths)
-    takes the packed entries over the same points. want_all: every valid
-    predicate hit must come out (flagged points survive wholesale)."""
+                    want_all=False) -> int:
+    """Both density kernels against their plain versions on one step, the
+    table sized as the engine sizes it: the leaders (every occupied cell's
+    key and least d2, bit for bit, through table_leaders), the candidates'
+    BitMask (words, counts, chunk counts), and the indices the compaction
+    makes of it, ascending. packed = (planes, bases, widths) takes the packed
+    entries over the same points. want_all: every valid predicate hit must
+    come out (flagged points survive wholesale). Returns the occupied cells
+    of all blocks."""
     k_blocks = rows.shape[0]
     mask = P.pack_mask_bits(rows & P._valid(nvs, block_size, rows.device))
-    slots = D.table_slots(int(mask.counts.max()))
+    cells = D.grid_cells(tables)
+    slots = D.table_slots(int(mask.counts.max()), cells)
     if packed is None:
         points, kw = xyz, {}
     else:
@@ -868,7 +844,7 @@ def compare_density(name, xyz, rows, nvs, tables, block_size, errs, packed=None,
     want = P.pack_mask_bits(D.density_candidates_plain(*xyz, rows, nvs, tables))
     torch.cuda.synchronize()
     lead_err = 0
-    for (gk, gv), (wk, wv) in zip(table_leaders(table, k_blocks), want_leaders):
+    for (gk, gv), (wk, wv) in zip(D.table_leaders(table, k_blocks, cells), want_leaders):
         same = gk.shape == wk.shape and torch.equal(gk, wk) and torch.equal(
             gv, wv.view(torch.int32))
         lead_err = max(lead_err, 0 if same else 1)
@@ -885,19 +861,24 @@ def compare_density(name, xyz, rows, nvs, tables, block_size, errs, packed=None,
     errs["leaders"].append(lead_err)
     errs["candidates"].append(mask_err)
     errs["compact"].append(idx_err)
-    cells = [len(k) for k, _ in want_leaders]
-    print(f"  {name}: predicate hits {mask.counts.tolist()}, occupied cells {cells}, candidates "
-          f"kernel {got.counts.tolist()} plain {counts}; max_abs_err leaders {lead_err}, "
+    occupied = [len(k) for k, _ in want_leaders]
+    hashed = "hashed" if cells > slots else "direct"
+    print(f"  {name}: predicate hits {mask.counts.tolist()}, occupied cells {occupied}, "
+          f"{slots} {hashed} slots of {D.slot_bytes(cells)} B a block, candidates kernel "
+          f"{got.counts.tolist()} plain {counts}; max_abs_err leaders {lead_err}, "
           f"mask {mask_err}, indices {idx_err}")
     if not same_shape or lead_err or mask_err or idx_err or idx.shape != ref.shape:
         fail(f"{name}: a density kernel disagrees with its plain version")
     if want_all and counts != mask.counts.tolist():
         fail(f"{name}: {counts} candidates of {mask.counts.tolist()} flagged points")
+    return sum(occupied)
 
 
 def kernels_density(dev, gen, timer, out) -> None:
     """The density kernels (density.cu), raw and packed, against their
-    plain versions; times with the table's clearing inside the window."""
+    plain versions; then every row a hit at each of the three grids, held
+    against the plain versions and timed, the table sized as the engine
+    sizes it and its clearing inside density_leaders' window."""
     i32 = dict(dtype=torch.int32, device=dev)
     nv_full = torch.full((K,), B, **i32)
     nv_edges = torch.tensor([0, 1, B - 1, B], **i32)
@@ -905,9 +886,10 @@ def kernels_density(dev, gen, timer, out) -> None:
     nv_u = torch.tensor([bu, bu - 1, 4097, 0], **i32)
     errs = {"leaders": [], "candidates": [], "compact": []}
     hit = hit_rows(gen, dev, B)
+    few = hit.clone()
+    few[2:] = False  # blocks at densities 0 and 0.1 % only: a small, hashed table
     everything = torch.ones((K, B), dtype=torch.bool, device=dev)
-    res = [torch.randint(0, 1 << w, (K, B), dtype=torch.int64, device=dev, generator=gen)
-           for w in DENSITY_BITS]
+    res = density_bench.residuals(gen, dev)
     # points beyond the max face, at the int32 extremes and below the grid,
     # and exact d2 ties around the centre of cell (0, 0, 0) of the 10 m grid
     special = torch.tensor([[1 << 20, 5, 5], [1048576 + 77, 9, 9], [I32_MAX, 5, 5],
@@ -918,13 +900,17 @@ def kernels_density(dev, gen, timer, out) -> None:
     for a in range(3):
         xyz[a][:, 64 : 64 + len(special)] = special[:, a]
     xyz = [t.to(torch.int32) for t in xyz]
-    tables = {name: density_tables(dev, cell) for name, cell in DENSITY_CELLS.items()}
+    tables = {name: density_bench.grid_tables(dev, cell) for name, cell in DENSITY_CELLS.items()}
+    fine = density_bench.grid_tables(dev, DENSITY_FINE_CELL)
 
     print(f"density_leaders and density_candidates, K={K}, B={B}, hit densities {DENSITIES}:")
     for name, t in tables.items():
         compare_density(f"{name} grid, n_valid B", xyz, hit, nv_full, t, B, errs)
         compare_density(f"{name} grid, n_valid 0, 1, B-1, B", xyz, hit, nv_edges, t, B, errs)
-    compare_density("main grid, every row a hit", xyz, everything, nv_full, tables["main"], B, errs)
+        compare_density(f"{name} grid, hits in blocks 0 and 1 only", xyz, few, nv_full, t, B,
+                        errs)
+    compare_density(f"{DENSITY_FINE_CELL} m grid ({D.grid_cells(fine)} cells), n_valid B", xyz,
+                    hit, nv_full, fine, B, errs)
     # ties: of the five points around the centre of cell (0, 0, 0), the four
     # at distance 100 tie exactly and survive; the one at 101 does not
     ties = torch.zeros((K, B), dtype=torch.bool, device=dev)
@@ -937,40 +923,27 @@ def kernels_density(dev, gen, timer, out) -> None:
                     tables["main"], bu, errs)
     # a degenerate axis (zero extent in z: dims 0): cell 0 of z holds every
     # point below the int32 maximum; and a grid every point lies beyond
-    compare_density("degenerate z axis", xyz, hit, nv_full, density_tables(dev, 10.0, 0.0), B, errs)
+    compare_density("degenerate z axis", xyz, hit, nv_full,
+                    density_bench.grid_tables(dev, 10.0, 0.0), B, errs)
     far = [t + (1 << 22) for t in xyz[:1]] + xyz[1:]
     compare_density("every point beyond the max face", far, hit, nv_full, tables["main"], B, errs,
                     want_all=True)
 
-    t_main = tables["main"]
-    mask_all = P.pack_mask_bits(everything)
-    slots = D.table_slots(B)
-    table = D.density_leaders(xyz, mask_all.bits, nv_full, t_main, B, slots=slots)
-    # at least 60 integer and float operations a point and pass
-    ops = 60 * K * B
-    times = {
-        "density_leaders": timed(
-            timer, lambda: D.density_leaders(xyz, mask_all.bits, nv_full, t_main, B, slots=slots),
-            lambda: D.density_leaders_plain(*xyz, everything, nv_full, t_main),
-            (12 + 1 / 8) * K * B, ops),
-        "density_candidates": timed(
-            timer, lambda: D.density_candidates(xyz, mask_all.bits, nv_full, t_main, table, B),
-            lambda: P.pack_mask_bits(D.density_candidates_plain(*xyz, everything, nv_full, t_main)),
-            (12 + 2 / 8) * K * B, ops),
-    }
-
     print(f"density_leaders_packed and density_candidates_packed, K={K}, B={B}:")
     perrs = {"leaders": [], "candidates": [], "compact": errs["compact"]}
+    t_main = tables["main"]
     # the raw case's own points as (20, 20, 20) planes above base 0: the
     # widths of the end-to-end datasets' blocks
     zero = torch.zeros((K, 3), **i32)
-    main_w = (20, 20, 20)
-    main_planes = [planes_of(r, w) for r, w in zip(res, main_w)]
+    main_w = density_bench.PACKED_WIDTHS
+    main_planes = [density_bench.planes_of(r, w) for r, w in zip(res, main_w)]
     main_xyz = [r.to(torch.int32) for r in res]
     compare_density(f"widths {main_w}, main grid", main_xyz, hit, nv_full, t_main, B, perrs,
                     packed=(main_planes, zero, main_w))
-    compare_density(f"widths {main_w}, main grid, every row a hit", main_xyz, everything, nv_full,
-                    t_main, B, perrs, packed=(main_planes, zero, main_w))
+    compare_density(f"widths {main_w}, main grid, hits in blocks 0 and 1 only", main_xyz, few,
+                    nv_full, t_main, B, perrs, packed=(main_planes, zero, main_w))
+    compare_density(f"widths {main_w}, {DENSITY_FINE_CELL} m grid", main_xyz, hit, nv_full, fine,
+                    B, perrs, packed=(main_planes, zero, main_w))
     for widths in [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)]:
         planes = rand_planes(gen, dev, widths, B)
         # bases that centre each axis's residual range on the grid (0 at 32
@@ -987,25 +960,41 @@ def kernels_density(dev, gen, timer, out) -> None:
     bases = torch.tensor([[1 << 19, 1 << 19, 0]] * K, **i32)
     compare_density(f"widths {odd_w}, unaligned B={bu}", D.unpack_xyz(planes, bases, odd_w, bu),
                     unaligned(hit, bu), nv_u, t_main, bu, perrs, packed=(planes, bases, odd_w))
+
+    # every row a hit, at each grid: held against the plain versions and
+    # timed by tools/density_bench.py's grid_case, the plain versions timed
+    # beside; the kernels line keeps the main grid's numbers
     packed = dict(bases=zero, widths=main_w)
-    ptable = D.density_leaders(main_planes, mask_all.bits, nv_full, t_main, B, slots=slots, **packed)
-    pbytes = sum(main_w) / 8
-    times["density_leaders_packed"] = timed(
-        timer, lambda: D.density_leaders(main_planes, mask_all.bits, nv_full, t_main, B,
-                                         slots=slots, **packed),
-        lambda: D.density_leaders_plain(*D.unpack_xyz(main_planes, zero, main_w, B), everything,
-                                        nv_full, t_main),
-        (pbytes + 1 / 8) * K * B, ops)
-    times["density_candidates_packed"] = timed(
-        timer, lambda: D.density_candidates(main_planes, mask_all.bits, nv_full, t_main, ptable, B,
-                                            **packed),
-        lambda: P.pack_mask_bits(D.density_candidates_plain(
-            *D.unpack_xyz(main_planes, zero, main_w, B), everything, nv_full, t_main)),
-        (pbytes + 2 / 8) * K * B, ops)
-    for name, t in times.items():
-        e = perrs if name.endswith("_packed") else errs
-        key = "leaders" if "leaders" in name else "candidates"
-        out[name] = dict(max_abs_err=max(e[key] + e["compact"]), **t)
+    times = {}
+    for name, t in tables.items():
+        print(f"every row a hit, {name} grid ({DENSITY_CELLS[name]} m, {D.grid_cells(t)} cells), "
+              f"K={K}, B={B}:")
+        for suffix, points, kw, point_bytes in (("", main_xyz, {}, 12.0),
+                                                ("_packed", main_planes, packed, sum(main_w) / 8)):
+            # the plain versions on the same inputs: the planes unpacked first
+            xyz_of = (lambda: D.unpack_xyz(main_planes, zero, main_w, B)) if kw else (
+                lambda: main_xyz)
+            plain = {
+                "leaders": lambda: D.density_leaders_plain(*xyz_of(), everything, nv_full, t),
+                "candidates": lambda: P.pack_mask_bits(
+                    D.density_candidates_plain(*xyz_of(), everything, nv_full, t)),
+            }
+            plain_ms = {step: timer.times(fn)[0] for step, fn in plain.items()}
+            row = density_bench.grid_case(D, P, timer, t, points, kw, main_xyz, everything,
+                                          nv_full, point_bytes)
+            print(f"  {'raw' if not kw else f'widths {main_w}'}, held: "
+                  f"{row['occupied_cells']} occupied cells; {density_bench.describe(row)}; "
+                  f"plain {plain_ms['leaders']:.4f} / {plain_ms['candidates']:.4f} ms")
+            for step in ("leaders", "candidates"):
+                times[name, f"density_{step}{suffix}"] = dict(
+                    ms=row[f"{step}_ms"], device_ms=row[f"{step}_device_ms"],
+                    plain_ms=plain_ms[step], bound_ms=row[f"{step}_bound_ms"],
+                    bound_by=row[f"{step}_bound_by"], library_ms=None)
+    for kernel in ("density_leaders", "density_candidates", "density_leaders_packed",
+                   "density_candidates_packed"):
+        e = perrs if kernel.endswith("_packed") else errs
+        key = "leaders" if "leaders" in kernel else "candidates"
+        out[kernel] = dict(max_abs_err=max(e[key] + e["compact"]), **times["main", kernel])
 
 
 def kernels_probe(dev, gen, timer, out) -> None:

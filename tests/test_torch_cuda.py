@@ -668,18 +668,61 @@ def _density_step(rng, K, B, cell, zmax=100.0):
 
 
 def _density_both(dev, tables, xyz, rows, nvs, B, **packed):
-    """The density entry on the card and on the CPU over the same operands."""
+    """The density step on the card (both passes, the table sized as the
+    engine sizes it) and on the CPU over the same operands: the candidates'
+    BitMasks, after the leaders table, read through table_leaders, was held
+    equal to density_leaders_plain's (keys and d2 bits) for every block."""
     outs = []
     for d in (dev, torch.device("cpu")):
         t = TD.tables_to_device(tables, d)
         mask = TP.pack_mask_bits(torch.from_numpy(rows).to(d))
         kw = {k: (v.to(d) if torch.is_tensor(v) else v) for k, v in packed.items()}
-        got = TD.density_candidates_bits(tuple(torch.from_numpy(a).to(d) for a in xyz), mask,
-                                         torch.from_numpy(nvs).to(d), t, B,
-                                         slots=TD.table_slots(int(mask.counts.max())), **kw)
+        pts = tuple(torch.from_numpy(a).to(d) for a in xyz)
+        nv = torch.from_numpy(nvs).to(d)
+        if d.type == "cuda":
+            table = TD.density_leaders(
+                pts, mask.bits, nv, t, B, **kw,
+                slots=TD.table_slots(int(mask.counts.max()), TD.grid_cells(t)))
+            got = TD.density_candidates(pts, mask.bits, nv, t, table, B, **kw)
+            leaders = TD.table_leaders(table.cpu(), len(nvs), TD.grid_cells(t))
+        else:
+            got = TD.density_candidates_bits(pts, mask, nv, t, B, **kw)
+            if packed:
+                pts = TD.unpack_xyz(pts, kw["bases"], kw["widths"], B)
+            want = TD.density_leaders_plain(*pts, torch.from_numpy(rows), nv, t)
+            for (gk, gv), (wk, wv) in zip(leaders, want):
+                assert torch.equal(gk, wk) and torch.equal(gv, wv.view(torch.int32))
         outs.append([g.cpu() for g in got])
     torch.cuda.synchronize()
     return outs
+
+
+def _planes(xyz, widths, B):
+    """xyz as (K, row width) u8 plane stacks of the residuals above each
+    block's least value (base 0 at 32 bits), and the (K, 3) int32 bases."""
+    K = xyz[0].shape[0]
+    bases, planes = np.zeros((K, 3), np.int32), []
+    for a, w in enumerate(widths):
+        out = np.zeros((K, host.packed_row_width(w, B)), np.uint8)
+        for k in range(K):
+            if w < 32:
+                bases[k, a] = xyz[a][k].min()
+                assert int(xyz[a][k].max()) - int(bases[k, a]) < 1 << w
+            host.pack_bits_into(out[k], xyz[a][k], w, int(bases[k, a]), B)
+        planes.append(out)
+    return planes, torch.from_numpy(bases)
+
+
+def _density_both_ways(dev, tables, xyz, rows, nvs, B, widths):
+    """_density_both raw, then packed at widths; the two equal each other."""
+    got, ref = _density_both(dev, tables, xyz, rows, nvs, B)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    planes, bases = _planes(xyz, widths, B)
+    pgot, pref = _density_both(dev, tables, planes, rows, nvs, B, bases=bases, widths=widths)
+    for g, r, w in zip(pgot, pref, ref):
+        assert torch.equal(g, r) and torch.equal(g, w)
+    return got
 
 
 @pytest.mark.parametrize("cell", [2.0, 10.0, 100.0], ids=["sparse", "main", "contended"])
@@ -723,23 +766,104 @@ def test_density_packed_kernels_match_plain(dev, B, widths):
     rng = np.random.default_rng(B + sum(widths))
     K = 4
     tables, xyz, rows, nvs = _density_step(rng, K, B, 10.0)
-    planes, bases = [], np.zeros((K, 3), np.int32)
     for a, w in enumerate(widths):
         if w < 32:
             span = (1 << w)
-            bases[:, a] = (10**6 if a < 2 else 10**5) // 2 - span // 2
-            xyz[a] = (bases[:, a, None] + rng.integers(0, max(span, 1), (K, B))).astype(np.int32)
-        out = np.zeros((K, host.packed_row_width(w, B)), np.uint8)
-        for k in range(K):
-            host.pack_bits_into(out[k], xyz[a][k], w, int(bases[k, a]), B)
-        planes.append(out)
-    got, ref = _density_both(dev, tables, planes, rows, nvs, B,
-                             bases=torch.from_numpy(bases), widths=widths)
+            low = (10**6 if a < 2 else 10**5) // 2 - span // 2
+            xyz[a] = (low + rng.integers(0, max(span, 1), (K, B))).astype(np.int32)
+    planes, bases = _planes(xyz, widths, B)
+    got, ref = _density_both(dev, tables, planes, rows, nvs, B, bases=bases, widths=widths)
     raw_ref = TP.pack_mask_bits(TD.density_candidates_plain(
         *(torch.from_numpy(a) for a in xyz), torch.from_numpy(rows), torch.from_numpy(nvs),
         TD.tables_to_device(tables, "cpu")))
     for g, r, w in zip(got, ref, raw_ref):
         assert torch.equal(g, r) and torch.equal(g, w)
+
+
+def test_density_kernels_contended_grid(dev):
+    """The 30 m grid: the full block puts over a hundred points in each of
+    its 34 x 34 x 4 cells (the warps' equal keys meet before the atomics);
+    raw and packed at 32 bits (the edge points span int32)."""
+    rng = np.random.default_rng(30)
+    B = 1 << 19
+    tables, xyz, rows, nvs = _density_step(rng, 4, B, 30.0)
+    assert TD.table_slots(B, 34 * 34 * 4) == 16384
+    got = _density_both_ways(dev, tables, xyz, rows, nvs, B, (32, 32, 32))
+    assert int(got[1][3]) > 0
+
+
+def _sorted_step(rng, K, B, cell, span):
+    """K full blocks of points in a box of span cells a side (40 x 40 x 10)
+    from the origin of a 1000 x 1000 x 100 m grid at scale 0.001, each block
+    sorted in cell order (z, then y, then x), as a file written in tile
+    order gives them."""
+    grid = TD.GridSpec3D.create(AABB((0.0, 0.0, 0.0), (1000.0, 1000.0, 100.0)), cell)
+    tables = grid.file_tables((0.001,) * 3, (0.0,) * 3)
+    units = round(cell / 0.001)
+    xyz = [rng.integers(0, n * units, (K, B)).astype(np.int32) for n in span]
+    for k in range(K):
+        order = np.lexsort(tuple(a[k] // units for a in xyz))
+        for a in xyz:
+            a[k] = a[k][order]
+    rows = np.ones((K, B), bool)
+    nvs = np.array([B, B - 1, B // 2, 0][:K], np.int32)
+    return tables, xyz, rows, nvs
+
+
+@pytest.mark.parametrize("cell,slot_bytes", [(10.0, 8), (0.05, 16)], ids=["word", "wide"])
+def test_density_kernels_sorted_step(dev, cell, slot_bytes):
+    """Points in cell order, about 8 in each of 40 x 40 x 10 cells, so a
+    thread's consecutive points and a warp's lanes share cells: both slot
+    layouts (the 0.05 m grid has 20000 x 20000 x 2000 cells, >= 2^32)."""
+    rng = np.random.default_rng(8)
+    B = 1 << 17
+    tables, xyz, rows, nvs = _sorted_step(rng, 4, B, cell, (40, 40, 10))
+    assert TD.slot_bytes(TD.grid_cells(tables)) == slot_bytes
+    widths = tuple(int(np.max([a[k].max() - a[k].min() for k in range(4)])).bit_length()
+                   for a in xyz)
+    _density_both_ways(dev, tables, xyz, rows, nvs, B, widths)
+
+
+def test_density_kernels_grid_of_2_32_cells(dev):
+    """A grid of 20000 x 20000 x 2000 cells takes 16-byte slots and hashed
+    probes (far more cells than slots); points anywhere in it, with the
+    edge points of _density_step."""
+    rng = np.random.default_rng(32)
+    B = 8192 + 24
+    tables, xyz, rows, nvs = _density_step(rng, 4, B, 0.05)
+    cells = TD.grid_cells(TD.tables_to_device(tables, "cpu"))
+    assert cells == 20000 * 20000 * 2000 and TD.slot_bytes(cells) == 16
+    _density_both_ways(dev, tables, xyz, rows, nvs, B, (32, 32, 32))
+
+
+def test_density_candidates_repeated_over_mixed_blocks(dev):
+    """Sixteen blocks of 2^19 + 3 points (a partial last tile in each), hit
+    free, sparse, half and full blocks in turn, n_valid 0 and 1 among them:
+    more (block, tile) pairs than the persistent grid has CTAs, so a CTA
+    sums the counts of one tile after another, the warps of a hit-free
+    tile reaching the next sum early. Fifty runs of both passes on the card
+    all give the plain version's BitMask."""
+    rng = np.random.default_rng(19)
+    B = (1 << 19) + 3
+    parts = [_density_step(rng, 4, B, 10.0) for _ in range(4)]
+    tables = parts[0][0]
+    xyz = [np.concatenate([p[1][a] for p in parts]) for a in range(3)]
+    rows = np.concatenate([p[2] for p in parts])
+    nvs = np.concatenate([p[3] for p in parts])
+    nvs[4], nvs[9] = 0, 1
+    got, ref = _density_both(dev, tables, xyz, rows, nvs, B)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    t = TD.tables_to_device(tables, dev)
+    mask = TP.pack_mask_bits(torch.from_numpy(rows).to(dev))
+    pts = tuple(torch.from_numpy(a).to(dev) for a in xyz)
+    nv = torch.from_numpy(nvs).to(dev)
+    slots = TD.table_slots(int(mask.counts.max()), TD.grid_cells(t))
+    for _ in range(50):
+        table = TD.density_leaders(pts, mask.bits, nv, t, B, slots=slots)
+        again = TD.density_candidates(pts, mask.bits, nv, t, table, B)
+        for g, r in zip(again, ref):
+            assert torch.equal(g.cpu(), r)
 
 
 def test_density_wrappers_refuse_bad_operands(dev):
