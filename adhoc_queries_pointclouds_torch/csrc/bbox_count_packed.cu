@@ -31,33 +31,14 @@
 
 namespace {
 
-using aqpc::kChunkWords;
 using aqpc::kThreads;
 using aqpc::Planes;
 
 template <bool Wide>
 __global__ void __launch_bounds__(kThreads, 2)
-bbox_count_packed_kernel(Planes ax, Planes ay, Planes az, const int32_t* __restrict__ bounds,
-                         const int32_t* __restrict__ nvs, int32_t* __restrict__ out,
-                         int64_t block_size, int64_t n_chunks, int64_t n_tiles) {
-  aqpc::BoxRow r;
-  int64_t row = -1;
-  int count = 0;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {  // rows never decrease
-    const int64_t k = t / n_chunks;
-    if (k != row) {
-      if (row >= 0) {
-        aqpc::cta_add(count, out + row);
-        __syncthreads();  // cta_add's shared sums are free again
-      }
-      count = 0;
-      row = k;
-      r = aqpc::box_row(ax, ay, az, bounds, nvs, k, block_size);
-    }
-    const int64_t w = (t % n_chunks) * kChunkWords + threadIdx.x;
-    if (32 * w < r.nv) count += __popc(aqpc::box_word<Wide>(r, block_size, w));
-  }
-  if (row >= 0) aqpc::cta_add(count, out + row);
+bbox_count_packed_kernel(aqpc::BoxTiles<Wide> f, int32_t* __restrict__ out, int64_t n_chunks,
+                         int64_t n_tiles) {
+  aqpc::count_tiles(f, out, n_chunks, n_tiles);
 }
 
 template <bool Wide>
@@ -66,11 +47,11 @@ int launch(const Planes& ax, const Planes& ay, const Planes& az, const void* bou
   static const int64_t resident = aqpc::resident_ctas(bbox_count_packed_kernel<Wide>);
   const int64_t n_chunks = aqpc::mask_chunks(block_size);
   const int64_t n_tiles = k_blocks * n_chunks;
-  const int64_t grid = n_tiles < resident ? n_tiles : resident;
-  bbox_count_packed_kernel<Wide><<<static_cast<unsigned>(grid), kThreads, 0,
+  const aqpc::BoxTiles<Wide> f{ax, ay, az, static_cast<const int32_t*>(bounds),
+                               static_cast<const int32_t*>(nvs), block_size};
+  bbox_count_packed_kernel<Wide><<<aqpc::tile_grid(n_tiles, resident), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
-      ax, ay, az, static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(nvs),
-      static_cast<int32_t*>(out), block_size, n_chunks, n_tiles);
+      f, static_cast<int32_t*>(out), n_chunks, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -84,14 +65,13 @@ extern "C" int aqpc_bbox_count_packed(const void* xp, const void* yp, const void
                                       int64_t k_blocks, int64_t block_size, int64_t kx,
                                       int64_t ky, int64_t kz, void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
-  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
   if (!aqpc::width_ok(kx, 32, block_size) || !aqpc::width_ok(ky, 32, block_size) ||
       !aqpc::width_ok(kz, 32, block_size))
     return static_cast<int>(cudaErrorInvalidValue);
   const Planes ax = aqpc::make_planes(xp, kx, block_size);
   const Planes ay = aqpc::make_planes(yp, ky, block_size);
   const Planes az = aqpc::make_planes(zp, kz, block_size);
-  return aqpc::box_planes_wide(xp, yp, zp, block_size)
+  return aqpc::planes_wide(block_size, xp, yp, zp)
              ? launch<true>(ax, ay, az, bounds, nvs, out, k_blocks, block_size, stream)
              : launch<false>(ax, ay, az, bounds, nvs, out, k_blocks, block_size, stream);
 }

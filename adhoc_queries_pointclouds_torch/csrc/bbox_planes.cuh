@@ -1,6 +1,8 @@
 // The closed-box test of the two packed bbox kernels (bbox_count_packed.cu
 // and mask_bbox_packed in mask_bits.cu), done on the bit-planar planes as
-// they lie in memory: no residual is rebuilt.
+// they lie in memory: no residual is rebuilt. Its loads and per-plane steps
+// also make the packed GPS-time test (time_planes.cuh), whose two chains
+// run on through a second column.
 //
 // Layout: unpack_planes.cuh. A column of k = 8*nbytes + nbits bits is nbytes
 // byte planes (bits 8p..8p+7 of every point) then nbits bit planes (one bit
@@ -18,15 +20,15 @@
 //                of each byte, (x | H) - (c & ~H) - borrow_in never borrows
 //                across bytes and leaves "low 7 bits did not borrow" in each
 //                byte's top bit; one three-input logic operation with x and
-//                c's top bit makes it the whole byte's. About 2.5 integer
-//                operations per point and plane for both bounds.
+//                c's top bit makes it the whole byte's (byte_step). About
+//                2.5 integer operations per point and plane for both bounds.
 //   byte -> bit  the eight words' top bits are gathered into one 32-point
 //                word per bound (a multiply moves four of them at once):
 //                about 3 operations per point and axis, 1.5 when the column
 //                has no bit planes and the two chains are ANDed first.
 //   bit planes   one u32 is one bit of 32 points; each chain takes one
-//                three-input logic operation per plane: 1/16 operation per
-//                point and plane.
+//                three-input logic operation per plane (bit_chain): 1/16
+//                operation per point and plane.
 //
 // Signedness: below 32 bits the residual is an unsigned k-bit number, so
 // the int32 bounds are clamped into [0, 2^k - 1] first (a row whose clamped
@@ -59,9 +61,10 @@ namespace aqpc {
 constexpr uint32_t kByteTops = 0x80808080u;
 constexpr uint32_t kByteOnes = 0x01010101u;
 
-// One axis of one block row: its planes and its bounds as unsigned numbers
-// in plane order (byte p of lo is the bound of byte plane p).
-struct BoxAxis {
+// One column of one block row: its planes and its bounds as unsigned
+// numbers in plane order (byte p of lo is the bound of byte plane p, bit
+// 8 * nbytes + q that of bit plane q).
+struct Column {
   const uint8_t* row;
   int nbytes;
   int nbits;
@@ -71,24 +74,22 @@ struct BoxAxis {
 
 // One block row of a packed bbox step; nv is 0 when the box is empty.
 struct BoxRow {
-  BoxAxis x, y, z;
+  Column x, y, z;
   int64_t nv;
 };
 
-// Whether every plane of every row of the three stacks can take the wide
-// loads.
-inline bool box_planes_wide(const void* xp, const void* yp, const void* zp,
-                            int64_t block_size) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(xp) | reinterpret_cast<uintptr_t>(yp) |
-                         reinterpret_cast<uintptr_t>(zp);
+// Whether every plane of every row of the stacks can take the wide loads.
+template <class... Stacks>
+inline bool planes_wide(int64_t block_size, const Stacks*... stacks) {
+  const uintptr_t addr = (reinterpret_cast<uintptr_t>(stacks) | ...);
   return block_size % 128 == 0 && addr % 16 == 0;
 }
 
 // The axis of row k with its int32 residual-space bounds made unsigned;
 // clears *some when no residual can lie in them.
-__device__ __forceinline__ BoxAxis box_axis(const Planes& p, int64_t k, int lo, int hi,
-                                            bool* some) {
-  BoxAxis a{p.planes + k * p.row_width, p.nbytes, p.nbits, 0u, 0u};
+__device__ __forceinline__ Column box_axis(const Planes& p, int64_t k, int lo, int hi,
+                                           bool* some) {
+  Column a{p.planes + k * p.row_width, p.nbytes, p.nbits, 0u, 0u};
   const int k_bits = 8 * p.nbytes + p.nbits;
   if (k_bits == 32) {
     a.lo = static_cast<uint32_t>(lo) ^ 0x80000000u;
@@ -156,6 +157,72 @@ __device__ __forceinline__ uint32_t load_bit_word(const uint8_t* __restrict__ pl
   return v;
 }
 
+// Every plane of column a at word w: NB byte planes into x, then (NB < 4)
+// the bit planes into d, bit planes past a.nbits 0. All loads are started
+// here, before any compare.
+template <bool Wide, int NB>
+__device__ __forceinline__ void load_column(const Column& a, int64_t block_size, int64_t w,
+                                            uint32_t (&x)[NB > 0 ? NB : 1][8],
+                                            uint32_t (&d)[7]) {
+#pragma unroll
+  for (int p = 0; p < NB; ++p)
+    load_byte_words<Wide>(a.row + p * block_size, block_size, w, x[p]);
+  if constexpr (NB < 4) {
+    const uint8_t* bit_planes = a.row + NB * block_size;
+    const int64_t plane_bytes = block_size / 8;
+#pragma unroll
+    for (int q = 0; q < 7; ++q)
+      d[q] = q < a.nbits ? load_bit_word<Wide>(bit_planes + q * plane_bytes, plane_bytes, w)
+                         : 0u;
+  }
+}
+
+// Byte p of bound, replicated into the four bytes of a u32.
+__device__ __forceinline__ uint32_t bound_bytes(uint32_t bound, int p) {
+  return ((bound >> (8 * p)) & 0xffu) * kByteOnes;
+}
+
+// One byte plane v (four points, a byte each) of both chains. borrow_l,
+// borrow_h: the borrows into this plane, bit 0 of each byte. Out: the top
+// bit of each byte of *nl is "v - cl has not borrowed out of this plane",
+// of *nh "ch - v has not"; cl, ch are the bounds' bytes, replicated.
+__device__ __forceinline__ void byte_step(uint32_t v, uint32_t cl, uint32_t ch,
+                                          uint32_t borrow_l, uint32_t borrow_h, uint32_t* nl,
+                                          uint32_t* nh) {
+  // top bit of each byte: the low 7 bits did not borrow
+  const uint32_t tl = (v | kByteTops) - (cl & ~kByteTops) - borrow_l;
+  const uint32_t th = (ch | kByteTops) - (v & ~kByteTops) - borrow_h;
+  // and with the top bits themselves: v - cl, ch - v did not borrow
+  *nl = (v & tl) | (~cl & (v | tl));
+  *nh = (~v & th) | (ch & (~v | th));
+}
+
+// The borrow into the next byte plane (bit 0 of each byte) from a step's
+// "not borrowed" top bits.
+__device__ __forceinline__ uint32_t byte_borrows(uint32_t n) { return (~n >> 7) & kByteOnes; }
+
+// Both chains through the NB byte planes x of a column, lane by lane, from
+// the borrows bl, bh into its first plane; nl, nh take the top bits of the
+// last. At NB == 4 the column is 32 bits wide and signed: its top byte's
+// top bit is flipped.
+template <int NB>
+__device__ __forceinline__ void byte_chain(const uint32_t (&x)[NB][8], uint32_t lo, uint32_t hi,
+                                           const uint32_t (&bl)[8], const uint32_t (&bh)[8],
+                                           uint32_t (&nl)[8], uint32_t (&nh)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t borrow_l = bl[j], borrow_h = bh[j];
+#pragma unroll
+    for (int p = 0; p < NB; ++p) {
+      uint32_t v = x[p][j];
+      if (NB == 4 && p == 3) v ^= kByteTops;  // signed top byte at k == 32
+      byte_step(v, bound_bytes(lo, p), bound_bytes(hi, p), borrow_l, borrow_h, &nl[j], &nh[j]);
+      borrow_l = byte_borrows(nl[j]);
+      borrow_h = byte_borrows(nh[j]);
+    }
+  }
+}
+
 // The top bit of byte i of m[j] into bit 4j + i.
 __device__ __forceinline__ uint32_t byte_tops_to_bits(const uint32_t (&m)[8]) {
   uint32_t bits = 0;
@@ -169,49 +236,41 @@ __device__ __forceinline__ uint32_t byte_tops_to_bits(const uint32_t (&m)[8]) {
   return bits;
 }
 
+// Both chains through the bit planes d of a column with NB byte planes:
+// bit plane q holds bit 8 * NB + q of the column, and ok_lo, ok_hi carry
+// "not borrowed so far" of all 32 points.
+template <int NB>
+__device__ __forceinline__ void bit_chain(const uint32_t (&d)[7], int nbits, uint32_t lo,
+                                          uint32_t hi, uint32_t* ok_lo, uint32_t* ok_hi) {
+#pragma unroll
+  for (int q = 0; q < 7; ++q) {
+    if (q < nbits) {
+      const uint32_t bl = ((lo >> (8 * NB + q)) & 1u) ? 0xffffffffu : 0u;
+      const uint32_t bh = ((hi >> (8 * NB + q)) & 1u) ? 0xffffffffu : 0u;
+      // bit - bound bit - borrow: bound bit 1 needs bit 1 and no borrow,
+      // bound bit 0 needs either; and the mirror image for hi - bit
+      *ok_lo = (d[q] & *ok_lo) | (~bl & (d[q] | *ok_lo));
+      *ok_hi = (~d[q] & *ok_hi) | (bh & (~d[q] | *ok_hi));
+    }
+  }
+}
+
 // Bit i: point 32w + i of the axis has lo <= residual <= hi. Bits of points
 // past the row's end are unspecified.
 template <bool Wide, int NB>
-__device__ __forceinline__ uint32_t axis_word_nb(const BoxAxis& a, int64_t block_size,
+__device__ __forceinline__ uint32_t axis_word_nb(const Column& a, int64_t block_size,
                                                  int64_t w) {
   uint32_t x[NB > 0 ? NB : 1][8];
   uint32_t d[7];
-#pragma unroll
-  for (int p = 0; p < NB; ++p)
-    load_byte_words<Wide>(a.row + p * block_size, block_size, w, x[p]);
-  if (NB < 4) {
-    const uint8_t* bit_planes = a.row + NB * block_size;
-    const int64_t plane_bytes = block_size / 8;
-#pragma unroll
-    for (int q = 0; q < 7; ++q)
-      d[q] = q < a.nbits ? load_bit_word<Wide>(bit_planes + q * plane_bytes, plane_bytes, w)
-                         : 0u;
-  }
+  load_column<Wide, NB>(a, block_size, w, x, d);
 
   // per point: r - lo and hi - r have not borrowed so far
   uint32_t ok_lo = 0xffffffffu;
   uint32_t ok_hi = 0xffffffffu;
-  if (NB > 0) {
+  if constexpr (NB > 0) {
+    const uint32_t none[8] = {};
     uint32_t nl[8], nh[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t borrow_l = 0, borrow_h = 0;  // bit 0 of each byte
-#pragma unroll
-      for (int p = 0; p < NB; ++p) {
-        uint32_t v = x[p][j];
-        if (NB == 4 && p == 3) v ^= kByteTops;  // signed top byte at k == 32
-        const uint32_t cl = ((a.lo >> (8 * p)) & 0xffu) * kByteOnes;
-        const uint32_t ch = ((a.hi >> (8 * p)) & 0xffu) * kByteOnes;
-        // top bit of each byte: the low 7 bits did not borrow
-        const uint32_t tl = (v | kByteTops) - (cl & ~kByteTops) - borrow_l;
-        const uint32_t th = (ch | kByteTops) - (v & ~kByteTops) - borrow_h;
-        // and with the top bits themselves: v - cl, ch - v did not borrow
-        nl[j] = (v & tl) | (~cl & (v | tl));
-        nh[j] = (~v & th) | (ch & (~v | th));
-        borrow_l = (~nl[j] >> 7) & kByteOnes;
-        borrow_h = (~nh[j] >> 7) & kByteOnes;
-      }
-    }
+    byte_chain<NB>(x, a.lo, a.hi, none, none, nl, nh);
     if (NB == 4 || a.nbits == 0) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) nl[j] &= nh[j];
@@ -220,24 +279,12 @@ __device__ __forceinline__ uint32_t axis_word_nb(const BoxAxis& a, int64_t block
     ok_lo = byte_tops_to_bits(nl);
     ok_hi = byte_tops_to_bits(nh);
   }
-  if (NB < 4) {
-#pragma unroll
-    for (int q = 0; q < 7; ++q) {
-      if (q < a.nbits) {
-        const uint32_t bl = ((a.lo >> (8 * NB + q)) & 1u) ? 0xffffffffu : 0u;
-        const uint32_t bh = ((a.hi >> (8 * NB + q)) & 1u) ? 0xffffffffu : 0u;
-        // bit - bound bit - borrow: bound bit 1 needs bit 1 and no borrow,
-        // bound bit 0 needs either; and the mirror image for hi - bit
-        ok_lo = (d[q] & ok_lo) | (~bl & (d[q] | ok_lo));
-        ok_hi = (~d[q] & ok_hi) | (bh & (~d[q] | ok_hi));
-      }
-    }
-  }
+  if constexpr (NB < 4) bit_chain<NB>(d, a.nbits, a.lo, a.hi, &ok_lo, &ok_hi);
   return ok_lo & ok_hi;
 }
 
 template <bool Wide>
-__device__ __forceinline__ uint32_t axis_word(const BoxAxis& a, int64_t block_size, int64_t w) {
+__device__ __forceinline__ uint32_t axis_word(const Column& a, int64_t block_size, int64_t w) {
   switch (a.nbytes) {
     case 0: return axis_word_nb<Wide, 0>(a, block_size, w);
     case 1: return axis_word_nb<Wide, 1>(a, block_size, w);
@@ -247,14 +294,35 @@ __device__ __forceinline__ uint32_t axis_word(const BoxAxis& a, int64_t block_si
   }
 }
 
+// Word w's points below nv: bit i is set when 32w + i < nv; 32w < nv.
+__device__ __forceinline__ uint32_t valid_bits(int64_t nv, int64_t w) {
+  const int64_t left = nv - 32 * w;
+  return left >= 32 ? 0xffffffffu : (1u << left) - 1u;
+}
+
 // The hit word of points 32w..32w+31 of row r (bit i = point 32w + i);
 // 32w < r.nv. Bits of points at or past r.nv are 0.
 template <bool Wide>
 __device__ __forceinline__ uint32_t box_word(const BoxRow& r, int64_t block_size, int64_t w) {
-  const int64_t left = r.nv - 32 * w;
-  const uint32_t valid = left >= 32 ? 0xffffffffu : (1u << left) - 1u;
-  return valid & axis_word<Wide>(r.x, block_size, w) & axis_word<Wide>(r.y, block_size, w) &
-         axis_word<Wide>(r.z, block_size, w);
+  return valid_bits(r.nv, w) & axis_word<Wide>(r.x, block_size, w) &
+         axis_word<Wide>(r.y, block_size, w) & axis_word<Wide>(r.z, block_size, w);
 }
+
+// The packed bbox test as the tile loops of collect.cuh take it.
+template <bool Wide>
+struct BoxTiles {
+  using Row = BoxRow;
+  static constexpr int kMinCtas = 2;  // CTAs an SM the body is built for
+  Planes ax, ay, az;
+  const int32_t* bounds;
+  const int32_t* nvs;
+  int64_t block_size;
+  __device__ __forceinline__ Row row(int64_t k) const {
+    return box_row(ax, ay, az, bounds, nvs, k, block_size);
+  }
+  __device__ __forceinline__ uint32_t word(const Row& r, int64_t w) const {
+    return box_word<Wide>(r, block_size, w);
+  }
+};
 
 }  // namespace aqpc

@@ -24,18 +24,20 @@
 // What the design does about it: one CTA per (chunk, block). On raw
 // columns each warp builds one mask word per pass, lane j testing row
 // 32w + j (neighbouring lanes on neighbouring addresses) and __ballot_sync
-// gathering the 32 results. On the packed time and dictionary planes the
-// unit is the count kernels' 8-point group: lane l rebuilds group 4w' + l
-// with aqpc::unpack8, and four lanes OR their 8-bit masks into one word
-// with two shuffles, so a warp writes 8 words per pass. Counts stay in
-// registers; each CTA writes its chunk count and adds it to counts[k] with
-// one integer atomic. The packed bbox entry compares in the packed domain
-// (bbox_planes.cuh): a thread makes one whole mask word, with no shuffle,
-// and a persistent grid of CTAs walks the (chunk, block) tiles.
+// gathering the 32 results. On the dictionary planes the unit is the count
+// kernel's 8-point group: lane l rebuilds group 4w' + l with aqpc::unpack8,
+// and four lanes OR their 8-bit masks into one word with two shuffles, so a
+// warp writes 8 words per pass. Counts stay in registers; each CTA writes
+// its chunk count and adds it to counts[k] with one integer atomic. The
+// packed bbox and time entries compare in the packed domain
+// (bbox_planes.cuh, time_planes.cuh): a thread makes one whole mask word,
+// with no shuffle, and a persistent grid of CTAs walks the (chunk, block)
+// tiles (collect.cuh mask_tiles).
 #include "bbox_planes.cuh"
 #include "block_count.cuh"
 #include "collect.cuh"
 #include "predicates.cuh"
+#include "time_planes.cuh"
 
 namespace {
 
@@ -124,15 +126,6 @@ struct DictGroups {
   }
 };
 
-struct TimeGroups {
-  PlaneRow h, l;
-  int q[4];
-  int64_t block_size;
-  __device__ unsigned operator()(int64_t g, int valid) const {
-    return aqpc::time_packed_mask8(h, l, q, block_size, g, valid);
-  }
-};
-
 __global__ void __launch_bounds__(kThreads)
 mask_bbox_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
                  const int32_t* __restrict__ zs, const int32_t* __restrict__ bounds,
@@ -164,35 +157,12 @@ mask_time_kernel(const int32_t* __restrict__ ths, const int32_t* __restrict__ tl
 }
 
 // One thread per mask word of a tile (chunk c of block k); the CTA walks
-// tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-template <bool Wide>
-__global__ void __launch_bounds__(kThreads, 2)
-mask_bbox_packed_kernel(Planes ax, Planes ay, Planes az, const int32_t* __restrict__ bounds,
-                        const int32_t* __restrict__ nvs, MaskOut o, int64_t k_blocks,
-                        int64_t block_size) {
-  aqpc::BoxRow r;
-  int64_t row = -1;
-  const int64_t n_tiles = o.n_chunks * k_blocks;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int64_t k = t / o.n_chunks;
-    const int64_t c = t % o.n_chunks;
-    if (k != row) {
-      row = k;
-      r = aqpc::box_row(ax, ay, az, bounds, nvs, k, block_size);
-    }
-    const int64_t w = c * kChunkWords + threadIdx.x;
-    uint32_t word = 0;
-    if (w < o.n_words) {
-      if (32 * w < r.nv) word = aqpc::box_word<Wide>(r, block_size, w);
-      o.bits[k * o.n_words + w] = word;
-    }
-    const int count = aqpc::cta_sum(__popc(word));
-    if (threadIdx.x == 0) {
-      o.chunks[k * o.n_chunks + c] = count;
-      if (count) atomicAdd(o.counts + k, count);
-    }
-    __syncthreads();  // cta_sum's shared sums are free again
-  }
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...: the packed bbox and time
+// entries, Tiles a BoxTiles or a TimeTiles.
+template <class Tiles>
+__global__ void __launch_bounds__(kThreads, Tiles::kMinCtas)
+mask_packed_kernel(Tiles f, MaskOut o, int64_t k_blocks) {
+  aqpc::mask_tiles(f, o, k_blocks);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -203,24 +173,19 @@ mask_class_dict_kernel(Planes cp, const int32_t* __restrict__ targets,
               aqpc::clamp_valid(nvs[k], block_size), o);
 }
 
-__global__ void __launch_bounds__(kThreads)
-mask_time_packed_kernel(Planes ph, Planes pl, const int32_t* __restrict__ qs,
-                        const int32_t* __restrict__ nvs, MaskOut o, int64_t block_size) {
-  const int64_t k = blockIdx.y;
-  TimeGroups p{aqpc::plane_row(ph, k, block_size), aqpc::plane_row(pl, k, block_size), {},
-               block_size};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) p.q[j] = qs[k * 4 + j];
-  mask_groups(p, aqpc::clamp_valid(nvs[k], block_size), o);
+// The outputs of one entry.
+MaskOut mask_out(int64_t block_size, void* bits, void* counts, void* chunks) {
+  return MaskOut{static_cast<uint32_t*>(bits), static_cast<int32_t*>(counts),
+                 static_cast<int32_t*>(chunks), aqpc::mask_words(block_size),
+                 aqpc::mask_chunks(block_size)};
 }
 
-// Launch shape and outputs of one entry; false on sizes the kernels refuse.
+// Outputs and grid of an entry with one CTA per (chunk, block); false on
+// more blocks than the grid's y can hold.
 bool prepare(int64_t k_blocks, int64_t block_size, void* bits, void* counts, void* chunks,
              dim3* grid, MaskOut* o) {
   if (k_blocks > aqpc::kMaxGridY) return false;
-  *o = MaskOut{static_cast<uint32_t*>(bits), static_cast<int32_t*>(counts),
-               static_cast<int32_t*>(chunks), aqpc::mask_words(block_size),
-               aqpc::mask_chunks(block_size)};
+  *o = mask_out(block_size, bits, counts, chunks);
   *grid = dim3(static_cast<unsigned>(o->n_chunks), static_cast<unsigned>(k_blocks));
   return true;
 }
@@ -228,19 +193,13 @@ bool prepare(int64_t k_blocks, int64_t block_size, void* bits, void* counts, voi
 int done() { return static_cast<int>(cudaGetLastError()); }
 int refused() { return static_cast<int>(cudaErrorInvalidValue); }
 
-// The packed bbox entry's persistent grid: SM count x resident CTAs, no
-// more than there are tiles.
-template <bool Wide>
-int launch_bbox_packed(const Planes& ax, const Planes& ay, const Planes& az, const void* bounds,
-                       const void* nvs, const MaskOut& o, int64_t k_blocks, int64_t block_size,
-                       void* stream) {
-  static const int64_t resident = aqpc::resident_ctas(mask_bbox_packed_kernel<Wide>);
-  const int64_t n_tiles = o.n_chunks * k_blocks;
-  const int64_t grid = n_tiles < resident ? n_tiles : resident;
-  mask_bbox_packed_kernel<Wide><<<static_cast<unsigned>(grid), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      ax, ay, az, static_cast<const int32_t*>(bounds), static_cast<const int32_t*>(nvs), o,
-      k_blocks, block_size);
+// A packed entry's persistent grid: SM count x resident CTAs, no more than
+// there are tiles.
+template <class Tiles>
+int launch_packed(const Tiles& f, const MaskOut& o, int64_t k_blocks, void* stream) {
+  static const int64_t resident = aqpc::resident_ctas(mask_packed_kernel<Tiles>);
+  mask_packed_kernel<<<aqpc::tile_grid(o.n_chunks * k_blocks, resident), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(f, o, k_blocks);
   return done();
 }
 
@@ -281,16 +240,17 @@ extern "C" int aqpc_mask_bbox_packed(const void* xp, const void* yp, const void*
   if (!aqpc::width_ok(kx, 32, block_size) || !aqpc::width_ok(ky, 32, block_size) ||
       !aqpc::width_ok(kz, 32, block_size))
     return refused();
-  dim3 grid;
-  MaskOut o;
-  if (!prepare(k_blocks, block_size, bits, counts, chunks, &grid, &o)) return refused();
+  const MaskOut o = mask_out(block_size, bits, counts, chunks);
   const Planes ax = aqpc::make_planes(xp, kx, block_size);
   const Planes ay = aqpc::make_planes(yp, ky, block_size);
   const Planes az = aqpc::make_planes(zp, kz, block_size);
-  return aqpc::box_planes_wide(xp, yp, zp, block_size)
-             ? launch_bbox_packed<true>(ax, ay, az, bounds, nvs, o, k_blocks, block_size, stream)
-             : launch_bbox_packed<false>(ax, ay, az, bounds, nvs, o, k_blocks, block_size,
-                                         stream);
+  const auto* b = static_cast<const int32_t*>(bounds);
+  const auto* nv = static_cast<const int32_t*>(nvs);
+  return aqpc::planes_wide(block_size, xp, yp, zp)
+             ? launch_packed(aqpc::BoxTiles<true>{ax, ay, az, b, nv, block_size}, o, k_blocks,
+                             stream)
+             : launch_packed(aqpc::BoxTiles<false>{ax, ay, az, b, nv, block_size}, o, k_blocks,
+                             stream);
 }
 
 // cls: (K, B) u8; targets, nvs: (K,) int32.
@@ -346,11 +306,8 @@ extern "C" int aqpc_mask_time_packed(const void* thp, const void* tlp, const voi
   if (k_blocks <= 0 || block_size <= 0) return done();
   if (!aqpc::width_ok(k_hi, 32, block_size) || !aqpc::width_ok(k_lo, 32, block_size))
     return refused();
-  dim3 grid;
-  MaskOut o;
-  if (!prepare(k_blocks, block_size, bits, counts, chunks, &grid, &o)) return refused();
-  mask_time_packed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      aqpc::make_planes(thp, k_hi, block_size), aqpc::make_planes(tlp, k_lo, block_size),
-      static_cast<const int32_t*>(qs), static_cast<const int32_t*>(nvs), o, block_size);
-  return done();
+  const MaskOut o = mask_out(block_size, bits, counts, chunks);
+  return aqpc::with_time_shape(
+      aqpc::make_planes(thp, k_hi, block_size), aqpc::make_planes(tlp, k_lo, block_size), qs,
+      nvs, block_size, [&](auto tiles) { return launch_packed(tiles, o, k_blocks, stream); });
 }

@@ -6,14 +6,15 @@
 //   in_time_range     half-open GPS-time range on the order-preserving
 //                     (hi, lo) int32 encoding of the f64 times
 //   class_matches     raw u8 class equality
-//   *_mask8           the packed forms over 8 consecutive points rebuilt
-//                     from bit-planar residuals (unpack_planes.cuh); the
-//                     packed bbox test is apart, in bbox_planes.cuh
+//   dict_mask8        the dictionary-coded class test over 8 consecutive
+//                     points rebuilt from bit-planar codes
+//                     (unpack_planes.cuh); the packed bbox and time tests
+//                     are apart, in bbox_planes.cuh and time_planes.cuh,
+//                     and rebuild no residual
 //
 // Their JAX counterparts are bbox_mask_jnp_multi, time_mask_jnp_multi,
-// class_mask_jnp_multi and the packed mask forms in
-// adhoc_queries_pointclouds_tpu/ops/predicate.py (lines 235-268, 508-540,
-// 604-606).
+// class_mask_jnp_multi and class_mask_dict_jnp_multi in
+// adhoc_queries_pointclouds_tpu/ops/predicate.py (lines 235-268, 604-606).
 #pragma once
 
 #include <cstdint>
@@ -39,29 +40,13 @@ __device__ __forceinline__ int class_matches(uint8_t c, int t) {
   return static_cast<int>(c) == t;
 }
 
-// Hit masks of points 8g..8g+7 (bit i = point 8g+i) for `valid` (1..8)
+// Dictionary codes equal to the target code t (len(dict) on a miss): the
+// hit mask of points 8g..8g+7 (bit i = point 8g+i) for `valid` (1..8)
 // points below n_valid; bits past `valid` are 0.
-
-// Dictionary codes equal to the target code t (len(dict) on a miss).
 __device__ __forceinline__ unsigned dict_mask8(const PlaneRow& c, int t, int64_t block_size,
                                                int64_t g, int valid) {
   return group_valid_mask(valid) &
          range_mask8(c.row, block_size, c.nbytes, c.nbits, t, t, g, valid, c.aligned);
-}
-
-// Residual-space (hi, lo) words in the residual-space range q.
-__device__ __forceinline__ unsigned time_packed_mask8(const PlaneRow& hi, const PlaneRow& lo,
-                                                      const int (&q)[4], int64_t block_size,
-                                                      int64_t g, int valid) {
-  uint32_t h[8], l[8];
-  unpack8(hi.row, block_size, hi.nbytes, hi.nbits, g, valid, hi.aligned, h);
-  unpack8(lo.row, block_size, lo.nbytes, lo.nbits, g, valid, lo.aligned, l);
-  unsigned m = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    m |= static_cast<unsigned>(in_time_range(static_cast<int>(h[i]), static_cast<int>(l[i]), q))
-         << i;
-  return m & group_valid_mask(valid);
 }
 
 }  // namespace aqpc

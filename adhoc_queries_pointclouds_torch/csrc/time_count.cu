@@ -20,22 +20,37 @@
 // given and re-derives neither.
 //
 // What bounds it: device-memory reads, 8 bytes per valid point raw,
-// (k_hi + k_lo) / 8 packed.
+// (k_hi + k_lo) / 8 packed, as long as the packed compare stays cheap:
+// rebuilding the two int32 words costs three integer operations per point
+// and plane, which for a bit plane (an eighth of a byte) puts the limit on
+// the integer pipes.
 //
 // What the design does about it: the raw kernel fuses both compares and the
 // count in one pass with 16-byte int4 loads when the rows are aligned and
 // B % 4 == 0 (scalar loads otherwise); the plain version materialises about
-// six (K, B) bool temporaries. The packed kernel rebuilds 8 points of each
-// word in registers (aqpc::unpack8). Each CTA's count reaches out[k] with
-// one integer atomic.
+// six (K, B) bool temporaries; each CTA's count reaches out[k] with one
+// integer atomic. The packed kernel rebuilds no word: the lexicographic
+// range is one range on the (k_hi + k_lo)-bit number hi:lo, tested as two
+// borrow chains that run through lo's planes into hi's, 32 points a word,
+// every load of a word started before its first compare (time_planes.cuh).
+// The grid is persistent, SM count x resident CTAs, walking tiles of
+// kChunkWords words (one word per thread) across all K rows with the count
+// in registers and one atomicAdd per row a CTA touched (collect.cuh
+// count_tiles). A template body per pair of byte-plane counts (25, each
+// with wide and narrow loads) is picked on the host; bit planes are
+// runtime. The lighter wide bodies are built for 4 CTAs an SM, the others
+// for 2 (TimeTiles::kMinCtas): more warps in flight hide more of the
+// latency of each tile's loads, but not at the price of spilling. out is
+// zeroed by the caller: that launch is the floor the (0, 0) width shows.
 #include "block_count.cuh"
+#include "collect.cuh"
 #include "predicates.cuh"
+#include "time_planes.cuh"
 
 namespace {
 
 using aqpc::in_time_range;
 using aqpc::kThreads;
-using aqpc::Planes;
 
 __global__ void __launch_bounds__(kThreads)
 time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restrict__ tls,
@@ -70,28 +85,11 @@ time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restri
   aqpc::cta_add(count, out + k);
 }
 
-__global__ void __launch_bounds__(kThreads)
-time_count_packed_kernel(Planes ph, Planes pl, const int32_t* __restrict__ qs,
-                         const int32_t* __restrict__ nvs, int32_t* __restrict__ out,
-                         int64_t block_size) {
-  const int64_t k = blockIdx.y;
-  int q[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) q[j] = qs[k * 4 + j];
-  const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
-  const aqpc::PlaneRow rh = aqpc::plane_row(ph, k, block_size);
-  const aqpc::PlaneRow rl = aqpc::plane_row(pl, k, block_size);
-  const int64_t groups = (nv + 7) / 8;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-
-  int count = 0;
-  for (int64_t g = tid; g < groups; g += stride) {
-    const int64_t left = nv - 8 * g;
-    const int valid = left >= 8 ? 8 : static_cast<int>(left);
-    count += __popc(aqpc::time_packed_mask8(rh, rl, q, block_size, g, valid));
-  }
-  aqpc::cta_add(count, out + k);
+// One word of 32 points a thread, the CTA walking (block, chunk) tiles.
+template <class Tiles>
+__global__ void __launch_bounds__(kThreads, Tiles::kMinCtas)
+time_count_packed_kernel(Tiles f, int32_t* __restrict__ out, int64_t n_chunks, int64_t n_tiles) {
+  aqpc::count_tiles(f, out, n_chunks, n_tiles);
 }
 
 }  // namespace
@@ -123,14 +121,18 @@ extern "C" int aqpc_time_count_packed(const void* thp, const void* tlp, const vo
                                       int64_t block_size, int64_t k_hi, int64_t k_lo,
                                       void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
-  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
   if (!aqpc::width_ok(k_hi, 32, block_size) || !aqpc::width_ok(k_lo, 32, block_size))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(aqpc::chunks_for((block_size + 7) / 8, 4)),
-                  static_cast<unsigned>(k_blocks));
-  time_count_packed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      aqpc::make_planes(thp, k_hi, block_size), aqpc::make_planes(tlp, k_lo, block_size),
-      static_cast<const int32_t*>(qs), static_cast<const int32_t*>(nvs),
-      static_cast<int32_t*>(out), block_size);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t n_chunks = aqpc::mask_chunks(block_size);
+  const int64_t n_tiles = k_blocks * n_chunks;
+  return aqpc::with_time_shape(
+      aqpc::make_planes(thp, k_hi, block_size), aqpc::make_planes(tlp, k_lo, block_size), qs,
+      nvs, block_size, [&](auto tiles) {
+        static const int64_t resident =
+            aqpc::resident_ctas(time_count_packed_kernel<decltype(tiles)>);
+        time_count_packed_kernel<<<aqpc::tile_grid(n_tiles, resident), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+            tiles, static_cast<int32_t*>(out), n_chunks, n_tiles);
+        return static_cast<int>(cudaGetLastError());
+      });
 }

@@ -31,11 +31,19 @@ chip_smoke.py phase 3 holds and times its three grids with grid_case.
 --root imports the package from another checkout of the repository (run the
 tool as a file then, not with -m, so that no package is loaded before the
 path is set), so two versions of the kernels can be timed in turns in one
-call on one card (each process builds its tree's kernels): run it for the
-parent, the change, the change and the parent, and compare. --match builds
+call on one card (each process builds its tree's kernels). --against
+OTHER_TREE --pairs N does that (in_turns.py): N pairs of runs, the first
+of a pair alternating between the two trees, then one line per case with
+each tree's median of its runs' medians, its least run and the pairs the
+--root tree won, both passes and readings; the last line is one JSON
+object with those numbers. --match builds
 the tree's csrc/density.cu with AQPC_DENSITY_MATCH=1, where that tree has
 the variant: lanes of equal key grouped by __match_any_sync at every point
-of both passes, one table access a group. It needs a CUDA device.
+of both passes, one table access a group (in both trees with --against).
+It needs a CUDA device.
+
+    python adhoc_queries_pointclouds_torch/tools/density_bench.py \
+        --against .bench_data/parent --pairs 10
 """
 
 from __future__ import annotations
@@ -47,8 +55,10 @@ import sys
 from pathlib import Path
 
 if __package__:
+    from .in_turns import in_turns
     from .kernel_timer import KernelTimer
 else:  # run as a file: its own directory is on sys.path, the --root tree is not yet
+    from in_turns import in_turns
     from kernel_timer import KernelTimer
 
 K, B = 4, 1 << 21
@@ -181,7 +191,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--match", action="store_true",
                     help="build csrc/density.cu with AQPC_DENSITY_MATCH=1")
+    ap.add_argument("--against", help="second checkout: time both trees in turns")
+    ap.add_argument("--pairs", type=int, default=10, help="pairs of runs with --against")
     args = ap.parse_args(argv)
+    if args.against:
+        in_turns(Path(__file__).resolve(), args.root, args.against, args.pairs,
+                 ["--runs", str(args.runs), "--seed", str(args.seed)]
+                 + (["--match"] if args.match else []),
+                 ("grid", "order", "transport"),
+                 ("leaders_device_ms", "leaders_ms", "candidates_device_ms", "candidates_ms"))
+        return 0
     sys.path.insert(0, args.root)
 
     import torch

@@ -1,5 +1,5 @@
 """Time of one call on a CUDA card, the one timing loop of chip_smoke.py's
-phase 3 and of the A/B tools (packed_bbox_bench.py, density_bench.py).
+phase 3 and of the A/B tools (packed_bench.py, density_bench.py).
 
     timer = KernelTimer(torch.device("cuda", 0), runs=25)
     median_ms, least_ms = timer.times(lambda: kernel(*args))

@@ -1,0 +1,153 @@
+"""Times of the packed-domain kernels at every width, for one source tree:
+the two packed bbox kernels and the two packed GPS-time kernels.
+
+    python -m adhoc_queries_pointclouds_torch.tools.packed_bench
+    python adhoc_queries_pointclouds_torch/tools/packed_bench.py --root OTHER_TREE
+
+bbox_count_packed and mask_bbox_packed at each width triple, then
+time_count_packed and mask_time_packed at each width pair (k_hi, k_lo) of
+chip_smoke.py's phase 3, run at the main path's shape (K = 4 full blocks
+of 2^21 points) over random planes and a non-empty range on every block
+(an empty one skips its block's planes), first against their plain
+versions (exact), then timed with kernel_timer.KernelTimer (the 50 MB L2 flushed
+before each run; median and least of --runs) in both readings: the call
+(the host's enqueue inside the window: a busy host lifts single runs, the
+least shows the card's part) and the device's work alone. One line per
+width and kernel: both readings, the bytes it must move, and the bound at
+3.35 TB/s. The last line is one JSON object with every number and the
+card's name and power limit.
+
+--root imports the package from another checkout of the repository (run the
+tool as a file then, not with -m, so that no package is loaded before the
+path is set), so two versions of the kernels can be timed in turns in one
+call on one card (each process builds its tree's kernels). --against
+OTHER_TREE --pairs N does that (in_turns.py): N pairs of runs, the first
+of a pair alternating between the two trees, then one line per kernel and
+width with each tree's median of its runs' medians, its least run and the
+pairs the --root tree won, both readings; the last line is one JSON object
+with those numbers. It needs a CUDA device.
+
+    python adhoc_queries_pointclouds_torch/tools/packed_bench.py \
+        --against .bench_data/parent --pairs 10
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+if __package__:
+    from .in_turns import in_turns
+    from .kernel_timer import KernelTimer
+else:  # run as a file: its own directory is on sys.path, the --root tree is not yet
+    from in_turns import in_turns
+    from kernel_timer import KernelTimer
+
+K, B = 4, 1 << 21
+WIDTHS = [(w, w, w) for w in (0, 4, 12, 20, 28, 32)] + [
+    (12, 20, 28), (1, 1, 1), (7, 7, 7), (8, 8, 8), (9, 17, 25), (31, 31, 31)]
+TIME_WIDTHS = [(w, w) for w in (0, 4, 12, 20, 28, 32)] + [
+    (20, 32), (4, 28), (1, 1), (7, 7), (31, 31), (3, 17), (32, 4), (0, 32), (8, 16), (4, 12),
+    (12, 28)]
+HBM_BYTES_PER_S = 3.35e12
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="checkout whose adhoc_queries_pointclouds_torch is timed")
+    ap.add_argument("--runs", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--against", help="second checkout: time both trees in turns")
+    ap.add_argument("--pairs", type=int, default=10, help="pairs of runs with --against")
+    args = ap.parse_args(argv)
+    if args.against:
+        in_turns(Path(__file__).resolve(), args.root, args.against, args.pairs,
+                 ["--runs", str(args.runs), "--seed", str(args.seed)],
+                 ("kernel", "widths", "bound_ms"), ("device_ms", "ms"))
+        return 0
+    sys.path.insert(0, args.root)
+
+    import torch
+
+    from adhoc_queries_pointclouds_torch.host import packed_row_width
+    from adhoc_queries_pointclouds_torch.ops import predicate as P
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: this tool times kernels on a card")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    timer = KernelTimer(dev, args.runs)
+    nv = torch.full((K,), B, dtype=torch.int32, device=dev)
+
+    print(f"tree {args.root}; card {card}; K={K}, B={B}, median of {args.runs} runs")
+
+    def ranges(widths):
+        """Per-block [lo, hi] inside each column's residual space."""
+        ends = [((1 << w) - 1, 0) if w < 32 else (I32_MAX, I32_MIN) for w in widths]
+        a, c = (torch.stack([torch.randint(bot, top + 1, (K,), device=dev, generator=gen)
+                             for top, bot in ends], 1) for _ in range(2))
+        return torch.minimum(a, c).to(torch.int32), torch.maximum(a, c).to(torch.int32)
+
+    rows = []
+
+    def timed(kernel, widths, fn, nbytes):
+        call_ms, call_min_ms = timer.times(fn)
+        device_ms, device_min_ms = timer.times(fn, device=True)
+        row = {"kernel": kernel, "widths": widths, "ms": call_ms, "min_ms": call_min_ms,
+               "device_ms": device_ms, "device_min_ms": device_min_ms,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        rows.append(row)
+        print(f"  {kernel} {widths}: call {call_ms:.4f} ms (least {call_min_ms:.4f}), device "
+              f"{device_ms:.4f} ms (least {device_min_ms:.4f}); {nbytes / 1e6:.1f} MB, bound "
+              f"{row['bound_ms']:.4f} ms")
+
+    def check(kernel, widths, count, mask, plain):
+        if not torch.equal(count, plain.sum(1, dtype=torch.int32)):
+            raise RuntimeError(f"{kernel} count at {widths}: {count.tolist()} is not the plain "
+                               f"version's {plain.sum(1).tolist()}")
+        if not all(torch.equal(g, w) for g, w in zip(mask, P.pack_mask_bits(plain))):
+            raise RuntimeError(f"{kernel} mask at {widths} is not the plain version's mask")
+
+    def planes_of(widths):
+        return [torch.randint(0, 256, (K, packed_row_width(w, B)), dtype=torch.uint8,
+                              device=dev, generator=gen) for w in widths]
+
+    for widths in WIDTHS:
+        lo, hi = ranges(widths)
+        ops = (*planes_of(widths), lo, hi, nv, widths, B)
+        check("bbox", widths, P.bbox_count_packed_kernel(*ops), P.bbox_mask_bits_packed(*ops),
+              P.bbox_mask_packed_multi(*ops))
+        count_bytes = sum(widths) / 8 * K * B
+        timed("bbox_count_packed", widths, lambda: P.bbox_count_packed_kernel(*ops), count_bytes)
+        timed("mask_bbox_packed", widths, lambda: P.bbox_mask_bits_packed(*ops),
+              count_bytes + K * B / 8)
+    for widths in TIME_WIDTHS:
+        lo, hi = ranges(widths)
+        qs = torch.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1]], 1)
+        # inside residual space with lo <= hi on each column, [start, end)
+        # is empty where both words are equal: take the whole range there
+        empty = (qs[:, 0] == qs[:, 2]) & (qs[:, 1] == qs[:, 3])
+        qs[empty] = torch.tensor([I32_MIN, I32_MIN, I32_MAX, I32_MAX], dtype=torch.int32,
+                                 device=dev)
+        ops = (*planes_of(widths), qs, nv, widths, B)
+        check("time", widths, P.time_count_packed_kernel(*ops), P.time_mask_bits_packed(*ops),
+              P.time_mask_packed_multi(*ops))
+        count_bytes = sum(widths) / 8 * K * B
+        timed("time_count_packed", widths, lambda: P.time_count_packed_kernel(*ops), count_bytes)
+        timed("mask_time_packed", widths, lambda: P.time_mask_bits_packed(*ops),
+              count_bytes + K * B / 8)
+    print(json.dumps({"tree": args.root, "card": card, "runs": args.runs, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

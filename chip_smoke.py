@@ -13,18 +13,19 @@ Phases, in order; the first fault raises and the script exits non-zero:
      nvcc versions; no CUDA device is an error
   2. build: nvcc builds the kernels of adhoc_queries_pointclouds_torch/csrc
      and g++ the host codec of native/ (no codec is an error), and ptxas
-     reports the registers of the two packed bbox kernels
+     reports the registers and spills of the packed bbox and time kernels
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
      points), exact equality; kernel and plain times (tools/kernel_timer.py:
      median and least of 25 runs, L2 flushed before each; each call's time,
      "ms", and the kernel call's device work alone, "device_ms"), the bytes
      moved per second of device time, and the bound: the bytes at
-     3.35 TB/s or the operations at 67 T/s, whichever is larger. The two
-     packed bbox kernels also run at widths that take each branch of their
-     compare, with bounds at and beyond both ends of residual space, at
-     block sizes 2^21, 2^21 - 8 and 2^21 - 8189, and print the (0, 0, 0)
-     floor beside every width's time. The collect
+     3.35 TB/s or the operations at 67 T/s, whichever is larger. The
+     packed bbox and GPS-time kernels (count and mask) also run at widths
+     that take each branch of their compare, with bounds or query words at
+     and beyond both ends of residual space, at block sizes 2^21, 2^21 - 8
+     and 2^21 - 8189, and print the floor with no planes, (0, 0, 0) or
+     (0, 0), beside every width's time. The collect
      kernels (one bit-mask entry per collect kind, and the ordered
      compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
      1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
@@ -108,6 +109,12 @@ PACKED_WIDTHS = (0, 4, 12, 20, 28, 32)
 # full set of bit planes, byte planes only, 1 to 3 byte planes with bit
 # planes on top, and the widest unsigned width
 BBOX_PACKED_WIDTHS = [(1, 1, 1), (7, 7, 7), (8, 8, 8), (9, 17, 25), (31, 31, 31)]
+# width pairs (k_hi, k_lo) of the two packed time kernels beyond (w, w):
+# the e2e datasets' (20, 32), lo with bit planes under hi's byte planes,
+# bit planes only, the widest unsigned pair, and either column at 0 or 32
+TIME_PACKED_WIDTHS = [(w, w) for w in PACKED_WIDTHS] + [
+    (20, 32), (4, 28), (1, 1), (7, 7), (31, 31), (3, 17), (32, 4), (0, 32), (8, 16), (4, 12),
+    (12, 28)]
 # block sizes of the packed bbox kernels' narrow path: B % 8 == 0 but
 # B % 128 != 0, and B % 8 == 3 (byte planes only; the mask kernel's partial
 # last word)
@@ -130,6 +137,9 @@ E2E_TIME_SMALL = (7.5, 13.25)
 E2E_BOX_PRINT = "100500;200250;0;100560;200330;80"
 FORMATS = ("las", "last", "lazer", "laz")
 DENSITIES = (0.0, 0.001, 0.5, 1.0)  # hit share of block k in the collect cases
+# the hit shares at which the packed mask kernels are timed: a range on every
+# block, since an empty range skips its block's planes
+BUSY_DENSITIES = (0.25, 0.001, 0.5, 1.0)
 PROBE_N = 1 << 24  # the probe tool's --n
 _TPU = "adhoc_queries_pointclouds_tpu/"
 # kernel -> (source, the Pallas kernel or XLA-fused function it replaces);
@@ -201,27 +211,57 @@ def phase_build() -> None:
     if lib is None:
         fail("the port's native codec did not build or load (g++): formats would decode in Python")
     print(f"built {lib._name} in {time.perf_counter() - t0:.3f} s")
-    # registers, shared memory and spills of the two packed bbox kernels
+    # registers and spills of the packed-domain kernels: the bbox pair (one
+    # body a load kind) and the time pair (a body for each pair of
+    # byte-plane counts and load kind: the e2e widths' body, (20, 32), the
+    # range of registers over all 25 and every body that spills)
     nvcc = _build._nvcc()
     with tempfile.TemporaryDirectory(prefix="aqpc_ptxas_") as tmp:
         jobs = [subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", f"{tmp}/{src}.o",
              str(Path(_build.__file__).parent / "csrc" / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("bbox_count_packed.cu", "mask_bits.cu")]
+            for src in ("bbox_count_packed.cu", "time_count.cu", "mask_bits.cu")]
+        bodies = {}
         for job in jobs:
             text = job.communicate()[0]
             if job.returncode != 0:
                 fail(f"nvcc -Xptxas -v failed:\n{text}")
-            lines = text.splitlines()
-            for n, line in enumerate(lines):
-                name = re.search(r"(bbox_count_packed_kernel|mask_bbox_packed_kernel)ILb([01])E",
-                                 line)
-                if "Compiling entry function" in line and name:
-                    loads = "wide" if name.group(2) == "1" else "narrow"
-                    facts = "; ".join(x.replace("ptxas info    :", "").strip()
-                                      for x in lines[n + 2:n + 4])
-                    print(f"ptxas {name.group(1)}<{loads} loads>: {facts}")
+            bodies.update(ptxas_bodies(text))
+    for (name, loads), shapes in sorted(bodies.items()):
+        if None in shapes:
+            print(f"ptxas {name}<{loads} loads>: {shapes[None]}")
+            continue
+        spilling = {sh: f["spills"] for sh, f in sorted(shapes.items()) if f["spills"]}
+        print(f"ptxas {name}<{loads} loads>: (20, 32) body {shapes[(4, 2)]}; {len(shapes)} "
+              f"bodies, {min(f['registers'] for f in shapes.values())}-"
+              f"{max(f['registers'] for f in shapes.values())} registers, spill bytes by "
+              f"(lo, hi) byte planes: {spilling or 'none'}")
+
+
+def ptxas_bodies(text: str) -> dict:
+    """{(kernel, loads): {(lo, hi) byte planes, or None: facts}} of the
+    packed-domain kernels in one file's `nvcc -Xptxas -v` output."""
+    entry = re.compile(r"(bbox_count_packed_kernel|time_count_packed_kernel|mask_packed_kernel)I"
+                       r"(?:N4aqpc\d+(BoxTiles|TimeTiles)I)?Lb([01])E(?:Li(\d)ELi(\d)E)?")
+    out: dict = {}
+    lines = text.splitlines()
+    for n, line in enumerate(lines):
+        m = entry.search(line)
+        if "Compiling entry function" not in line or not m:
+            continue
+        kernel, tiles, wide, nbl, nbh = m.groups()
+        name = kernel.replace("_kernel", "")
+        if name == "mask_packed":
+            name = {"BoxTiles": "mask_bbox_packed", "TimeTiles": "mask_time_packed"}[tiles]
+        facts = " ".join(lines[n + 1:n + 4])
+        regs = re.search(r"Used (\d+) registers", facts)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", facts)
+        shape = None if nbl is None else (int(nbl), int(nbh))
+        out.setdefault((name, "wide" if wide == "1" else "narrow"), {})[shape] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spills": int(spills.group(1)) + int(spills.group(2)) if spills else None}
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -321,6 +361,55 @@ def packed_ops(k: int) -> float:
     return 2.5 * nbytes + gather + nbits / 16
 
 
+def time_packed_ops(widths) -> float:
+    """Integer operations per point of the packed time test as
+    csrc/time_planes.cuh does it: 2.5 per byte plane and 1/16 per bit plane
+    of both columns, 3 for a gather of both chains into point words (1.5
+    for one gather of the two ANDed, when no bit plane follows), 2 for the
+    spread back to per-byte borrows between lo's bit planes and hi's byte
+    planes."""
+    kh, kl = widths
+    (hb, hq), (lb, lq) = divmod(kh, 8), divmod(kl, 8)
+    ops = 2.5 * (hb + lb) + (hq + lq) / 16
+    if lq:
+        ops += (3 if lb else 0) + (2 if hb else 0)
+    if hb or (lb and not lq):  # the chains end a byte plane
+        ops += 3 if hq else 1.5
+    return ops
+
+
+def edge_queries(widths, dev):
+    """Residual-space (K, 4) time queries at and beyond both ends of each
+    column's residual space [bot, top] = [0, 2^k - 1] ([INT32_MIN,
+    INT32_MAX] at k = 32): the whole int32 range, exactly the space, start ==
+    end, equal hi words with lo at and beyond each end, ranges wholly above
+    or below the space, the top and the bottom value alone, a lo word that
+    carries into hi, and 2^k - 1, 2^k as query words; then rows of words
+    drawn from those edges. Yields (label, qs)."""
+    def clip(v):
+        return min(max(v, I32_MIN), I32_MAX)
+
+    ends = []
+    for k in widths:
+        top, bot = ((1 << k) - 1, 0) if k < 32 else (I32_MAX, I32_MIN)
+        ends.append((bot, top, (top + bot) // 2, (1 << min(k, 31))))
+    (bh, th, mh, ph), (bl, tl, ml, pl) = ends
+    rows = [
+        (I32_MIN, I32_MIN, I32_MAX, I32_MAX), (bh, bl, th, tl), (mh, ml, mh, ml),
+        (mh, bl, mh, tl), (mh, I32_MIN, mh, I32_MAX), (clip(th + 1), I32_MIN, I32_MAX, I32_MAX),
+        (I32_MIN, I32_MIN, clip(bh - 1), I32_MAX), (th, tl, I32_MAX, I32_MAX),
+        (bh, bl, bh, clip(bl + 1)), (mh, clip(tl + 1), clip(mh + 1), 0), (-1, I32_MAX, 0, 1),
+        (clip(ph - 1), clip(pl), clip(ph), -1),
+    ]
+    palette = [sorted({I32_MIN, I32_MAX, -1, 0, b, t, m, clip(t + 1), clip(p - 1), clip(p)})
+               for b, t, m, p in ends]
+    rng = np.random.default_rng(sum(widths))
+    rows += [tuple(int(rng.choice(palette[a % 2])) for a in range(4)) for _ in range(2 * K)]
+    for s in range(0, len(rows), K):
+        yield f"edge rows {s}-{s + K - 1}", torch.tensor(rows[s:s + K], dtype=torch.int32,
+                                                         device=dev)
+
+
 def timed(timer, kernel_fn, plain_fn, nbytes: float, ops: float, indent: str = "  ",
           what: str = f"{K} full blocks", floor_ms: float | None = None) -> dict:
     """Kernel and plain times at the main path's shape beside the bound: the
@@ -334,7 +423,7 @@ def timed(timer, kernel_fn, plain_fn, nbytes: float, ops: float, indent: str = "
     device_ms, device_least = timer.times(kernel_fn, device=True)
     plain_ms, _ = timer.times(plain_fn)
     bound_ms, bound_by = bound_of(nbytes, ops)
-    floor = "" if floor_ms is None else f", (0, 0, 0) floor {floor_ms:.4f} ms"
+    floor = "" if floor_ms is None else f", floor (no planes) {floor_ms:.4f} ms"
     print(f"{indent}time, {what}: kernel {ms:.4f} ms (least {least:.4f}; device "
           f"{device_ms:.4f}, least {device_least:.4f}; {nbytes / device_ms / 1e6:.1f} GB/s)"
           f"{floor}, {nbytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms by {bound_by} "
@@ -550,10 +639,12 @@ def kernels_time(dev, gen, timer, out) -> None:
     errs = []
     print(f"time_count_packed, K={K}, B={B}:")
     nvs = torch.tensor([B, B - 5, 777, 0], **i32)  # the last row is padding
+    nv_mixed = torch.tensor([B, B - 5, 777, 1], **i32)
+    nv_narrow = torch.tensor([B_NARROW, B_NARROW - 1, 4097, 1], **i32)
+    nv_odd = torch.tensor([B_BYTES_ONLY, B_BYTES_ONLY - 1, 4097, 1], **i32)
     times = {}
-    for widths in [(w, w) for w in PACKED_WIDTHS] + [(20, 32), (4, 28)]:
-        planes = [torch.randint(0, 256, (K, packed_row_width(w, B)), dtype=torch.uint8,
-                                device=dev, generator=gen) for w in widths]
+    for widths in TIME_PACKED_WIDTHS:
+        planes = rand_planes(gen, dev, widths, B)
         # residual-space ranges inside [0, 2^w) (any int32 at w = 32), and a
         # saturated row as the host's clip makes it for a far query
         qw = []
@@ -565,10 +656,24 @@ def kernels_time(dev, gen, timer, out) -> None:
         qs[2] = torch.tensor([I32_MIN, I32_MIN, I32_MAX, I32_MAX], **i32)
         compare(f"widths {widths}", lambda: P.time_count_packed_kernel(*planes, qs, nvs, widths, B),
                 lambda: P.time_count_packed_multi(*planes, qs, nvs, widths, B), errs)
+        # queries at and beyond both ends of residual space, wide loads, the
+        # narrow path (B % 128 != 0) and, byte planes only, any B
+        sizes = [(B, nv_mixed), (B_NARROW, nv_narrow)]
+        if all(w % 8 == 0 for w in widths):
+            sizes.append((B_BYTES_ONLY, nv_odd))
+        for bs, nv in sizes:
+            edge = edge_planes(gen, dev, widths, bs)
+            for label, eq in edge_queries(widths, dev):
+                args = (*edge, eq, nv, widths, bs)
+                compare(f"widths {widths}, {label}, B={bs}",
+                        lambda: P.time_count_packed_kernel(*args),
+                        lambda: P.time_count_packed_multi(*args), errs)
+            del edge
         times[widths] = timed(
             timer, lambda: P.time_count_packed_kernel(*planes, qs, nv_full, widths, B),
             lambda: P.time_count_packed_multi(*planes, qs, nv_full, widths, B),
-            sum(widths) / 8 * K * B, (sum(packed_ops(w) for w in widths) + 4) * K * B, "    ")
+            sum(widths) / 8 * K * B, time_packed_ops(widths) * K * B, "    ",
+            floor_ms=times.get((0, 0), {}).get("ms"))
     # (20, 32): about the widths of the e2e datasets' blocks
     out["time_count_packed"] = dict(max_abs_err=max(errs), **times[(20, 32)])
 
@@ -713,12 +818,15 @@ def kernels_collect(dev, gen, timer, out) -> None:
     del ths, tls
 
     def packed_kind(name, label, make, kernel, plain, nbytes, ops, main_case, cases,
-                    unaligned_case, more=None, floor_case=None):
+                    unaligned_case, more=None, floor_case=None, busy=None):
         """One packed mask entry over its cases; more(case) yields further
         (label, operands) held mask against mask; floor_case is the case
-        with no planes, whose time is printed beside every later one."""
+        with no planes, whose time is printed beside every later one;
+        busy(case) the operands it is timed on, where the compare's full
+        blocks skip some block (default: those)."""
         errs = {"mask": [], "compact": compact_errs}
-        print(f"{name}, K={K}, B={B}, hit densities about {DENSITIES}:")
+        timed_at = f", timed at {BUSY_DENSITIES}" if busy else ""
+        print(f"{name}, K={K}, B={B}, hit densities about {DENSITIES}{timed_at}:")
         times = {}
         for case in cases:
             full = make(case, B, nv_full)
@@ -730,8 +838,13 @@ def kernels_collect(dev, gen, timer, out) -> None:
             for what, args in more(case) if more else ():
                 compare_mask(f"{label} {case}, {what}", lambda: kernel(*args),
                              lambda: P.pack_mask_bits(plain(*args)), errs["mask"])
-            times[case] = timed(timer, lambda: kernel(*full),
-                                lambda: P.pack_mask_bits(plain(*full)),
+            run = full
+            if busy:
+                run = busy(case)
+                compare_mask(f"{label} {case}, timed at {BUSY_DENSITIES}", lambda: kernel(*run),
+                             lambda: P.pack_mask_bits(plain(*run)), errs["mask"])
+            times[case] = timed(timer, lambda: kernel(*run),
+                                lambda: P.pack_mask_bits(plain(*run)),
                                 (nbytes(case) + 1 / 8) * K * B, ops(case) * K * B, "    ",
                                 floor_ms=times.get(floor_case, {}).get("ms"))
         un = make(unaligned_case, bu, nv_u)
@@ -742,10 +855,10 @@ def kernels_collect(dev, gen, timer, out) -> None:
     def planes(w, block_size):
         return rand_planes(gen, dev, (w,), block_size)[0]
 
-    def bbox_case(widths, block_size, nvs):
+    def bbox_case(widths, block_size, nvs, densities=DENSITIES):
         # x holds the block's density, y and z take every residual
         rows = [[res_range(widths[0], d), res_range(widths[1], 1), res_range(widths[2], 1)]
-                for d in DENSITIES]
+                for d in densities]
         lo = torch.tensor([[a[0] for a in r] for r in rows], **i32)
         hi = torch.tensor([[a[1] for a in r] for r in rows], **i32)
         return (*(planes(w, block_size) for w in widths), lo, hi, nvs, widths, block_size)
@@ -770,15 +883,16 @@ def kernels_collect(dev, gen, timer, out) -> None:
                 P.bbox_mask_packed_multi, lambda w: sum(w) / 8,
                 lambda w: sum(packed_ops(k) for k in w), (20, 20, 20),
                 [(w, w, w) for w in PACKED_WIDTHS] + [(12, 20, 28)] + BBOX_PACKED_WIDTHS,
-                (8, 16, 32), bbox_edges, (0, 0, 0))
+                (8, 16, 32), bbox_edges, (0, 0, 0),
+                lambda w: bbox_case(w, B, nv_full, BUSY_DENSITIES))
 
-    def time_case(widths, block_size, nvs):
+    def time_case(widths, block_size, nvs, densities=DENSITIES):
         # the hi residual in [bot, bot + density * 2^k_hi); the lo residual
         # never decides (its lowest value bounds both ends)
         kh, kl = widths
         low = 0 if kl < 32 else I32_MIN
         rows = []
-        for d in DENSITIES:
+        for d in densities:
             if d == 0:
                 rows.append([0, 0, 0, 0])  # start == end
             elif d == 1:
@@ -789,10 +903,21 @@ def kernels_collect(dev, gen, timer, out) -> None:
         qs = torch.tensor(rows, **i32)
         return (planes(kh, block_size), planes(kl, block_size), qs, nvs, widths, block_size)
 
+    def time_edges(widths):
+        # queries at and beyond both ends of residual space at the block
+        # sizes of bbox_edges
+        sizes = [(B, nv_mixed), (B_NARROW, nv_narrow)]
+        if all(w % 8 == 0 for w in widths):
+            sizes.append((bu, nv_u))
+        for bs, nv in sizes:
+            edge = edge_planes(gen, dev, widths, bs)
+            for what, qs in edge_queries(widths, dev):
+                yield f"{what}, B={bs}", (*edge, qs, nv, widths, bs)
+
     packed_kind("mask_time_packed", "widths", time_case, P.time_mask_bits_packed,
-                P.time_mask_packed_multi, lambda w: sum(w) / 8,
-                lambda w: sum(packed_ops(k) for k in w) + 4, (20, 32),
-                [(w, w) for w in PACKED_WIDTHS] + [(20, 32), (4, 28)], (16, 32))
+                P.time_mask_packed_multi, lambda w: sum(w) / 8, time_packed_ops, (20, 32),
+                TIME_PACKED_WIDTHS, (16, 32), time_edges, (0, 0),
+                lambda w: time_case(w, B, nv_full, BUSY_DENSITIES))
 
     def dict_case(k, block_size, nvs):
         # codes: a miss (len(dict)), two codes at 2^-k, and a block of code 0

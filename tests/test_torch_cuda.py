@@ -376,9 +376,20 @@ def test_time_kernel_sign_boundary(dev):
     assert torch.equal(got, ref) and int(ref[0]) > 0
 
 
+def _time_edges(k):
+    """Residual-space int32 words at the ends of a k-bit column's residual
+    space and beyond: int32 min and max, -1, 0, 2^k - 1 and 2^k."""
+    top = (1 << k) - 1 if k < 32 else I32.max
+    return sorted({I32.min, I32.max, -1, 0, min(top, I32.max), min(top + 1, I32.max)})
+
+
 def _time_packed_case(rng, K, B, widths):
     """Blocks of encoded times packed at the step's widths with per-block
-    bases, and residual-space queries, as the engine makes them."""
+    bases (half of the residuals at the ends and the middle of residual
+    space), and residual-space queries: row 0 as the engine makes them
+    (two of the block's points, through the host's clip), then in turn
+    words at every edge, equal hi words with lo at each end, start == end,
+    the whole int32 range, and again two points."""
     kh, kl = widths
     planes = [np.zeros((K, host.packed_row_width(k, B)), np.uint8) for k in widths]
     qs = np.zeros((K, 4), np.int32)
@@ -386,39 +397,107 @@ def _time_packed_case(rng, K, B, widths):
         cols = []
         for k in widths:
             if k >= 32:
-                cols.append((rng.integers(I32.min, I32.max, B, endpoint=True).astype(np.int32), 0))
+                r = rng.integers(I32.min, I32.max, B, endpoint=True)
+                ends = np.array([I32.min, I32.min + 1, -1, 0, I32.max - 1, I32.max])
+                cols.append((np.where(rng.random(B) < 0.5, ends[rng.integers(0, 6, B)], r)
+                             .astype(np.int32), 0))
             else:
                 base = int(rng.integers(I32.min, I32.max - (1 << k)))
-                cols.append(((base + rng.integers(0, 1 << k, B)).astype(np.int32), base))
+                r = rng.integers(0, 1 << k, B)
+                ends = np.array([0, min(1, (1 << k) - 1), max((1 << k) - 2, 0), (1 << k) - 1])
+                r = np.where(rng.random(B) < 0.5, ends[rng.integers(0, 4, B)], r)
+                cols.append(((base + r).astype(np.int32), base))
         (th, bh), (tl, bl) = cols
         host.pack_bits_into(planes[0][j], th, kh, bh, B)
         host.pack_bits_into(planes[1][j], tl, kl, bl, B)
         a, b = sorted(rng.choice(B, 2, replace=False))
         q_enc = np.array([th[a], tl[a], th[b], tl[b]], np.int64)
         qs[j] = host._packed_time_query(q_enc, np.array([bh, bl], np.int64))
+        h = int(th[a]) - bh  # a residual hi word some point carries
+        kind = j % 6
+        if kind == 1:
+            qs[j] = [rng.choice(_time_edges(kh)), rng.choice(_time_edges(kl)),
+                     rng.choice(_time_edges(kh)), rng.choice(_time_edges(kl))]
+        elif kind == 2:
+            qs[j] = [h, rng.choice([I32.min, 0]), h, rng.choice(_time_edges(kl)[-3:])]
+        elif kind == 3:
+            qs[j, 2:] = qs[j, :2]
+        elif kind == 4:
+            qs[j] = [I32.min, I32.min, I32.max, I32.max]
     nvs = rng.integers(1, B + 1, K).astype(np.int32)
     nvs[0] = B
     nvs[-1] = 0
     return (*planes, qs, nvs)
 
 
-@pytest.mark.parametrize("widths", [(0, 0), (4, 12), (20, 28), (28, 28), (32, 32), (32, 4),
-                                    (0, 32), (12, 20)])
-@pytest.mark.parametrize("B", [4096, 4104])
+TIME_PACKED_WIDTHS = [(0, 0), (4, 12), (20, 28), (28, 28), (32, 32), (32, 4), (0, 32), (12, 20),
+                      (20, 20), (4, 28), (1, 1), (7, 7), (31, 31), (3, 17), (20, 32)]
+
+
+@pytest.mark.parametrize("widths", TIME_PACKED_WIDTHS)
+@pytest.mark.parametrize("B", [4096, 8192, 4104])  # wide loads, and B % 128 != 0
 def test_time_packed_kernel_matches_plain(dev, widths, B):
     rng = np.random.default_rng(sum(widths) * 7 + B)
-    args = _time_packed_case(rng, 5, B, widths)
+    args = _time_packed_case(rng, 7, B, widths)
     got, ref = _both(TP.time_count_packed_kernel, args, dev, widths, B)
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("k", [8, 16, 24, 32])
-def test_time_packed_kernel_byte_planes_only(dev, k):
-    rng = np.random.default_rng(k + 1)
+@pytest.mark.parametrize("widths", [(8, 8), (16, 16), (24, 24), (32, 32), (8, 32), (32, 16)])
+def test_time_packed_kernel_byte_planes_only(dev, widths):
+    rng = np.random.default_rng(sum(widths) + 1)
     B = 4099
-    args = _time_packed_case(rng, 3, B, (k, k))
-    got, ref = _both(TP.time_count_packed_kernel, args, dev, (k, k), B)
+    args = _time_packed_case(rng, 7, B, widths)
+    got, ref = _both(TP.time_count_packed_kernel, args, dev, widths, B)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("widths", [(20, 32), (12, 20), (3, 17)])
+@pytest.mark.parametrize("B", [1 << 19, (1 << 19) + 8])
+def test_time_packed_repeated_over_mixed_blocks(dev, widths, B):
+    """Sixteen blocks, more (block, tile) pairs than the persistent grid has
+    CTAs: full rows, empty rows (start == end), n_valid 0, 1 and B - 1,
+    random ranges in turn, so that a CTA carries one row's count and then
+    the next. Fifty runs of both kernels all give the plain version's counts
+    and BitMask."""
+    rng = np.random.default_rng(sum(widths) + B)
+    parts = [_time_packed_case(rng, 6, B, widths) for _ in range(3)]
+    args = [np.concatenate([p[a] for p in parts])[:16] for a in range(4)]
+    args[3][[1, 6, 11]] = [0, 1, B - 1]
+    cpu = [torch.from_numpy(a) for a in args]
+    gpu = [t.to(dev) for t in cpu]
+    want = TP.time_count_packed_kernel(*cpu, widths, B)
+    want_mask = TP.time_mask_bits_packed(*cpu, widths, B)
+    assert int((want == 0).sum()) >= 2 and int((want == torch.from_numpy(args[3])).sum()) >= 2
+    for _ in range(50):
+        got = TP.time_count_packed_kernel(*gpu, widths, B)
+        mask = TP.time_mask_bits_packed(*gpu, widths, B)
+        assert torch.equal(got.cpu(), want)
+        for g, r in zip(mask, want_mask):
+            assert torch.equal(g.cpu(), r)
+    _compact_both(dev, mask, want_mask, args[3], B)
+
+
+@pytest.mark.parametrize("widths", [(20, 32), (3, 17)])
+def test_packed_kernels_over_more_blocks_than_grid_y(dev, widths):
+    """The four packed entries walk a one-dimensional persistent grid, so
+    K is not held to a grid's 65,535 rows in y: over 65,536 blocks of 128
+    points, counts and BitMask equal the plain version's."""
+    B = 128
+    rng = np.random.default_rng(sum(widths) + 65536)
+    reps = 65536 // 7 + 1
+    args = [np.tile(a, (reps, 1)) if a.ndim == 2 else np.tile(a, reps)
+            for a in _time_packed_case(rng, 7, B, widths)]
+    assert len(args[3]) > 65536
+    got, ref = _both(TP.time_count_packed_kernel, args, dev, widths, B)
+    assert torch.equal(got, ref)
+    _mask_both(TP.time_mask_bits_packed, args, dev, widths, B)
+    box = (*widths, 12)
+    args = [np.tile(a, (reps, 1)) if a.ndim == 2 else np.tile(a, reps)
+            for a in _packed(rng, 7, B, box)]
+    got, ref = _both(TP.bbox_count_packed_kernel, args, dev, box, B)
+    assert torch.equal(got, ref)
+    _mask_both(TP.bbox_mask_bits_packed, args, dev, box, B)
 
 
 def test_new_wrappers_reject_bad_operands(dev):
@@ -531,8 +610,9 @@ def test_mask_bits_raw_kinds_match_plain(dev, B):
 
 
 @pytest.mark.parametrize("widths", [(0, 0, 0), (4, 4, 4), (12, 20, 28), (32, 32, 32),
-                                    (3, 17, 31)])
-@pytest.mark.parametrize("B", [4096, 4104, 8192 * 2 + 264])
+                                    (3, 17, 31), (20, 20, 20), (0, 4, 28), (1, 1, 1), (7, 7, 7),
+                                    (31, 31, 31), (5, 3, 17)])
+@pytest.mark.parametrize("B", [4096, 8192, 4104, 8192 * 2 + 264])
 def test_mask_bits_packed_kinds_match_plain(dev, widths, B):
     rng = np.random.default_rng(sum(widths) + B + 7)
     args = _packed(rng, 5, B, widths)
