@@ -2,7 +2,9 @@
 // and mask_bbox_packed in mask_bits.cu), done on the bit-planar planes as
 // they lie in memory: no residual is rebuilt. Its loads and per-plane steps
 // also make the packed GPS-time test (time_planes.cuh), whose two chains
-// run on through a second column.
+// run on through a second column, and one axis of it at lo = hi = the
+// target code is the dictionary class mask (DictTiles, mask_class_dict in
+// mask_bits.cu).
 //
 // Layout: unpack_planes.cuh. A column of k = 8*nbytes + nbits bits is nbytes
 // byte planes (bits 8p..8p+7 of every point) then nbits bit planes (one bit
@@ -313,6 +315,7 @@ template <bool Wide>
 struct BoxTiles {
   using Row = BoxRow;
   static constexpr int kMinCtas = 2;  // CTAs an SM the body is built for
+  static constexpr bool kWarpWords = false;
   Planes ax, ay, az;
   const int32_t* bounds;
   const int32_t* nvs;
@@ -322,6 +325,40 @@ struct BoxTiles {
   }
   __device__ __forceinline__ uint32_t word(const Row& r, int64_t w) const {
     return box_word<Wide>(r, block_size, w);
+  }
+};
+
+// One block row of the dictionary class test; nv is 0 when the target code
+// lies outside the column's codes (a miss, len(dict), can exceed 2^k - 1).
+struct DictRow {
+  Column c;
+  int64_t nv;
+};
+
+// The dictionary-coded class test (code == target code, a miss never
+// matching) as the tile loops of collect.cuh take it: one axis of the box
+// test with lo = hi = the target code, on the code planes as they lie. At
+// k <= 8 a column has at most one byte plane (NB), so a body holds one
+// axis_word_nb and few registers.
+template <bool Wide, int NB>
+struct DictTiles {
+  using Row = DictRow;
+  static constexpr int kMinCtas = 4;  // CTAs an SM the body is built for
+  static constexpr bool kWarpWords = false;
+  Planes cp;
+  const int32_t* targets;
+  const int32_t* nvs;
+  int64_t block_size;
+  __device__ __forceinline__ Row row(int64_t k) const {
+    bool some = true;
+    const int t = targets[k];
+    Row r;
+    r.c = box_axis(cp, k, t, t, &some);
+    r.nv = some ? clamp_valid(nvs[k], block_size) : 0;
+    return r;
+  }
+  __device__ __forceinline__ uint32_t word(const Row& r, int64_t w) const {
+    return valid_bits(r.nv, w) & axis_word_nb<Wide, NB>(r.c, block_size, w);
   }
 };
 

@@ -18,8 +18,11 @@
 //
 // What the design does about it: the packed bbox kernel's unpack
 // (aqpc::unpack8), 8 points per thread in registers, the 8-point match mask
-// (aqpc::dict_mask8, shared with the collect mask) counted with popc, one
-// atomicAdd per CTA.
+// (aqpc::dict_mask8) counted with popc, one atomicAdd per CTA. The collect
+// mask of the same test rebuilds no code: it runs the one-column range
+// chains on the planes as they lie (bbox_planes.cuh DictTiles), on the
+// persistent tile loop, which this count can take with collect.cuh
+// count_tiles.
 #include "block_count.cuh"
 #include "predicates.cuh"
 

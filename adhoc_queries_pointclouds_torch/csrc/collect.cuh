@@ -80,7 +80,9 @@ __device__ __forceinline__ int cta_exclusive_scan(int v, int* total) {
 // rows never decrease), one mask word a thread. A Tiles test gives Row
 // row(k) (nv 0 when no point of row k can match) and uint32_t word(r, w),
 // the hit word of points 32w..32w+31 of row r for 32w < r.nv, with the
-// bits at or past r.nv 0.
+// bits at or past r.nv 0. A test with kWarpWords makes a warp's 32 words
+// together: every lane of a warp whose first word is below r.nv calls
+// word(r, w) at once (the mask loop only), and the lanes past r.nv get 0.
 
 // out[k] += the hits of row k (out zeroed by the caller): the count stays in
 // registers while the row is the same, one cta_add per row a CTA touched.
@@ -122,7 +124,11 @@ __device__ __forceinline__ void mask_tiles(const Tiles& f, const MaskOut& o, int
     }
     const int64_t w = c * kChunkWords + threadIdx.x;
     uint32_t word = 0;
-    if (w < o.n_words) {
+    if constexpr (Tiles::kWarpWords) {
+      const int64_t w0 = w - (threadIdx.x & 31);  // the warp's first word
+      if (w0 < o.n_words && 32 * w0 < r.nv) word = f.word(r, w);
+      if (w < o.n_words) o.bits[k * o.n_words + w] = word;
+    } else if (w < o.n_words) {
       if (32 * w < r.nv) word = f.word(r, w);
       o.bits[k * o.n_words + w] = word;
     }

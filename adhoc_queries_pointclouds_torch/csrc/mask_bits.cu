@@ -16,23 +16,27 @@
 //   counts (K,) int32 true hit counts (zeroed by the caller);
 //   chunks (K, ceil(B / 8192)) int32 hits per chunk of 256 words, the
 //          prefix that compact_bits.cu starts each CTA from.
-// The predicates are the count kernels' own (predicates.cuh).
+// The raw predicates are the count kernels' own (predicates.cuh); the
+// packed ones are bbox_planes.cuh's and time_planes.cuh's.
 //
 // What bounds it: device-memory reads of the predicate columns, as in the
 // count kernels, plus one bit per row written.
 //
-// What the design does about it: one CTA per (chunk, block). On raw
-// columns each warp builds one mask word per pass, lane j testing row
-// 32w + j (neighbouring lanes on neighbouring addresses) and __ballot_sync
-// gathering the 32 results. On the dictionary planes the unit is the count
-// kernel's 8-point group: lane l rebuilds group 4w' + l with aqpc::unpack8,
-// and four lanes OR their 8-bit masks into one word with two shuffles, so a
-// warp writes 8 words per pass. Counts stay in registers; each CTA writes
-// its chunk count and adds it to counts[k] with one integer atomic. The
-// packed bbox and time entries compare in the packed domain
-// (bbox_planes.cuh, time_planes.cuh): a thread makes one whole mask word,
-// with no shuffle, and a persistent grid of CTAs walks the (chunk, block)
-// tiles (collect.cuh mask_tiles).
+// What the design does about it: the raw bbox and class entries run one
+// CTA per (chunk, block); each warp builds one mask word per pass, lane j
+// testing row 32w + j (neighbouring lanes on neighbouring addresses) and
+// __ballot_sync gathering the 32 results; counts stay in registers and each
+// CTA writes its chunk count and adds it to counts[k] with one integer
+// atomic. Every other entry runs on the persistent tile loop (collect.cuh
+// mask_tiles: SM count x resident CTAs walk the (chunk, block) tiles): the
+// packed bbox and time entries and the dictionary entry compare in the
+// packed domain (bbox_planes.cuh, time_planes.cuh; the dictionary test is
+// one axis of the box test at lo = hi = the target code, DictTiles), a
+// thread making one whole word with no shuffle; the raw time entry makes a
+// warp's 32 words together from streaming 16-byte loads (__ldcs: evict
+// first, the words are read once), four points a lane and three shuffles a
+// word (TimeRawTiles). A row that no point can match (an empty box or range, a
+// dictionary miss) reads nothing.
 #include "bbox_planes.cuh"
 #include "block_count.cuh"
 #include "collect.cuh"
@@ -47,7 +51,6 @@ using aqpc::kWarps;
 using aqpc::MaskOut;
 using aqpc::finish_chunk;
 using aqpc::Planes;
-using aqpc::PlaneRow;
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -71,34 +74,6 @@ __device__ __forceinline__ void mask_rows(const RowPred& pred, int64_t nv, const
   finish_chunk(count, o);
 }
 
-// Packed planes: lane l rebuilds the 8 points of group 4*wb + l, so the
-// warp covers words wb..wb+7; pred(g, valid) is the group's 8-bit mask.
-template <class GroupPred>
-__device__ __forceinline__ void mask_groups(const GroupPred& pred, int64_t nv,
-                                            const MaskOut& o) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kChunkWords;
-  const int64_t w1 = w0 + kChunkWords < o.n_words ? w0 + kChunkWords : o.n_words;
-  uint32_t* out = o.bits + static_cast<int64_t>(blockIdx.y) * o.n_words;
-  int count = 0;
-  for (int64_t wb = w0 + 8 * warp; wb < w1; wb += 8 * kWarps) {
-    const int64_t g = 4 * wb + lane;
-    const int64_t left = nv - 8 * g;
-    const int valid = left >= 8 ? 8 : (left <= 0 ? 0 : static_cast<int>(left));
-    const unsigned m = valid ? pred(g, valid) : 0u;
-    unsigned word = m << (8 * (lane & 3));
-    word |= __shfl_xor_sync(kFull, word, 1);
-    word |= __shfl_xor_sync(kFull, word, 2);
-    const int64_t w = wb + (lane >> 2);
-    if ((lane & 3) == 0 && w < w1) {
-      out[w] = word;
-      count += __popc(word);
-    }
-  }
-  finish_chunk(count, o);
-}
-
 struct BboxRows {
   const int32_t *x, *y, *z;
   int b[6];
@@ -111,18 +86,100 @@ struct ClassRows {
   __device__ bool operator()(int64_t i) const { return aqpc::class_matches(c[i], t); }
 };
 
-struct TimeRows {
-  const int32_t *h, *l;
+// One block row of the raw GPS-time test; nv is 0 when the range is empty.
+struct TimeRawRow {
+  const int32_t* h;
+  const int32_t* l;
   int q[4];
-  __device__ bool operator()(int64_t i) const { return aqpc::in_time_range(h[i], l[i], q); }
+  int64_t nv;
 };
 
-struct DictGroups {
-  PlaneRow c;
-  int t;
+// The hit bits of four consecutive points (bit i: point i of the four).
+__device__ __forceinline__ uint32_t time_nibble(const int4& h, const int4& l, const int (&q)[4]) {
+  using aqpc::in_time_range;
+  return static_cast<uint32_t>(in_time_range(h.x, l.x, q) | in_time_range(h.y, l.y, q) << 1 |
+                               in_time_range(h.z, l.z, q) << 2 | in_time_range(h.w, l.w, q) << 3);
+}
+
+// Bits of word w below nv, for any w (0 at or past nv).
+__device__ __forceinline__ uint32_t valid_any(int64_t nv, int64_t w) {
+  const int64_t left = nv - 32 * w;
+  return left >= 32 ? 0xffffffffu : (left <= 0 ? 0u : (1u << left) - 1u);
+}
+
+// The raw GPS-time test as the tile loops of collect.cuh take it: a warp
+// makes its 32 words together (kWarpWords), lane L word w0 + L. Wide (B %
+// 4 == 0, rows on 16-byte boundaries): lane L tests points 4L..4L+3 of
+// each 128-point span of the warp's 1024 from one int4 of th and one of tl
+// (a warp's load: 512 consecutive bytes), eight spans' loads in flight
+// before the first compare; eight lanes OR their 4-bit results into a word
+// with three __shfl_xor_sync, and one __shfl_sync hands each lane its
+// word. Otherwise lane L tests point L of each of the 32 words (a warp's
+// load: 128 consecutive bytes), all 64 loads in flight, and __ballot_sync
+// makes each word. Every load is streaming (__ldcs: evict first, the words
+// are read once). A load is made only below nv, so nothing past the row is
+// read. (A thread a word, eight int4 of th and eight of tl, was slower: a
+// warp's load then touches 32 lines of 128 bytes; so was the tile staged
+// in shared memory by cp.async at 3 CTAs an SM: PERF.md section 6.)
+template <bool Wide>
+struct TimeRawTiles {
+  using Row = TimeRawRow;
+  static constexpr int kMinCtas = 2;  // CTAs an SM the body is built for
+  static constexpr bool kWarpWords = true;
+  const int32_t* ths;
+  const int32_t* tls;
+  const int32_t* qs;
+  const int32_t* nvs;
   int64_t block_size;
-  __device__ unsigned operator()(int64_t g, int valid) const {
-    return aqpc::dict_mask8(c, t, block_size, g, valid);
+  __device__ __forceinline__ Row row(int64_t k) const {
+    Row r;
+    r.h = ths + k * block_size;
+    r.l = tls + k * block_size;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r.q[j] = qs[4 * k + j];
+    // [q0, q1) holds a point only when q0 < q1 lexicographically
+    const bool some = r.q[0] < r.q[2] || (r.q[0] == r.q[2] && r.q[1] < r.q[3]);
+    r.nv = some ? aqpc::clamp_valid(nvs[k], block_size) : 0;
+    return r;
+  }
+  __device__ __forceinline__ uint32_t word(const Row& r, int64_t w) const {
+    const int lane = threadIdx.x & 31;
+    const int64_t p0 = 32 * (w - lane);  // the warp's first point
+    uint32_t mine = 0;
+    if (Wide) {
+      int4 h[8], l[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int64_t i = p0 + 128 * s + 4 * lane;
+        const bool in = i < r.nv;
+        h[s] = in ? __ldcs(reinterpret_cast<const int4*>(r.h + i)) : make_int4(0, 0, 0, 0);
+        l[s] = in ? __ldcs(reinterpret_cast<const int4*>(r.l + i)) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        uint32_t v = time_nibble(h[s], l[s], r.q) << (4 * (lane & 7));
+        v |= __shfl_xor_sync(kFull, v, 1);
+        v |= __shfl_xor_sync(kFull, v, 2);
+        v |= __shfl_xor_sync(kFull, v, 4);
+        // lanes 8g..8g+7 now hold word 4s + g of the warp
+        const uint32_t got = __shfl_sync(kFull, v, 8 * (lane & 3));
+        if ((lane >> 2) == s) mine = got;
+      }
+    } else {
+      int h[32], l[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int64_t i = p0 + 32 * j + lane;
+        h[j] = i < r.nv ? __ldcs(r.h + i) : 0;
+        l[j] = i < r.nv ? __ldcs(r.l + i) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const uint32_t v = __ballot_sync(kFull, aqpc::in_time_range(h[j], l[j], r.q));
+        if (lane == j) mine = v;
+      }
+    }
+    return mine & valid_any(r.nv, w);
   }
 };
 
@@ -145,32 +202,14 @@ mask_class_kernel(const uint8_t* __restrict__ cls, const int32_t* __restrict__ t
             o);
 }
 
-__global__ void __launch_bounds__(kThreads)
-mask_time_kernel(const int32_t* __restrict__ ths, const int32_t* __restrict__ tls,
-                 const int32_t* __restrict__ qs, const int32_t* __restrict__ nvs, MaskOut o,
-                 int64_t block_size) {
-  const int64_t k = blockIdx.y;
-  TimeRows p{ths + k * block_size, tls + k * block_size, {}};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) p.q[j] = qs[k * 4 + j];
-  mask_rows(p, aqpc::clamp_valid(nvs[k], block_size), o);
-}
-
 // One thread per mask word of a tile (chunk c of block k); the CTA walks
 // tiles blockIdx.x, blockIdx.x + gridDim.x, ...: the packed bbox and time
-// entries, Tiles a BoxTiles or a TimeTiles.
+// entries, the dictionary entry and the raw time entry, Tiles a BoxTiles,
+// TimeTiles, DictTiles or TimeRawTiles.
 template <class Tiles>
 __global__ void __launch_bounds__(kThreads, Tiles::kMinCtas)
 mask_packed_kernel(Tiles f, MaskOut o, int64_t k_blocks) {
   aqpc::mask_tiles(f, o, k_blocks);
-}
-
-__global__ void __launch_bounds__(kThreads)
-mask_class_dict_kernel(Planes cp, const int32_t* __restrict__ targets,
-                       const int32_t* __restrict__ nvs, MaskOut o, int64_t block_size) {
-  const int64_t k = blockIdx.y;
-  mask_groups(DictGroups{aqpc::plane_row(cp, k, block_size), targets[k], block_size},
-              aqpc::clamp_valid(nvs[k], block_size), o);
 }
 
 // The outputs of one entry.
@@ -193,8 +232,8 @@ bool prepare(int64_t k_blocks, int64_t block_size, void* bits, void* counts, voi
 int done() { return static_cast<int>(cudaGetLastError()); }
 int refused() { return static_cast<int>(cudaErrorInvalidValue); }
 
-// A packed entry's persistent grid: SM count x resident CTAs, no more than
-// there are tiles.
+// A tile-loop entry's persistent grid: SM count x resident CTAs, no more
+// than there are tiles.
 template <class Tiles>
 int launch_packed(const Tiles& f, const MaskOut& o, int64_t k_blocks, void* stream) {
   static const int64_t resident = aqpc::resident_ctas(mask_packed_kernel<Tiles>);
@@ -274,13 +313,17 @@ extern "C" int aqpc_mask_class_dict(const void* cp, const void* targets, const v
                                     int64_t block_size, int64_t k_bits, void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return done();
   if (!aqpc::width_ok(k_bits, 8, block_size)) return refused();
-  dim3 grid;
-  MaskOut o;
-  if (!prepare(k_blocks, block_size, bits, counts, chunks, &grid, &o)) return refused();
-  mask_class_dict_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      aqpc::make_planes(cp, k_bits, block_size), static_cast<const int32_t*>(targets),
-      static_cast<const int32_t*>(nvs), o, block_size);
-  return done();
+  const MaskOut o = mask_out(block_size, bits, counts, chunks);
+  const Planes p = aqpc::make_planes(cp, k_bits, block_size);
+  const auto* t = static_cast<const int32_t*>(targets);
+  const auto* nv = static_cast<const int32_t*>(nvs);
+  return aqpc::with_int<1>(aqpc::planes_wide(block_size, cp), [&](auto wide) {
+    return aqpc::with_int<1>(p.nbytes, [&](auto nb) {
+      return launch_packed(
+          aqpc::DictTiles<decltype(wide)::value != 0, decltype(nb)::value>{p, t, nv, block_size},
+          o, k_blocks, stream);
+    });
+  });
 }
 
 // ths, tls: (K, B) int32 encoded hi/lo words; qs: (K, 4) int32; nvs: (K,).
@@ -288,13 +331,15 @@ extern "C" int aqpc_mask_time(const void* ths, const void* tls, const void* qs,
                               const void* nvs, void* bits, void* counts, void* chunks,
                               int64_t k_blocks, int64_t block_size, void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return done();
-  dim3 grid;
-  MaskOut o;
-  if (!prepare(k_blocks, block_size, bits, counts, chunks, &grid, &o)) return refused();
-  mask_time_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ths), static_cast<const int32_t*>(tls),
-      static_cast<const int32_t*>(qs), static_cast<const int32_t*>(nvs), o, block_size);
-  return done();
+  const MaskOut o = mask_out(block_size, bits, counts, chunks);
+  const auto* h = static_cast<const int32_t*>(ths);
+  const auto* l = static_cast<const int32_t*>(tls);
+  const auto* q = static_cast<const int32_t*>(qs);
+  const auto* nv = static_cast<const int32_t*>(nvs);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(ths) | reinterpret_cast<uintptr_t>(tls);
+  if (block_size % 4 != 0 || addr % 16 != 0)
+    return launch_packed(TimeRawTiles<false>{h, l, q, nv, block_size}, o, k_blocks, stream);
+  return launch_packed(TimeRawTiles<true>{h, l, q, nv, block_size}, o, k_blocks, stream);
 }
 
 // thp, tlp: (K, row width) u8 plane stacks at k_hi, k_lo bits in [0, 32];

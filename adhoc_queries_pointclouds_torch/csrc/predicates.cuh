@@ -8,9 +8,13 @@
 //   class_matches     raw u8 class equality
 //   dict_mask8        the dictionary-coded class test over 8 consecutive
 //                     points rebuilt from bit-planar codes
-//                     (unpack_planes.cuh); the packed bbox and time tests
-//                     are apart, in bbox_planes.cuh and time_planes.cuh,
-//                     and rebuild no residual
+//                     (unpack_planes.cuh), for the dictionary count
+//                     (class_count_dict.cu) only; the dictionary mask tests
+//                     on the code planes as they lie, as one axis of the
+//                     packed box test (bbox_planes.cuh DictTiles), and the
+//                     packed bbox and time tests are apart too, in
+//                     bbox_planes.cuh and time_planes.cuh: none of them
+//                     rebuilds a residual
 //
 // Their JAX counterparts are bbox_mask_jnp_multi, time_mask_jnp_multi,
 // class_mask_jnp_multi and class_mask_dict_jnp_multi in
@@ -40,9 +44,9 @@ __device__ __forceinline__ int class_matches(uint8_t c, int t) {
   return static_cast<int>(c) == t;
 }
 
-// Dictionary codes equal to the target code t (len(dict) on a miss): the
-// hit mask of points 8g..8g+7 (bit i = point 8g+i) for `valid` (1..8)
-// points below n_valid; bits past `valid` are 0.
+// Dictionary codes equal to the target code t (len(dict) on a miss), for
+// class_count_dict.cu: the hit mask of points 8g..8g+7 (bit i = point
+// 8g+i) for `valid` (1..8) points below n_valid; bits past `valid` are 0.
 __device__ __forceinline__ unsigned dict_mask8(const PlaneRow& c, int t, int64_t block_size,
                                                int64_t g, int valid) {
   return group_valid_mask(valid) &

@@ -168,6 +168,7 @@ struct TimeTiles {
   // are live at once and would spill at 64. chip_smoke.py's phase 2 prints
   // every body that spills.
   static constexpr int kMinCtas = Wide && (NBL == 4 || NBH <= 1) ? 4 : 2;
+  static constexpr bool kWarpWords = false;
   Planes ph, pl;
   const int32_t* qs;
   const int32_t* nvs;

@@ -1,7 +1,8 @@
 // Bit-planar residual unpack shared by the packed-transport dictionary
-// class kernels and the packed density pass; the layout and the Planes
-// argument below also serve the packed bbox and GPS-time kernels, which
-// compare without unpacking (bbox_planes.cuh, time_planes.cuh).
+// class count and the packed density pass; the layout and the Planes
+// argument below also serve the packed bbox and GPS-time kernels and the
+// dictionary class mask, which compare without unpacking (bbox_planes.cuh,
+// time_planes.cuh).
 //
 // Layout of one column, one block row of the (K, nbytes*B + nbits*B/8) u8
 // stack (k = 8*nbytes + nbits bits): byte plane p holds bits 8p..8p+7 of

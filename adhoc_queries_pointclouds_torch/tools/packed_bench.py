@@ -1,14 +1,19 @@
-"""Times of the packed-domain kernels at every width, for one source tree:
-the two packed bbox kernels and the two packed GPS-time kernels.
+"""Times of the kernels on the persistent tile loop (csrc/collect.cuh), for
+one source tree: the two packed bbox kernels and the two packed GPS-time
+kernels at every width, the raw GPS-time mask and the dictionary class
+mask.
 
     python -m adhoc_queries_pointclouds_torch.tools.packed_bench
     python adhoc_queries_pointclouds_torch/tools/packed_bench.py --root OTHER_TREE
 
 bbox_count_packed and mask_bbox_packed at each width triple, then
 time_count_packed and mask_time_packed at each width pair (k_hi, k_lo) of
-chip_smoke.py's phase 3, run at the main path's shape (K = 4 full blocks
-of 2^21 points) over random planes and a non-empty range on every block
-(an empty one skips its block's planes), first against their plain
+chip_smoke.py's phase 3, then mask_time on raw (hi, lo) words at B and at
+B - 8189 (B % 4 == 3, rows off 16-byte boundaries: the scalar loads), then
+mask_class_dict at k = 0, 1, 2, 4 and 8 bits a code, run at the main
+path's shape (K = 4 full blocks of 2^21 points) over random words or planes
+and a non-empty range, or a code the block's codes can hold, on every
+block (an empty one skips its block's planes), first against their plain
 versions (exact), then timed with kernel_timer.KernelTimer (the 50 MB L2 flushed
 before each run; median and least of --runs) in both readings: the call
 (the host's enqueue inside the window: a busy host lifts single runs, the
@@ -52,6 +57,9 @@ WIDTHS = [(w, w, w) for w in (0, 4, 12, 20, 28, 32)] + [
 TIME_WIDTHS = [(w, w) for w in (0, 4, 12, 20, 28, 32)] + [
     (20, 32), (4, 28), (1, 1), (7, 7), (31, 31), (3, 17), (32, 4), (0, 32), (8, 16), (4, 12),
     (12, 28)]
+# the raw time mask's block sizes: 16-byte loads, and the scalar path
+RAW_TIME_SIZES = (B, B - 8192 + 3)
+DICT_WIDTHS = (0, 1, 2, 4, 8)
 HBM_BYTES_PER_S = 3.35e12
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
@@ -114,6 +122,9 @@ def main(argv=None) -> int:
         if not torch.equal(count, plain.sum(1, dtype=torch.int32)):
             raise RuntimeError(f"{kernel} count at {widths}: {count.tolist()} is not the plain "
                                f"version's {plain.sum(1).tolist()}")
+        check_mask(kernel, widths, mask, plain)
+
+    def check_mask(kernel, widths, mask, plain):
         if not all(torch.equal(g, w) for g, w in zip(mask, P.pack_mask_bits(plain))):
             raise RuntimeError(f"{kernel} mask at {widths} is not the plain version's mask")
 
@@ -145,6 +156,24 @@ def main(argv=None) -> int:
         timed("time_count_packed", widths, lambda: P.time_count_packed_kernel(*ops), count_bytes)
         timed("mask_time_packed", widths, lambda: P.time_mask_bits_packed(*ops),
               count_bytes + K * B / 8)
+    for bs in RAW_TIME_SIZES:
+        # rows off 16-byte boundaries below B: the first K * bs words as (K, bs)
+        ths, tls = (torch.randint(I32_MIN, I32_MAX + 1, (K * B,), device=dev, generator=gen)
+                    .to(torch.int32)[:K * bs].view(K, bs) for _ in range(2))
+        lo, hi = ranges((32,))  # [(lo, INT32_MIN), (hi, INT32_MAX)): never empty
+        qs = torch.cat([lo, torch.full_like(lo, I32_MIN), hi, torch.full_like(lo, I32_MAX)], 1)
+        nv_raw = torch.full((K,), bs, dtype=torch.int32, device=dev)
+        ops = (ths, tls, qs, nv_raw)
+        check_mask("mask_time", bs, P.time_mask_bits(*ops), P.time_mask_multi(*ops))
+        timed("mask_time", f"B={bs}", lambda: P.time_mask_bits(*ops), 8 * K * bs + K * bs / 8)
+    for k in DICT_WIDTHS:
+        cp = planes_of((k,))[0]
+        codes = torch.randint(0, 1 << k, (K,), dtype=torch.int32, device=dev, generator=gen)
+        ops = (cp, codes, nv, k, B)
+        check_mask("mask_class_dict", k, P.class_mask_bits_dict(*ops),
+                   P.class_mask_dict_multi(*ops))
+        timed("mask_class_dict", (k,), lambda: P.class_mask_bits_dict(*ops),
+              k / 8 * K * B + K * B / 8)
     print(json.dumps({"tree": args.root, "card": card, "runs": args.runs, "rows": rows}))
     return 0
 

@@ -13,7 +13,8 @@ Phases, in order; the first fault raises and the script exits non-zero:
      nvcc versions; no CUDA device is an error
   2. build: nvcc builds the kernels of adhoc_queries_pointclouds_torch/csrc
      and g++ the host codec of native/ (no codec is an error), and ptxas
-     reports the registers and spills of the packed bbox and time kernels
+     reports the registers and spills of the kernels on the persistent tile
+     loop (packed bbox and time pairs, raw time mask, dictionary mask)
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
      points), exact equality; kernel and plain times (tools/kernel_timer.py:
@@ -29,15 +30,20 @@ Phases, in order; the first fault raises and the script exits non-zero:
      kernels (one bit-mask entry per collect kind, and the ordered
      compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
      1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
-     unaligned block size. The density kernels (per-cell leaders, then the
-     candidates' bit mask) run raw and packed at the same hit densities and
-     n_valid, over grids with about one and with over a hundred points per
-     cell, over 2^32 cells, with points beyond the grid, at the int32
-     extremes, exact d2 ties and a degenerate axis, the table sized as the
-     engine sizes it; the leaders (through ops/density.py table_leaders),
-     the mask and the compacted indices equal the plain version's; then
-     every row a hit at the 30, 10 and 4.1 m grids, raw and packed, held
-     and timed by tools/density_bench.py's grid_case
+     unaligned block size; the packed and dictionary masks are timed on a
+     range or code in every block, the dictionary mask beside its floor
+     with no planes (k = 0); the compaction beside torch.nonzero on the
+     same rows (its library call); one call of the raw time mask and of the
+     dictionary mask is split into the profiler's kernels. The density
+     kernels (per-cell leaders, then the candidates' bit mask) run raw and
+     packed at the same hit densities and n_valid, over grids with about one
+     and with over a hundred points per cell, over 2^32 cells, with points
+     beyond the grid, at the int32 extremes, exact d2 ties and a degenerate
+     axis, the table sized as the engine sizes it; the leaders (through
+     ops/density.py table_leaders), the mask and the compacted indices equal
+     the plain version's; then every row a hit at the 30, 10 and 4.1 m
+     grids, raw and packed, held and timed by tools/density_bench.py's
+     grid_case
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
      (2 x 2M), six paths, each with the launch counters set to 0 just
@@ -211,10 +217,12 @@ def phase_build() -> None:
     if lib is None:
         fail("the port's native codec did not build or load (g++): formats would decode in Python")
     print(f"built {lib._name} in {time.perf_counter() - t0:.3f} s")
-    # registers and spills of the packed-domain kernels: the bbox pair (one
-    # body a load kind) and the time pair (a body for each pair of
+    # registers and spills of the tile-loop kernels: the packed bbox pair
+    # (one body a load kind), the packed time pair (a body for each pair of
     # byte-plane counts and load kind: the e2e widths' body, (20, 32), the
-    # range of registers over all 25 and every body that spills)
+    # range of registers over all 25 and every body that spills), the raw
+    # time mask (one body a load kind) and the dictionary mask (a body for
+    # each load kind and byte-plane count)
     nvcc = _build._nvcc()
     with tempfile.TemporaryDirectory(prefix="aqpc_ptxas_") as tmp:
         jobs = [subprocess.Popen(
@@ -231,33 +239,41 @@ def phase_build() -> None:
     for (name, loads), shapes in sorted(bodies.items()):
         if None in shapes:
             print(f"ptxas {name}<{loads} loads>: {shapes[None]}")
-            continue
-        spilling = {sh: f["spills"] for sh, f in sorted(shapes.items()) if f["spills"]}
-        print(f"ptxas {name}<{loads} loads>: (20, 32) body {shapes[(4, 2)]}; {len(shapes)} "
-              f"bodies, {min(f['registers'] for f in shapes.values())}-"
-              f"{max(f['registers'] for f in shapes.values())} registers, spill bytes by "
-              f"(lo, hi) byte planes: {spilling or 'none'}")
+        elif (4, 2) in shapes:
+            spilling = {sh: f["spills"] for sh, f in sorted(shapes.items()) if f["spills"]}
+            print(f"ptxas {name}<{loads} loads>: (20, 32) body {shapes[(4, 2)]}; {len(shapes)} "
+                  f"bodies, {min(f['registers'] for f in shapes.values())}-"
+                  f"{max(f['registers'] for f in shapes.values())} registers, spill bytes by "
+                  f"(lo, hi) byte planes: {spilling or 'none'}")
+        else:
+            print(f"ptxas {name}<{loads} loads>: " + "; ".join(
+                f"{sh[0]} byte planes {f}" for sh, f in sorted(shapes.items())))
+
+
+TILES_KERNELS = {"BoxTiles": "mask_bbox_packed", "TimeTiles": "mask_time_packed",
+                 "DictTiles": "mask_class_dict", "TimeRawTiles": "mask_time"}
 
 
 def ptxas_bodies(text: str) -> dict:
-    """{(kernel, loads): {(lo, hi) byte planes, or None: facts}} of the
-    packed-domain kernels in one file's `nvcc -Xptxas -v` output."""
+    """{(kernel, loads): {byte planes ((lo, hi) for the packed time pair),
+    or None: facts}} of the tile-loop kernels in one file's `nvcc -Xptxas
+    -v` output."""
     entry = re.compile(r"(bbox_count_packed_kernel|time_count_packed_kernel|mask_packed_kernel)I"
-                       r"(?:N4aqpc\d+(BoxTiles|TimeTiles)I)?Lb([01])E(?:Li(\d)ELi(\d)E)?")
+                       r"(?:N(?:4aqpc|S_)\d+(\w+?Tiles)I)?Lb([01])E((?:Li\d+E)*)")
     out: dict = {}
     lines = text.splitlines()
     for n, line in enumerate(lines):
         m = entry.search(line)
         if "Compiling entry function" not in line or not m:
             continue
-        kernel, tiles, wide, nbl, nbh = m.groups()
+        kernel, tiles, wide, planes = m.groups()
         name = kernel.replace("_kernel", "")
         if name == "mask_packed":
-            name = {"BoxTiles": "mask_bbox_packed", "TimeTiles": "mask_time_packed"}[tiles]
+            name = TILES_KERNELS[tiles]
         facts = " ".join(lines[n + 1:n + 4])
         regs = re.search(r"Used (\d+) registers", facts)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", facts)
-        shape = None if nbl is None else (int(nbl), int(nbh))
+        shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", planes)) or None
         out.setdefault((name, "wide" if wide == "1" else "narrow"), {})[shape] = {
             "registers": int(regs.group(1)) if regs else None,
             "spills": int(spills.group(1)) + int(spills.group(2)) if spills else None}
@@ -411,26 +427,61 @@ def edge_queries(widths, dev):
 
 
 def timed(timer, kernel_fn, plain_fn, nbytes: float, ops: float, indent: str = "  ",
-          what: str = f"{K} full blocks", floor_ms: float | None = None) -> dict:
+          what: str = f"{K} full blocks", floor: dict | None = None,
+          library_fn=None) -> dict:
     """Kernel and plain times at the main path's shape beside the bound: the
     larger of nbytes (every input read once, every output written once) at
     the card's memory rate and ops at its operation rate. ms and plain_ms
     are the calls' times (the host's enqueue inside the window), device_ms
     the kernel call's device work only (kernel_timer.py), each the median of
-    TIMED_RUNS, the least printed beside the kernel's. No single PyTorch
-    call computes any of these functions, so library_ms is None."""
+    TIMED_RUNS, the least printed beside the kernel's; floor, the times of
+    the same loop with no planes, beside them. library_fn is one
+    PyTorch call that computes the same function, where one exists (only
+    compact_bits has one: torch.nonzero); library_ms is its call time, else
+    None."""
     ms, least = timer.times(kernel_fn)
     device_ms, device_least = timer.times(kernel_fn, device=True)
     plain_ms, _ = timer.times(plain_fn)
+    library_ms = None if library_fn is None else timer.times(library_fn)[0]
+    library = "" if library_ms is None else f", library call {library_ms:.4f} ms"
     bound_ms, bound_by = bound_of(nbytes, ops)
-    floor = "" if floor_ms is None else f", floor (no planes) {floor_ms:.4f} ms"
+    floor_text = "" if not floor else (f", floor (no planes) {floor['ms']:.4f} ms, device "
+                                       f"{floor['device_ms']:.4f}")
     print(f"{indent}time, {what}: kernel {ms:.4f} ms (least {least:.4f}; device "
           f"{device_ms:.4f}, least {device_least:.4f}; {nbytes / device_ms / 1e6:.1f} GB/s)"
-          f"{floor}, {nbytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms by {bound_by} "
+          f"{floor_text}, {nbytes / 1e6:.2f} MB, bound {bound_ms:.4f} ms by {bound_by} "
           f"({100 * bound_ms / device_ms:.0f} % of the kernel's device time), "
-          f"plain {plain_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms{library}")
     return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def floor_breakdown(name: str, fn, device_ms: float, runs: int = 20) -> None:
+    """Where one call's device time goes: torch.profiler's kernels of runs
+    calls (each after an L2 flush by a kernel of another name), per call,
+    and the gap between them and the timer's device reading, device_ms."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if us and "bitwise_not" not in e.key:
+            label = "counts memset (fill)" if "Fill" in e.key else e.key[:60]
+            kernels[label] = us / runs / 1e3
+    if not kernels:
+        print(f"    {name}, one call's device time by kernel: not measured (no device time in "
+              f"the profiler's trace)")
+        return
+    parts = ", ".join(f"{k} {v:.4f} ms" for k, v in kernels.items())
+    gap = device_ms - sum(kernels.values())
+    print(f"    {name}, one call's device time by kernel (torch.profiler, mean of {runs}): "
+          f"{parts}; gap to the timer's {device_ms:.4f} ms: {gap:.4f}")
 
 
 def bound_of(nbytes: float, ops: float) -> tuple[float, str]:
@@ -529,7 +580,7 @@ def phase_kernels(dev) -> dict:
         ops = sum(packed_ops(w) for w in widths) * K * B
         times[widths] = timed(timer, lambda: P.bbox_count_packed_kernel(*args),
                               lambda: P.bbox_count_packed_multi(*args), nbytes, ops, "    ",
-                              floor_ms=times.get((0, 0, 0), {}).get("ms"))
+                              floor=times.get((0, 0, 0)))
     # (20, 20, 20): the widths of the e2e datasets' blocks
     out["bbox_count_packed"] = dict(max_abs_err=max(errs), **times[(20, 20, 20)])
     kernels_class(dev, gen, timer, out)
@@ -673,7 +724,7 @@ def kernels_time(dev, gen, timer, out) -> None:
             timer, lambda: P.time_count_packed_kernel(*planes, qs, nv_full, widths, B),
             lambda: P.time_count_packed_multi(*planes, qs, nv_full, widths, B),
             sum(widths) / 8 * K * B, time_packed_ops(widths) * K * B, "    ",
-            floor_ms=times.get((0, 0), {}).get("ms"))
+            floor=times.get((0, 0)))
     # (20, 32): about the widths of the e2e datasets' blocks
     out["time_count_packed"] = dict(max_abs_err=max(errs), **times[(20, 32)])
 
@@ -796,11 +847,19 @@ def kernels_collect(dev, gen, timer, out) -> None:
     mask, off, total = raw_kind("mask_bbox", lambda nv: (xs, ys, zs, lo, hi, nv),
                                 P.bbox_mask_bits, P.bbox_mask_multi, 12, 12)
     print(f"compact_bits, blocks at densities {DENSITIES[1:3]} (the partial ones):")
-    # operations: a popc and a scan step per mask word, a few per hit
+    # operations: a popc and a scan step per mask word, a few per hit; the
+    # library call: torch.nonzero on the partial blocks' bool rows (as the
+    # JAX package's jnp.nonzero per block), which reads a byte a row and
+    # writes int64 (block, row) pairs
+    partial = hit[1:3].contiguous()
+    if not torch.equal(torch.nonzero(partial)[:, 1].to(torch.int32),
+                       C.compact_bits(mask.bits, mask.chunks, off, total, B)):
+        fail("compact_bits: the hit rows differ from torch.nonzero's")
     compact_times = timed(
         timer, lambda: C.compact_bits(mask.bits, mask.chunks, off, total, B),
         lambda: C.compact_bits_plain(mask.bits, mask.chunks, off, total, B),
-        2 * B / 8 + 4 * total, 2 * B / 32 * 8 + 4 * total, what=f"{total} hits of 2 blocks")
+        2 * B / 8 + 4 * total, 2 * B / 32 * 8 + 4 * total, what=f"{total} hits of 2 blocks",
+        library_fn=lambda: torch.nonzero(partial))
     del xs, ys, zs
 
     cls = torch.where(hit, 6, torch.randint(7, 256, (K, B), device=dev, generator=gen))
@@ -815,6 +874,8 @@ def kernels_collect(dev, gen, timer, out) -> None:
     tls = rand_i32(gen, (K, B), dev)
     qs = torch.tensor([[-1, I32_MIN, 0, I32_MIN]] * K, **i32)
     raw_kind("mask_time", lambda nv: (ths, tls, qs, nv), P.time_mask_bits, P.time_mask_multi, 8, 10)
+    floor_breakdown("mask_time", lambda: P.time_mask_bits(ths, tls, qs, nv_full),
+                    out["mask_time"]["device_ms"])
     del ths, tls
 
     def packed_kind(name, label, make, kernel, plain, nbytes, ops, main_case, cases,
@@ -846,7 +907,7 @@ def kernels_collect(dev, gen, timer, out) -> None:
             times[case] = timed(timer, lambda: kernel(*run),
                                 lambda: P.pack_mask_bits(plain(*run)),
                                 (nbytes(case) + 1 / 8) * K * B, ops(case) * K * B, "    ",
-                                floor_ms=times.get(floor_case, {}).get("ms"))
+                                floor=times.get(floor_case))
         un = make(unaligned_case, bu, nv_u)
         compare_collect(f"{label} {unaligned_case}, unaligned B={bu}", lambda: kernel(*un),
                         lambda: P.pack_mask_bits(plain(*un)), nv_u, bu, errs)
@@ -919,16 +980,23 @@ def kernels_collect(dev, gen, timer, out) -> None:
                 TIME_PACKED_WIDTHS, (16, 32), time_edges, (0, 0),
                 lambda w: time_case(w, B, nv_full, BUSY_DENSITIES))
 
-    def dict_case(k, block_size, nvs):
+    def dict_case(k, block_size, nvs, codes=None):
         # codes: a miss (len(dict)), two codes at 2^-k, and a block of code 0
         cp = planes(k, block_size)
         cp[3] = 0
-        codes = torch.tensor([1 << k, 0, 1, 0], **i32)
-        return (cp, codes, nvs, k, block_size)
+        if codes is None:
+            codes = [1 << k, 0, 1 % (1 << k), 0]
+        return (cp, torch.tensor(codes, **i32), nvs, k, block_size)
 
+    # timed on a code in every block (a miss skips its block's planes); k = 0,
+    # no planes and every code 0, is the floor printed beside the others
     packed_kind("mask_class_dict", "k", dict_case, P.class_mask_bits_dict,
                 P.class_mask_dict_multi, lambda k: k / 8, lambda k: packed_ops(k) + 1, 2,
-                [1, 2, 4, 8], 8)
+                [0, 1, 2, 4, 8], 8, floor_case=0,
+                busy=lambda k: dict_case(k, B, nv_full, [j % (1 << k) for j in range(K)]))
+    busy = dict_case(2, B, nv_full, [0, 1, 2, 3])
+    floor_breakdown("mask_class_dict, k = 2", lambda: P.class_mask_bits_dict(*busy),
+                    out["mask_class_dict"]["device_ms"])
 
     out["compact_bits"] = dict(max_abs_err=max(compact_errs), **compact_times)
 

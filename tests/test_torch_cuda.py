@@ -498,6 +498,16 @@ def test_packed_kernels_over_more_blocks_than_grid_y(dev, widths):
     got, ref = _both(TP.bbox_count_packed_kernel, args, dev, box, B)
     assert torch.equal(got, ref)
     _mask_both(TP.bbox_mask_bits_packed, args, dev, box, B)
+    # the raw time and dictionary masks walk the same grid
+    raw = [np.tile(a, (65536 // 6 + 1, 1)) if a.ndim == 2 else np.tile(a, 65536 // 6 + 1)
+           for a in _time_raw_case(rng, 6, B)]
+    assert len(raw[3]) > 65536
+    _mask_both(TP.time_mask_bits, raw, dev)
+    k = widths[1] % 8 + 1
+    codes = [np.tile(a, (65536 // 5 + 1, 1)) if a.ndim == 2 else np.tile(a, 65536 // 5 + 1)
+             for a in _dict_case(rng, 5, B, k)]
+    assert len(codes[2]) > 65536
+    _mask_both(TP.class_mask_bits_dict, codes, dev, k, B)
 
 
 def test_new_wrappers_reject_bad_operands(dev):
@@ -557,11 +567,21 @@ def test_class_and_time_run_query_on_cuda_matches_cpu(dev, tmp_path, monkeypatch
 # ---------------------------------------------------------------- collect
 
 
-def _mask_both(fn, args, dev, *extra):
+def _off_bounds(t, dev):
+    """The 2-D operand t on the card, one element past a 16-byte boundary:
+    rows that take no wide loads."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    flat[1:] = t.reshape(-1).to(dev)
+    return flat[1:].view(t.shape)
+
+
+def _mask_both(fn, args, dev, *extra, unaligned=False):
     """BitMask of the kernel on the card and of the plain version on the
-    CPU, field by field equal; returns the plain one."""
+    CPU, field by field equal; returns the plain one. unaligned: the 2-D
+    operands lie one element past a 16-byte boundary on the card."""
     cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
-    got = fn(*(t.to(dev) for t in cpu), *extra)
+    got = fn(*(_off_bounds(t, dev) if unaligned and t.dim() == 2 else t.to(dev) for t in cpu),
+             *extra)
     torch.cuda.synchronize()
     ref = fn(*cpu, *extra)
     for name, g, r in zip(ref._fields, got, ref):
@@ -607,6 +627,9 @@ def test_mask_bits_raw_kinds_match_plain(dev, B):
     th, tl, qs, tnv = _time_raw_case(rng, 6, B)
     got, ref = _mask_both(TP.time_mask_bits, (th, tl, qs, tnv), dev)
     _compact_both(dev, got, ref, tnv, B)
+    # rows off 16-byte boundaries: the raw time mask's scalar loads at any B
+    got, ref = _mask_both(TP.time_mask_bits, (th, tl, qs, tnv), dev, unaligned=True)
+    _compact_both(dev, got, ref, tnv, B)
 
 
 @pytest.mark.parametrize("widths", [(0, 0, 0), (4, 4, 4), (12, 20, 28), (32, 32, 32),
@@ -623,10 +646,11 @@ def test_mask_bits_packed_kinds_match_plain(dev, widths, B):
     targs = _time_packed_case(rng, 5, B, tw)
     got, ref = _mask_both(TP.time_mask_bits_packed, targs, dev, tw, B)
     _compact_both(dev, got, ref, targs[-1], B)
-    for k in (1, 2, 4, 8):
+    for k in (0, 1, 2, 4, 8):  # k = 0: no planes, every code 0
         dargs = _dict_case(rng, 5, B, k)
         got, ref = _mask_both(TP.class_mask_bits_dict, dargs, dev, k, B)
         _compact_both(dev, got, ref, dargs[-1], B)
+        _mask_both(TP.class_mask_bits_dict, dargs, dev, k, B, unaligned=True)
 
 
 @pytest.mark.parametrize("k", [8, 16, 32])
@@ -639,7 +663,9 @@ def test_mask_bits_byte_planes_only(dev, k):
     _compact_both(dev, got, ref, args[-1], B)
     targs = _time_packed_case(rng, 3, B, (k, k))
     _mask_both(TP.time_mask_bits_packed, targs, dev, (k, k), B)
-    _mask_both(TP.class_mask_bits_dict, _dict_case(rng, 5, B, 8), dev, 8, B)
+    dargs = _dict_case(rng, 5, B, 8)
+    _mask_both(TP.class_mask_bits_dict, dargs, dev, 8, B)
+    _mask_both(TP.class_mask_bits_dict, dargs, dev, 8, B, unaligned=True)
 
 
 def test_mask_bits_full_and_empty_blocks(dev):
