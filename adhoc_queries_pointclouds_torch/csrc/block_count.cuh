@@ -13,8 +13,10 @@ namespace aqpc {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// CUDA caps gridDim.y at 65535; K (blocks per step) is far below that.
+// CUDA caps gridDim.y at 65535 (the grids of one CTA row a block) and
+// gridDim.x at 2^31 - 1 (the flattened grids).
 constexpr int64_t kMaxGridY = 65535;
+constexpr int64_t kMaxGridX = 2147483647;
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll

@@ -1,14 +1,16 @@
 // Shared pieces of the collect path's two kernels: the bit-mask layout,
-// the chunking that links the mask kernel's per-chunk counts to the
-// compaction's prefix, and a CTA-wide exclusive scan; and the persistent
-// tile loops of the packed-domain count and mask kernels.
+// the chunking that links the mask kernels' per-chunk counts to the
+// compaction's prefix, and the persistent tile loops of the count and mask
+// kernels that walk (block, chunk) tiles.
 //
 // Bit mask of one block: ceil(B / 32) uint32 words, bit j of word w is row
 // 32w + j; rows >= n_valid and the bits past B in the last word are 0.
-// A chunk is kChunkWords consecutive words of one block (8192 rows): the
-// mask kernel runs one CTA per (chunk, block) and writes the chunk's hit
-// count; the compaction runs one CTA per (chunk, block) too, one word per
-// thread, and starts its output at the block's offset plus the counts of
+// A chunk is kChunkWords consecutive words of one block (8192 rows): every
+// mask kernel writes each chunk's hit count. The raw bbox mask runs one CTA
+// per (chunk, block) (mask_bits.cu mask_rows); every other mask runs on
+// mask_tiles below, a CTA walking tiles of one chunk each. The compaction
+// (compact_bits.cu) runs one CTA per (chunk, block) tile, a warp per 32
+// words, and starts its output at the block's offset plus the counts of
 // the chunks before it.
 #pragma once
 
@@ -46,33 +48,6 @@ __device__ __forceinline__ void finish_chunk(int count, const MaskOut& o) {
     o.chunks[k * o.n_chunks + blockIdx.x] = count;
     if (count) atomicAdd(o.counts + k, count);
   }
-}
-
-// Exclusive prefix sum of v over the CTA in thread order, and the CTA total
-// in *total. Every thread must call it (it holds two __syncthreads).
-__device__ __forceinline__ int cta_exclusive_scan(int v, int* total) {
-  __shared__ int warp_totals[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int up = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += up;
-  }
-  if (lane == 31) warp_totals[warp] = incl;
-  __syncthreads();
-  int before = 0;
-  int all = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int t = warp_totals[w];
-    before += w < warp ? t : 0;
-    all += t;
-  }
-  __syncthreads();  // warp_totals may be rewritten by a later call
-  *total = all;
-  return before + incl - v;
 }
 
 // Persistent grids over (block, chunk) tiles: tile t is chunk t % n_chunks

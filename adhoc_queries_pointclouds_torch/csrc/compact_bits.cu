@@ -17,12 +17,25 @@
 // What bounds it: 4 bytes written per hit, plus one bit read per row.
 //
 // What the design does about it: one CTA per (chunk of 256 mask words,
-// block), one word per thread. The CTA first sums the per-chunk counts of
-// the chunks before its own (the mask kernel wrote them), then an
-// exclusive scan of the words' popcounts (warp shuffles, then the 8 warp
-// totals) gives each thread the position of its word's first hit; the
-// thread writes its word's set bits in ascending order. No atomics: the
-// output order is the row order.
+// block) tile, the tiles flattened into the grid's x (any K); a warp owns
+// 32 consecutive words, lane L word L (a warp's load: 128 consecutive
+// bytes). A CTA reads its block's offset first and leaves at once when
+// the block is skipped; otherwise the word and the per-chunk counts of
+// the chunks before the tile (the mask kernel wrote them) are loaded
+// together, and a warp scan of the words' popcounts and one CTA barrier
+// over the 8 warps' totals and chunk sums give each word the position of
+// its first hit. Then each warp writes its hits in one of two ways, the
+// cheaper for its words:
+//   - few hits a word (twice the most hits of a word below the number of
+//     words with hits): each lane writes its own word's hits, one store
+//     instruction for each hit of the busiest lane;
+//   - otherwise a word at a time: the warp's words with hits are handed
+//     round with __shfl_sync, and lane j writes row 32w + j, if bit j is
+//     set, at pos(w) + popc(word & lanemask_lt(j)), so a word's hits land
+//     in one run of at most 128 bytes from one store instruction, where
+//     lanes writing their own hits spread each store over 32 runs. With
+//     hits in all 32 words the loop is unrolled, every word in flight.
+// No atomics: the output order is the row order.
 #include "block_count.cuh"
 #include "collect.cuh"
 
@@ -30,6 +43,9 @@ namespace {
 
 using aqpc::kChunkWords;
 using aqpc::kThreads;
+using aqpc::kWarps;
+
+constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kChunkWords == kThreads, "one mask word per thread");
 
@@ -37,23 +53,65 @@ __global__ void __launch_bounds__(kThreads)
 compact_bits_kernel(const uint32_t* __restrict__ bits, const int32_t* __restrict__ chunks,
                     const int64_t* __restrict__ offsets, int32_t* __restrict__ out,
                     int64_t n_words, int64_t n_chunks) {
-  const int64_t k = blockIdx.y;
-  const int64_t base = offsets[k];
-  if (base < 0) return;  // the whole CTA leaves: no barrier is skipped
-  const int64_t c = blockIdx.x;
-  int part = 0;
-  for (int64_t j = threadIdx.x; j < c; j += kThreads) part += chunks[k * n_chunks + j];
-  int before;  // hits of the chunks before this one: the scan's total
-  aqpc::cta_exclusive_scan(part, &before);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t k = blockIdx.x / n_chunks;
+  const int64_t c = blockIdx.x - k * n_chunks;
   const int64_t w = c * kChunkWords + threadIdx.x;
-  uint32_t word = w < n_words ? bits[k * n_words + w] : 0u;
-  int hits;
-  const int at = aqpc::cta_exclusive_scan(__popc(word), &hits);
-  int64_t pos = base + before + at;
-  const int32_t row0 = static_cast<int32_t>(32 * w);
-  while (word) {
-    out[pos++] = row0 + __ffs(word) - 1;
-    word &= word - 1;
+  const int64_t base = offsets[k];
+  if (base < 0) return;  // the whole CTA leaves, having read nothing else
+  // both loads before either is used
+  const uint32_t word = w < n_words ? __ldcs(bits + k * n_words + w) : 0u;
+  int part = 0;  // this thread's share of the hits of the chunks before c
+  for (int64_t j = threadIdx.x; j < c; j += kThreads) part += chunks[k * n_chunks + j];
+
+  const int n = __popc(word);
+  int incl = n;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += up;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
+  __shared__ int2 sums[kWarps];  // (the warp's hits, its share of the chunks before c)
+  if (lane == 31) sums[warp] = make_int2(incl, part);
+  __syncthreads();
+  int before = 0;  // hits of the warps before this one in the tile
+  int prior = 0;   // hits of the chunks before c
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) {
+    const int2 s = sums[v];
+    before += v < warp ? s.x : 0;
+    prior += s.y;
+  }
+  const int at = before + incl - n;  // the word's first hit within the tile
+  int32_t* dst = out + base + prior;
+  const int32_t row0 = static_cast<int32_t>(32 * (w - lane));  // the warp's first row
+  const uint32_t busy = __ballot_sync(kFull, word != 0);  // the warp's words with hits
+  if (2 * __reduce_max_sync(kFull, n) < __popc(busy)) {
+    // few hits a word: each lane writes its own word's hits, one store
+    // instruction for each hit of the busiest lane
+    int32_t* to = dst + at;
+    const int32_t row = row0 + 32 * lane;
+    for (uint32_t v = word; v; v &= v - 1) *to++ = row + __ffs(v) - 1;
+    return;
+  }
+  const uint32_t below = (1u << lane) - 1u;
+  if (busy == kFull) {  // every word has hits: no walk, every word in flight
+#pragma unroll
+    for (int src = 0; src < 32; ++src) {
+      const uint32_t v = __shfl_sync(kFull, word, src);
+      const int p = __shfl_sync(kFull, at, src);
+      if ((v >> lane) & 1u) dst[p + __popc(v & below)] = row0 + 32 * src + lane;
+    }
+    return;
+  }
+  for (uint32_t todo = busy; todo; todo &= todo - 1) {
+    const int src = __ffs(todo) - 1;
+    const uint32_t v = __shfl_sync(kFull, word, src);
+    const int p = __shfl_sync(kFull, at, src);
+    if ((v >> lane) & 1u) dst[p + __popc(v & below)] = row0 + 32 * src + lane;
   }
 }
 
@@ -67,10 +125,10 @@ extern "C" int aqpc_compact_bits(const void* bits, const void* chunks, const voi
                                  void* out, int64_t k_blocks, int64_t block_size,
                                  void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
-  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_chunks = aqpc::mask_chunks(block_size);
-  const dim3 grid(static_cast<unsigned>(n_chunks), static_cast<unsigned>(k_blocks));
-  compact_bits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (k_blocks > aqpc::kMaxGridX / n_chunks) return static_cast<int>(cudaErrorInvalidValue);
+  compact_bits_kernel<<<static_cast<unsigned>(n_chunks * k_blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(chunks),
       static_cast<const int64_t*>(offsets), static_cast<int32_t*>(out),
       aqpc::mask_words(block_size), n_chunks);

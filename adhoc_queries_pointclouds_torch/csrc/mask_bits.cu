@@ -22,21 +22,27 @@
 // What bounds it: device-memory reads of the predicate columns, as in the
 // count kernels, plus one bit per row written.
 //
-// What the design does about it: the raw bbox and class entries run one
-// CTA per (chunk, block); each warp builds one mask word per pass, lane j
-// testing row 32w + j (neighbouring lanes on neighbouring addresses) and
-// __ballot_sync gathering the 32 results; counts stay in registers and each
-// CTA writes its chunk count and adds it to counts[k] with one integer
-// atomic. Every other entry runs on the persistent tile loop (collect.cuh
-// mask_tiles: SM count x resident CTAs walk the (chunk, block) tiles): the
-// packed bbox and time entries and the dictionary entry compare in the
-// packed domain (bbox_planes.cuh, time_planes.cuh; the dictionary test is
-// one axis of the box test at lo = hi = the target code, DictTiles), a
-// thread making one whole word with no shuffle; the raw time entry makes a
-// warp's 32 words together from streaming 16-byte loads (__ldcs: evict
-// first, the words are read once), four points a lane and three shuffles a
-// word (TimeRawTiles). A row that no point can match (an empty box or range, a
-// dictionary miss) reads nothing.
+// What the design does about it: the raw bbox entry alone runs one CTA
+// per (chunk, block) (mask_rows, the only user of prepare(), so K is held
+// to the grid's 65,535 rows in y there); each warp builds one mask word per
+// pass, lane j testing row 32w + j (neighbouring lanes on neighbouring
+// addresses) and __ballot_sync gathering the 32 results; counts stay in
+// registers and each CTA writes its chunk count and adds it to counts[k]
+// with one integer atomic. Every other entry runs on the persistent tile
+// loop (collect.cuh mask_tiles: SM count x resident CTAs walk the (chunk,
+// block) tiles, any K): the packed bbox and time entries and the
+// dictionary entry compare in the packed domain (bbox_planes.cuh,
+// time_planes.cuh; the dictionary test is one axis of the box test at lo =
+// hi = the target code, DictTiles), a thread making one whole word with no
+// shuffle; the raw time and class entries make a warp's 32 words together
+// from streaming loads (__ldcs: evict first, the words are read once), all
+// of a lane's loads in flight before the first compare: 16-byte loads,
+// four points a lane and three shuffles a word for time (TimeRawTiles);
+// 16 points a lane tested at once with __vcmpeq4 and two lanes paired into
+// a word by one shuffle for class (ClassRawTiles; rows off 16-byte
+// boundaries take realigned 4-byte loads). A row that no point can
+// match (an empty box or range, a dictionary miss, a class target outside
+// 0..255) reads nothing.
 #include "bbox_planes.cuh"
 #include "block_count.cuh"
 #include "collect.cuh"
@@ -78,12 +84,6 @@ struct BboxRows {
   const int32_t *x, *y, *z;
   int b[6];
   __device__ bool operator()(int64_t i) const { return aqpc::in_box(x[i], y[i], z[i], b); }
-};
-
-struct ClassRows {
-  const uint8_t* c;
-  int t;
-  __device__ bool operator()(int64_t i) const { return aqpc::class_matches(c[i], t); }
 };
 
 // One block row of the raw GPS-time test; nv is 0 when the range is empty.
@@ -183,6 +183,112 @@ struct TimeRawTiles {
   }
 };
 
+// One block row of the raw class test; nv is 0 when the target lies
+// outside 0..255, where no byte can equal it.
+struct ClassRawRow {
+  const uint8_t* c;
+  int t;
+  uint32_t rep;  // the target's byte in each byte of a word
+  int64_t nv;
+};
+
+// Bit i (i < 4): byte i of w equals byte i of rep.
+__device__ __forceinline__ uint32_t equal_nibble(uint32_t w, uint32_t rep) {
+  // 0xff at each equal byte; keep bit i of byte i and add the four bytes
+  return ((__vcmpeq4(w, rep) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+// The raw class test as the tile loops of collect.cuh take it: a warp
+// makes its 32 words together (kWarpWords), lane L word w0 + L. Wide (B %
+// 16 == 0, rows on 16-byte boundaries): lane L tests points 16L..16L+15 of
+// each 512-point span of the warp's 1024 from one uint4 (a warp's load:
+// 512 consecutive bytes), both spans' loads in flight before the first
+// compare; __vcmpeq4 against the target's byte in all four bytes tests
+// four points an instruction (as class_count.cu), the four byte masks
+// make 16 bits, one __shfl_xor_sync pairs lanes 2m and 2m + 1 into word
+// 16s + m of the warp, and one __shfl_sync hands each lane its word.
+// Otherwise (any B, rows on any boundary) lane L reads the 4-byte word
+// holding points 4L..4L+3 of each 128-point span less the row's offset a
+// past a 4-byte boundary (a warp's load: 128 consecutive bytes), all eight
+// in flight, takes the next word from lane L + 1 with one shuffle and
+// shifts the pair by a bytes (__funnelshift_r), tests the four points with
+// __vcmpeq4, and eight lanes OR their 4-bit results into a word with three
+// __shfl_xor_sync, as TimeRawTiles does. A word is read only when it holds
+// a point below nv (its other bytes, up to 3 before the row or past nv, lie
+// in the same aligned 4 bytes as a point of the row and are shifted out or
+// masked), and every load is streaming (__ldcs). (Byte loads and
+// one __ballot_sync a word, 32 loads in flight, were slower than the
+// parent's mask_rows: PERF.md section 6.)
+template <bool Wide>
+struct ClassRawTiles {
+  using Row = ClassRawRow;
+  static constexpr int kMinCtas = 8;  // CTAs an SM the body is built for
+  static constexpr bool kWarpWords = true;
+  const uint8_t* cls;
+  const int32_t* targets;
+  const int32_t* nvs;
+  int64_t block_size;
+  __device__ __forceinline__ Row row(int64_t k) const {
+    Row r;
+    r.c = cls + k * block_size;
+    r.t = targets[k];
+    r.rep = static_cast<uint32_t>(r.t) * 0x01010101u;
+    r.nv = r.t >= 0 && r.t <= 255 ? aqpc::clamp_valid(nvs[k], block_size) : 0;
+    return r;
+  }
+  __device__ __forceinline__ uint32_t word(const Row& r, int64_t w) const {
+    const int lane = threadIdx.x & 31;
+    const int64_t p0 = 32 * (w - lane);  // the warp's first point
+    uint32_t mine = 0;
+    if (Wide) {
+      uint4 v[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int64_t i = p0 + 512 * s + 16 * lane;
+        v[s] = i < r.nv ? __ldcs(reinterpret_cast<const uint4*>(r.c + i)) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t half = equal_nibble(v[s].x, r.rep) | equal_nibble(v[s].y, r.rep) << 4 |
+                              equal_nibble(v[s].z, r.rep) << 8 | equal_nibble(v[s].w, r.rep) << 12;
+        const uint32_t other = __shfl_xor_sync(kFull, half, 1);
+        const uint32_t pair = (lane & 1) ? (other | half << 16) : (half | other << 16);
+        // lanes 2m and 2m + 1 now hold word 16s + m of the warp
+        const uint32_t got = __shfl_sync(kFull, pair, 2 * (lane & 15));
+        if ((lane >> 4) == s) mine = got;
+      }
+    } else {
+      // 4-byte words on 4-byte boundaries: word q of the row holds its
+      // bytes 4q - a .. 4q - a + 3, a the row's offset past a boundary; a
+      // word is loaded only when it holds a byte below nv
+      const int a = static_cast<int>(reinterpret_cast<uintptr_t>(r.c) & 3);
+      const uint32_t* words = reinterpret_cast<const uint32_t*>(r.c - a);
+      const int64_t q0 = p0 / 4;
+      const int64_t end = r.nv + a;
+      uint32_t x[9];  // x[8]: lane 0 only, the word after the warp's 1024 bytes
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        const int64_t q = q0 + 32 * j + lane;
+        x[j] = (j < 8 || lane == 0) && 4 * q < end ? __ldcs(words + q) : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // lane L's points 128j + 4L .. + 3 end in the next word: lane L + 1's
+        // of this span, or lane 0's of the next span for lane 31
+        const uint32_t hi = __shfl_sync(kFull, lane == 0 ? x[j + 1] : x[j], (lane + 1) & 31);
+        uint32_t v = equal_nibble(__funnelshift_r(x[j], hi, 8 * a), r.rep) << (4 * (lane & 7));
+        v |= __shfl_xor_sync(kFull, v, 1);
+        v |= __shfl_xor_sync(kFull, v, 2);
+        v |= __shfl_xor_sync(kFull, v, 4);
+        // lanes 8g..8g+7 now hold word 4j + g of the warp
+        const uint32_t got = __shfl_sync(kFull, v, 8 * (lane & 3));
+        if ((lane >> 2) == j) mine = got;
+      }
+    }
+    return mine & valid_any(r.nv, w);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads)
 mask_bbox_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
                  const int32_t* __restrict__ zs, const int32_t* __restrict__ bounds,
@@ -194,18 +300,10 @@ mask_bbox_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
   mask_rows(p, aqpc::clamp_valid(nvs[k], block_size), o);
 }
 
-__global__ void __launch_bounds__(kThreads)
-mask_class_kernel(const uint8_t* __restrict__ cls, const int32_t* __restrict__ targets,
-                  const int32_t* __restrict__ nvs, MaskOut o, int64_t block_size) {
-  const int64_t k = blockIdx.y;
-  mask_rows(ClassRows{cls + k * block_size, targets[k]}, aqpc::clamp_valid(nvs[k], block_size),
-            o);
-}
-
 // One thread per mask word of a tile (chunk c of block k); the CTA walks
 // tiles blockIdx.x, blockIdx.x + gridDim.x, ...: the packed bbox and time
-// entries, the dictionary entry and the raw time entry, Tiles a BoxTiles,
-// TimeTiles, DictTiles or TimeRawTiles.
+// entries, the dictionary entry and the raw time and class entries, Tiles
+// a BoxTiles, TimeTiles, DictTiles, TimeRawTiles or ClassRawTiles.
 template <class Tiles>
 __global__ void __launch_bounds__(kThreads, Tiles::kMinCtas)
 mask_packed_kernel(Tiles f, MaskOut o, int64_t k_blocks) {
@@ -219,8 +317,8 @@ MaskOut mask_out(int64_t block_size, void* bits, void* counts, void* chunks) {
                  aqpc::mask_chunks(block_size)};
 }
 
-// Outputs and grid of an entry with one CTA per (chunk, block); false on
-// more blocks than the grid's y can hold.
+// Outputs and grid of the raw bbox entry, one CTA per (chunk, block); false
+// on more blocks than the grid's y can hold.
 bool prepare(int64_t k_blocks, int64_t block_size, void* bits, void* counts, void* chunks,
              dim3* grid, MaskOut* o) {
   if (k_blocks > aqpc::kMaxGridY) return false;
@@ -297,13 +395,13 @@ extern "C" int aqpc_mask_class(const void* cls, const void* targets, const void*
                                void* bits, void* counts, void* chunks, int64_t k_blocks,
                                int64_t block_size, void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return done();
-  dim3 grid;
-  MaskOut o;
-  if (!prepare(k_blocks, block_size, bits, counts, chunks, &grid, &o)) return refused();
-  mask_class_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cls), static_cast<const int32_t*>(targets),
-      static_cast<const int32_t*>(nvs), o, block_size);
-  return done();
+  const MaskOut o = mask_out(block_size, bits, counts, chunks);
+  const auto* c = static_cast<const uint8_t*>(cls);
+  const auto* t = static_cast<const int32_t*>(targets);
+  const auto* nv = static_cast<const int32_t*>(nvs);
+  if (block_size % 16 != 0 || reinterpret_cast<uintptr_t>(cls) % 16 != 0)
+    return launch_packed(ClassRawTiles<false>{c, t, nv, block_size}, o, k_blocks, stream);
+  return launch_packed(ClassRawTiles<true>{c, t, nv, block_size}, o, k_blocks, stream);
 }
 
 // cp: (K, row width) u8 code planes at k_bits in [0, 8]; targets: (K,)

@@ -5,7 +5,6 @@
 //   in_box            closed box on raw int32 coordinates (las.rs:101-146)
 //   in_time_range     half-open GPS-time range on the order-preserving
 //                     (hi, lo) int32 encoding of the f64 times
-//   class_matches     raw u8 class equality
 //   dict_mask8        the dictionary-coded class test over 8 consecutive
 //                     points rebuilt from bit-planar codes
 //                     (unpack_planes.cuh), for the dictionary count
@@ -16,9 +15,11 @@
 //                     bbox_planes.cuh and time_planes.cuh: none of them
 //                     rebuilds a residual
 //
-// Their JAX counterparts are bbox_mask_jnp_multi, time_mask_jnp_multi,
-// class_mask_jnp_multi and class_mask_dict_jnp_multi in
-// adhoc_queries_pointclouds_tpu/ops/predicate.py (lines 235-268, 604-606).
+// The raw u8 class equality tests four bytes at once (__vcmpeq4) in both
+// its count (class_count.cu) and its mask (mask_bits.cu ClassRawTiles).
+// Their JAX counterparts are bbox_mask_jnp_multi, time_mask_jnp_multi and
+// class_mask_dict_jnp_multi in adhoc_queries_pointclouds_tpu/ops/predicate.py
+// (lines 235-268, 604-606).
 #pragma once
 
 #include <cstdint>
@@ -37,11 +38,6 @@ __device__ __forceinline__ int in_time_range(int th, int tl, const int (&q)[4]) 
   const int ge = (th > q[0]) | ((th == q[0]) & (tl >= q[1]));
   const int lt = (th < q[2]) | ((th == q[2]) & (tl < q[3]));
   return ge & lt;
-}
-
-// A target outside 0..255 matches no byte.
-__device__ __forceinline__ int class_matches(uint8_t c, int t) {
-  return static_cast<int>(c) == t;
 }
 
 // Dictionary codes equal to the target code t (len(dict) on a miss), for

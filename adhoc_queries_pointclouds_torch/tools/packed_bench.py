@@ -1,7 +1,7 @@
-"""Times of the kernels on the persistent tile loop (csrc/collect.cuh), for
-one source tree: the two packed bbox kernels and the two packed GPS-time
-kernels at every width, the raw GPS-time mask and the dictionary class
-mask.
+"""Times of the kernels on the persistent tile loop (csrc/collect.cuh) and of
+the compaction, for one source tree: the two packed bbox kernels and the two
+packed GPS-time kernels at every width, the raw GPS-time mask, the
+dictionary class mask, the raw class mask and the ordered compaction.
 
     python -m adhoc_queries_pointclouds_torch.tools.packed_bench
     python adhoc_queries_pointclouds_torch/tools/packed_bench.py --root OTHER_TREE
@@ -10,22 +10,33 @@ bbox_count_packed and mask_bbox_packed at each width triple, then
 time_count_packed and mask_time_packed at each width pair (k_hi, k_lo) of
 chip_smoke.py's phase 3, then mask_time on raw (hi, lo) words at B and at
 B - 8189 (B % 4 == 3, rows off 16-byte boundaries: the scalar loads), then
-mask_class_dict at k = 0, 1, 2, 4 and 8 bits a code, run at the main
-path's shape (K = 4 full blocks of 2^21 points) over random words or planes
-and a non-empty range, or a code the block's codes can hold, on every
-block (an empty one skips its block's planes), first against their plain
-versions (exact), then timed with kernel_timer.KernelTimer (the 50 MB L2 flushed
-before each run; median and least of --runs) in both readings: the call
-(the host's enqueue inside the window: a busy host lifts single runs, the
-least shows the card's part) and the device's work alone. One line per
-width and kernel: both readings, the bytes it must move, and the bound at
-3.35 TB/s. The last line is one JSON object with every number and the
-card's name and power limit.
+mask_class_dict at k = 0, 1, 2, 4 and 8 bits a code, then mask_class on u8
+class rows at B and at B - 8189 (rows off 16-byte boundaries) and on
+chip_smoke.py phase 3's bytes, each beside the same bytes through
+mask_class_dict at k = 8 (a u8 row is one byte plane), then
+compact_bits with every block skipped (its floor), of two partial blocks
+(of K, the others skipped) at hit shares 0.001, 0.05, 0.5 and 0.95 and at
+chip_smoke.py phase 3's (0.001 and 0.5), and of all K blocks at the
+density path's share (its candidates at the 10 m grid of
+density_bench.py, about one a cell). Each runs at the main path's shape
+(K = 4 blocks of 2^21 points) over random words, planes or bytes and a
+non-empty range, a code
+the block's codes can hold or a class target, on every block (an empty one
+skips its block's planes), first against its plain version (exact; the
+compaction also against torch.nonzero), then timed with
+kernel_timer.KernelTimer (the 50 MB L2 flushed before each run; median and
+least of --runs) in both readings: the call (the host's enqueue inside the
+window: a busy host lifts single runs, the least shows the card's part)
+and the device's work alone. One line per width and kernel: both
+readings, the bytes it must move, and the bound at 3.35 TB/s. The last
+line is one JSON object with every number and the card's name and power
+limit.
 
 --root imports the package from another checkout of the repository (run the
 tool as a file then, not with -m, so that no package is loaded before the
-path is set), so two versions of the kernels can be timed in turns in one
-call on one card (each process builds its tree's kernels). --against
+path is set), so two versions of every kernel above, the class mask and
+the compaction included, can be timed in turns in one call on one card
+(each process builds its tree's kernels). --against
 OTHER_TREE --pairs N does that (in_turns.py): N pairs of runs, the first
 of a pair alternating between the two trees, then one line per kernel and
 width with each tree's median of its runs' medians, its least run and the
@@ -60,6 +71,12 @@ TIME_WIDTHS = [(w, w) for w in (0, 4, 12, 20, 28, 32)] + [
 # the raw time mask's block sizes: 16-byte loads, and the scalar path
 RAW_TIME_SIZES = (B, B - 8192 + 3)
 DICT_WIDTHS = (0, 1, 2, 4, 8)
+# the compaction's hit shares of its two partial blocks, and the density
+# path's: the 10 m grid's candidates (154,350 cells, about one a cell) of
+# a block of B points
+COMPACT_SHARES = (0.001, 0.05, 0.5, 0.95)
+SMOKE_SHARES = (0.0, 0.001, 0.5, 1.0)  # chip_smoke.py phase 3's blocks
+DENSITY_SHARE = 154_350 / B
 HBM_BYTES_PER_S = 3.35e12
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
@@ -83,6 +100,7 @@ def main(argv=None) -> int:
     import torch
 
     from adhoc_queries_pointclouds_torch.host import packed_row_width
+    from adhoc_queries_pointclouds_torch.ops import compact as C
     from adhoc_queries_pointclouds_torch.ops import predicate as P
 
     if not torch.cuda.is_available():
@@ -174,6 +192,55 @@ def main(argv=None) -> int:
                    P.class_mask_dict_multi(*ops))
         timed("mask_class_dict", (k,), lambda: P.class_mask_bits_dict(*ops),
               k / 8 * K * B + K * B / 8)
+    for bs in RAW_TIME_SIZES:
+        # rows off 16-byte boundaries below B: the first K * bs bytes as (K, bs)
+        cls = torch.randint(0, 256, (K * B,), dtype=torch.uint8, device=dev,
+                            generator=gen)[:K * bs].view(K, bs)
+        targets = torch.randint(0, 256, (K,), dtype=torch.int32, device=dev, generator=gen)
+        nv_cls = torch.full((K,), bs, dtype=torch.int32, device=dev)
+        plain = P.class_mask_multi(cls, targets, nv_cls)
+        check_mask("mask_class", bs, P.class_mask_bits(cls, targets, nv_cls), plain)
+        check_mask("mask_class_dict", bs, P.class_mask_bits_dict(cls, targets, nv_cls, 8, bs),
+                   plain)
+        nbytes = K * bs + K * bs / 8
+        timed("mask_class", f"B={bs}", lambda: P.class_mask_bits(cls, targets, nv_cls), nbytes)
+        timed("mask_class_dict", f"k=8, class bytes, B={bs}",
+              lambda: P.class_mask_bits_dict(cls, targets, nv_cls, 8, bs), nbytes)
+    # chip_smoke.py phase 3's bytes: class 6 at its blocks' hit shares, 7..255
+    # elsewhere, and target 6 in every block
+    hit = torch.rand((K, B), device=dev, generator=gen) < torch.tensor(SMOKE_SHARES,
+                                                                        device=dev)[:, None]
+    cls = torch.where(hit, 6, torch.randint(7, 256, (K, B), device=dev, generator=gen))
+    cls = cls.to(torch.uint8)
+    targets = torch.full((K,), 6, dtype=torch.int32, device=dev)
+    plain = P.class_mask_multi(cls, targets, nv)
+    check_mask("mask_class", "smoke", P.class_mask_bits(cls, targets, nv), plain)
+    check_mask("mask_class_dict", "smoke", P.class_mask_bits_dict(cls, targets, nv, 8, B), plain)
+    timed("mask_class", "smoke", lambda: P.class_mask_bits(cls, targets, nv), K * B * 9 / 8)
+    timed("mask_class_dict", "k=8, class bytes, smoke",
+          lambda: P.class_mask_bits_dict(cls, targets, nv, 8, B), K * B * 9 / 8)
+    for share in (0.0, *COMPACT_SHARES, SMOKE_SHARES, DENSITY_SHARE):
+        density = share == DENSITY_SHARE
+        shares = torch.tensor(share, device=dev)
+        hit = torch.rand((K, B), device=dev, generator=gen) < shares.reshape(-1, 1)
+        if not density:  # block 0 has no hits and block 3 is full: both skipped
+            hit[0], hit[3] = False, True
+        mask = P.pack_mask_bits(hit)
+        counts = mask.counts.tolist()
+        partial = [j for j in range(K) if 0 < counts[j] < B]
+        offsets, total = [-1] * K, 0
+        for j in partial:
+            offsets[j], total = total, total + counts[j]
+        off = torch.tensor(offsets, dtype=torch.int64, device=dev)
+        got = C.compact_bits(mask.bits, mask.chunks, off, total, B)
+        if not torch.equal(got, torch.nonzero(hit[partial])[:, 1].to(torch.int32)):
+            raise RuntimeError(f"compact_bits at share {share}: the rows differ from "
+                               f"torch.nonzero's")
+        label = ("density 10 m" if density else "smoke" if share == SMOKE_SHARES
+                 else "every block skipped" if share == 0.0 else f"share {share}")
+        timed("compact_bits", f"{label}, {total} hits of {len(partial)} blocks",
+              lambda: C.compact_bits(mask.bits, mask.chunks, off, total, B),
+              len(partial) * B / 8 + 4 * total)
     print(json.dumps({"tree": args.root, "card": card, "runs": args.runs, "rows": rows}))
     return 0
 

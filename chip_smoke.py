@@ -14,7 +14,8 @@ Phases, in order; the first fault raises and the script exits non-zero:
   2. build: nvcc builds the kernels of adhoc_queries_pointclouds_torch/csrc
      and g++ the host codec of native/ (no codec is an error), and ptxas
      reports the registers and spills of the kernels on the persistent tile
-     loop (packed bbox and time pairs, raw time mask, dictionary mask)
+     loop (packed bbox and time pairs, raw time and class masks, dictionary
+     mask) and of the compaction
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
      points), exact equality; kernel and plain times (tools/kernel_timer.py:
@@ -30,11 +31,15 @@ Phases, in order; the first fault raises and the script exits non-zero:
      kernels (one bit-mask entry per collect kind, and the ordered
      compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
      1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
-     unaligned block size; the packed and dictionary masks are timed on a
+     unaligned block size; the raw class mask also at targets -1, 0, 255,
+     256, INT32_MIN and INT32_MAX on both of its load paths, and timed
+     beside the dictionary mask's body at k = 8 on the same bytes; the
+     packed and dictionary masks are timed on a
      range or code in every block, the dictionary mask beside its floor
      with no planes (k = 0); the compaction beside torch.nonzero on the
-     same rows (its library call); one call of the raw time mask and of the
-     dictionary mask is split into the profiler's kernels. The density
+     same rows (its library call); one call of the raw time and class
+     masks, the dictionary mask and the compaction is split into the
+     profiler's kernels. The density
      kernels (per-cell leaders, then the candidates' bit mask) run raw and
      packed at the same hit densities and n_valid, over grids with about one
      and with over a hundred points per cell, over 2^32 cells, with points
@@ -221,15 +226,16 @@ def phase_build() -> None:
     # (one body a load kind), the packed time pair (a body for each pair of
     # byte-plane counts and load kind: the e2e widths' body, (20, 32), the
     # range of registers over all 25 and every body that spills), the raw
-    # time mask (one body a load kind) and the dictionary mask (a body for
-    # each load kind and byte-plane count)
+    # time and class masks (one body a load kind) and the dictionary mask (a
+    # body for each load kind and byte-plane count); and the compaction
     nvcc = _build._nvcc()
     with tempfile.TemporaryDirectory(prefix="aqpc_ptxas_") as tmp:
         jobs = [subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", f"{tmp}/{src}.o",
              str(Path(_build.__file__).parent / "csrc" / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("bbox_count_packed.cu", "time_count.cu", "mask_bits.cu")]
+            for src in ("bbox_count_packed.cu", "time_count.cu", "mask_bits.cu",
+                        "compact_bits.cu")]
         bodies = {}
         for job in jobs:
             text = job.communicate()[0]
@@ -251,30 +257,33 @@ def phase_build() -> None:
 
 
 TILES_KERNELS = {"BoxTiles": "mask_bbox_packed", "TimeTiles": "mask_time_packed",
-                 "DictTiles": "mask_class_dict", "TimeRawTiles": "mask_time"}
+                 "DictTiles": "mask_class_dict", "TimeRawTiles": "mask_time",
+                 "ClassRawTiles": "mask_class"}
 
 
 def ptxas_bodies(text: str) -> dict:
     """{(kernel, loads): {byte planes ((lo, hi) for the packed time pair),
-    or None: facts}} of the tile-loop kernels in one file's `nvcc -Xptxas
-    -v` output."""
+    or None: facts}} of the tile-loop kernels and the compaction (loads
+    "any") in one file's `nvcc -Xptxas -v` output."""
     entry = re.compile(r"(bbox_count_packed_kernel|time_count_packed_kernel|mask_packed_kernel)I"
-                       r"(?:N(?:4aqpc|S_)\d+(\w+?Tiles)I)?Lb([01])E((?:Li\d+E)*)")
+                       r"(?:N(?:4aqpc|S_)\d+(\w+?Tiles)I)?Lb([01])E((?:Li\d+E)*)"
+                       r"|(compact_bits_kernel)")
     out: dict = {}
     lines = text.splitlines()
     for n, line in enumerate(lines):
         m = entry.search(line)
         if "Compiling entry function" not in line or not m:
             continue
-        kernel, tiles, wide, planes = m.groups()
-        name = kernel.replace("_kernel", "")
+        kernel, tiles, wide, planes, compact = m.groups()
+        name = (kernel or compact).replace("_kernel", "")
         if name == "mask_packed":
             name = TILES_KERNELS[tiles]
         facts = " ".join(lines[n + 1:n + 4])
         regs = re.search(r"Used (\d+) registers", facts)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", facts)
-        shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", planes)) or None
-        out.setdefault((name, "wide" if wide == "1" else "narrow"), {})[shape] = {
+        shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", planes or "")) or None
+        loads = "any" if compact else "wide" if wide == "1" else "narrow"
+        out.setdefault((name, loads), {})[shape] = {
             "registers": int(regs.group(1)) if regs else None,
             "spills": int(spills.group(1)) + int(spills.group(2)) if spills else None}
     return out
@@ -866,7 +875,39 @@ def kernels_collect(dev, gen, timer, out) -> None:
     cls = cls.to(torch.uint8)
     targets = torch.full((K,), 6, **i32)
     raw_kind("mask_class", lambda nv: (cls, targets, nv), P.class_mask_bits, P.class_mask_multi, 1, 2)
-    del cls
+    # targets at and beyond both ends of a byte (outside 0..255 nothing
+    # matches and nothing is read) over bytes that are mostly 0, 6 and 255,
+    # on the 16-byte loads and on the byte loads (B % 16 != 0, rows off
+    # 16-byte boundaries)
+    palette = torch.tensor([0, 1, 6, 254, 255], dtype=torch.uint8, device=dev)
+    ends = torch.where(torch.rand((K, B), device=dev, generator=gen) < 0.7,
+                       palette[torch.randint(0, 5, (K, B), device=dev, generator=gen)], cls)
+    nv_mixed = torch.tensor([B, B - 5, 777, 1], **i32)
+    edge_errs = {"mask": [], "compact": compact_errs}
+    for row in ([-1, 0, 255, 256], [I32_MAX, 6, 0, 255], [I32_MIN, 255, 6, 0]):
+        tg = torch.tensor(row, **i32)
+        compare_collect(f"mask_class, targets {row}",
+                        lambda: P.class_mask_bits(ends, tg, nv_mixed),
+                        lambda: P.pack_mask_bits(P.class_mask_multi(ends, tg, nv_mixed)),
+                        nv_mixed, B, edge_errs)
+        un = unaligned(ends, bu)
+        compare_collect(f"mask_class, targets {row}, unaligned B={bu}",
+                        lambda: P.class_mask_bits(un, tg, nv_u),
+                        lambda: P.pack_mask_bits(P.class_mask_multi(un, tg, nv_u)), nv_u, bu,
+                        edge_errs)
+    out["mask_class"]["max_abs_err"] = max(out["mask_class"]["max_abs_err"], *edge_errs["mask"])
+    del ends
+    # the same function by way of the dictionary mask's body at k = 8 (a u8
+    # row is one byte plane; box_axis clamps a target outside 0..255 to an
+    # empty row), held and timed on the same bytes
+    compare_mask("mask_class_dict at k = 8 on the class bytes",
+                 lambda: P.class_mask_bits_dict(cls, targets, nv_full, 8, B),
+                 lambda: P.pack_mask_bits(P.class_mask_multi(cls, targets, nv_full)), [])
+    print("  the same bytes through DictTiles at k = 8:")
+    timed(timer, lambda: P.class_mask_bits_dict(cls, targets, nv_full, 8, B),
+          lambda: P.pack_mask_bits(P.class_mask_multi(cls, targets, nv_full)), K * B + K * B / 8,
+          2 * K * B, "    ")
+    class_call = (cls, targets, nv_full)
 
     # raw time: hit rows have hi word -1, the others hi >= 0 (the sign
     # boundary); q = [(-1, INT_MIN), (0, INT_MIN)) takes exactly hi == -1
@@ -924,7 +965,6 @@ def kernels_collect(dev, gen, timer, out) -> None:
         hi = torch.tensor([[a[1] for a in r] for r in rows], **i32)
         return (*(planes(w, block_size) for w in widths), lo, hi, nvs, widths, block_size)
 
-    nv_mixed = torch.tensor([B, B - 5, 777, 1], **i32)
     nv_narrow = torch.tensor([B_NARROW, B_NARROW - 1, 4097, 1], **i32)
 
     def bbox_edges(widths):
@@ -997,6 +1037,12 @@ def kernels_collect(dev, gen, timer, out) -> None:
     busy = dict_case(2, B, nv_full, [0, 1, 2, 3])
     floor_breakdown("mask_class_dict, k = 2", lambda: P.class_mask_bits_dict(*busy),
                     out["mask_class_dict"]["device_ms"])
+    # the profiler's runs come after every timing of the collect kernels
+    floor_breakdown("mask_class", lambda: P.class_mask_bits(*class_call),
+                    out["mask_class"]["device_ms"])
+    floor_breakdown("compact_bits", lambda: C.compact_bits(mask.bits, mask.chunks, off, total, B),
+                    compact_times["device_ms"])
+    del class_call
 
     out["compact_bits"] = dict(max_abs_err=max(compact_errs), **compact_times)
 

@@ -680,6 +680,66 @@ def test_mask_bits_full_and_empty_blocks(dev):
     assert _compact_both(dev, got, ref, nvs, B) == 0
 
 
+def test_class_mask_and_compaction_over_more_blocks_than_grid_y(dev):
+    """The raw class mask walks the persistent tile grid and the compaction
+    a grid flattened into x, so neither holds K to a grid's 65,535 rows in
+    y: over 65,548 blocks of 96 points (the byte loads) and of 128 points
+    (the 16-byte loads), the BitMask and the compacted rows equal the plain
+    versions'."""
+    rng = np.random.default_rng(65548)
+    for B in (96 + 3, 128):
+        cls, targets, nvs = _class_case(rng, 7, B)
+        reps = 65548 // 7 + 1
+        args = (np.tile(cls, (reps, 1))[:65548], np.tile(targets, reps)[:65548],
+                np.tile(nvs, reps)[:65548])
+        got, ref = _mask_both(TP.class_mask_bits, args, dev)
+        assert int(ref.counts.sum()) > 0
+        assert _compact_both(dev, got, ref, args[2], B) > 0
+
+
+CLASS_EDGE_TARGETS = [-1, 0, 255, 256, I32.max, I32.min, 6]
+
+
+@pytest.mark.parametrize("B", [4096, 4096 + 16, 4099, 8192 * 2 + 264])
+def test_class_mask_edge_targets(dev, B):
+    """Targets at and beyond both ends of a byte over bytes that are mostly
+    0, 6 and 255: outside 0..255 nothing matches. On 16-byte loads (B % 16
+    == 0 and aligned rows), on rows one byte off 16-byte boundaries and at
+    B % 16 != 0 (byte loads), with n_valid 0, 1, B - 1 and B."""
+    rng = np.random.default_rng(B + 13)
+    pal = np.array([0, 6, 255], np.uint8)
+    rows = [(t, nv) for t in CLASS_EDGE_TARGETS for nv in (0, 1, B - 1, B)]
+    cls = np.where(rng.random((len(rows), B)) < 0.6, pal[rng.integers(0, 3, (len(rows), B))],
+                   rng.integers(0, 256, (len(rows), B))).astype(np.uint8)
+    args = (cls, np.array([t for t, _ in rows], np.int32), np.array([n for _, n in rows], np.int32))
+    for unaligned in (False, True):
+        got, ref = _mask_both(TP.class_mask_bits, args, dev, unaligned=unaligned)
+        _compact_both(dev, got, ref, args[2], B)
+    counts = ref.counts.numpy().reshape(len(CLASS_EDGE_TARGETS), 4)
+    assert counts[[0, 3, 4, 5]].sum() == 0 and counts[[1, 2, 6], 3].min() > 0
+
+
+def test_compaction_edge_blocks(dev):
+    """A block whose hits lie only in its last, partial word, a block with
+    one hit, and a block with all rows but one hit, beside a full block
+    and an empty one (both skipped): the compaction on the card equals its
+    plain version and torch.nonzero."""
+    B = 3 * 8192 + 45
+    hit = np.zeros((5, B), bool)
+    hit[0, B - 13:] = True  # the last word holds 13 rows
+    hit[1, 2 * 8192 + 7] = True
+    hit[2] = True
+    hit[2, 5] = False
+    hit[3] = True
+    ref = TP.pack_mask_bits(torch.from_numpy(hit))
+    got = TP.BitMask(*(t.to(dev) for t in ref))
+    nvs = np.full(5, B, np.int32)
+    assert _compact_both(dev, got, ref, nvs, B) == 13 + 1 + B - 1
+    off = torch.tensor([0, 13, 14, -1, -1], dtype=torch.int64, device=dev)
+    idx = TC.compact_bits(got.bits, got.chunks, off, 13 + 1 + B - 1, B)
+    assert torch.equal(idx.cpu(), torch.nonzero(torch.from_numpy(hit[:3]))[:, 1].to(torch.int32))
+
+
 def test_mask_wrappers_reject_bad_operands(dev):
     x = torch.zeros((2, 16), dtype=torch.int32, device=dev)
     b = torch.zeros((2, 3), dtype=torch.int32, device=dev)
