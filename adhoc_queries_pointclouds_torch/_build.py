@@ -31,9 +31,9 @@ _I = ctypes.c_int64
 _ENTRY_POINTS = {
     "aqpc_bbox_count_multi": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "aqpc_bbox_count_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "aqpc_class_count_multi": [_P, _P, _P, _P, _I, _I, _P],
-    "aqpc_class_count_words": [_P, _P, _P, _P, _I, _I, _P],
-    "aqpc_class_count_dict": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "aqpc_class_count_multi": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "aqpc_class_count_words": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "aqpc_class_count_dict": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "aqpc_time_count_multi": [_P, _P, _P, _P, _P, _I, _I, _P],
     "aqpc_time_count_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "aqpc_mask_bbox": [_P] * 8 + [_I, _I, _P],

@@ -12,8 +12,9 @@
 // once each); the compare is 6 integer ops per point. Rows past nv[k] are
 // padding and are never read.
 //
-// What the design does about it: the grid is (chunks, K), every CTA strides
-// over one block's valid prefix with 16-byte int4 loads (neighbouring
+// What the design does about it: one CTA row of `chunks` CTAs a block, the
+// rows flattened into the grid's x (any K); every CTA strides over one
+// block's valid prefix with 16-byte int4 loads (neighbouring
 // threads on neighbouring addresses) when the rows are 16-byte aligned, and
 // scalar loads otherwise, so any block size works. Counts stay in registers;
 // one atomicAdd per CTA reaches memory.
@@ -29,8 +30,8 @@ __global__ void __launch_bounds__(kThreads)
 bbox_count_multi_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
                         const int32_t* __restrict__ zs, const int32_t* __restrict__ bounds,
                         const int32_t* __restrict__ nvs, int32_t* __restrict__ out,
-                        int64_t block_size, int vec4) {
-  const int64_t k = blockIdx.y;
+                        int64_t block_size, int64_t chunks, int vec4) {
+  const int64_t k = blockIdx.x / chunks;
   int b[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) b[j] = bounds[k * 6 + j];
@@ -38,8 +39,8 @@ bbox_count_multi_kernel(const int32_t* __restrict__ xs, const int32_t* __restric
   const int32_t* x = xs + k * block_size;
   const int32_t* y = ys + k * block_size;
   const int32_t* z = zs + k * block_size;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = (blockIdx.x - k * chunks) * blockDim.x + threadIdx.x;
+  const int64_t stride = chunks * blockDim.x;
 
   int count = 0;
   if (vec4) {
@@ -70,16 +71,16 @@ extern "C" int aqpc_bbox_count_multi(const void* xs, const void* ys, const void*
                                      const void* bounds, const void* nvs, void* out,
                                      int64_t k_blocks, int64_t block_size, void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
-  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t chunks = aqpc::chunks_for(block_size, 16);
+  if (k_blocks > aqpc::kMaxGridX / chunks) return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(ys) |
                          reinterpret_cast<uintptr_t>(zs);
   const int vec4 = (block_size % 4 == 0) && (addr % 16 == 0);
-  const dim3 grid(static_cast<unsigned>(aqpc::chunks_for(block_size, 16)),
-                  static_cast<unsigned>(k_blocks));
-  bbox_count_multi_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  bbox_count_multi_kernel<<<static_cast<unsigned>(k_blocks * chunks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(xs), static_cast<const int32_t*>(ys),
       static_cast<const int32_t*>(zs), static_cast<const int32_t*>(bounds),
-      static_cast<const int32_t*>(nvs), static_cast<int32_t*>(out), block_size, vec4);
+      static_cast<const int32_t*>(nvs), static_cast<int32_t*>(out), block_size, chunks, vec4);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,7 +38,7 @@ template <bool Wide>
 __global__ void __launch_bounds__(kThreads, 2)
 bbox_count_packed_kernel(aqpc::BoxTiles<Wide> f, int32_t* __restrict__ out, int64_t n_chunks,
                          int64_t n_tiles) {
-  aqpc::count_tiles(f, out, n_chunks, n_tiles);
+  aqpc::count_tiles(f, out, nullptr, n_chunks, n_tiles);
 }
 
 template <bool Wide>

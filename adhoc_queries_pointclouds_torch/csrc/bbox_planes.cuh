@@ -121,15 +121,16 @@ __device__ __forceinline__ BoxRow box_row(const Planes& ax, const Planes& ay, co
   return r;
 }
 
-// Bytes 32w..32w+31 of a byte plane of block_size bytes, as eight u32.
+// Bytes 32w..32w+31 of a byte plane of block_size bytes, as eight u32; all
+// 0, and nothing read, unless `in`.
 template <bool Wide>
 __device__ __forceinline__ void load_byte_words(const uint8_t* __restrict__ plane,
                                                 int64_t block_size, int64_t w,
-                                                uint32_t (&x)[8]) {
+                                                uint32_t (&x)[8], bool in = true) {
   if (Wide) {
     const uint4* src = reinterpret_cast<const uint4*>(plane + 32 * w);
-    const uint4 a = __ldg(src);
-    const uint4 c = __ldg(src + 1);
+    const uint4 a = in ? __ldg(src) : make_uint4(0, 0, 0, 0);
+    const uint4 c = in ? __ldg(src + 1) : make_uint4(0, 0, 0, 0);
     x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
     x[4] = c.x, x[5] = c.y, x[6] = c.z, x[7] = c.w;
   } else {
@@ -139,43 +140,48 @@ __device__ __forceinline__ void load_byte_words(const uint8_t* __restrict__ plan
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int64_t idx = 32 * w + 4 * j + i;
-        if (idx < block_size) x[j] |= static_cast<uint32_t>(plane[idx]) << (8 * i);
+        if (in && idx < block_size) x[j] |= static_cast<uint32_t>(plane[idx]) << (8 * i);
       }
     }
   }
 }
 
-// Bytes 4w..4w+3 of a bit plane of plane_bytes bytes: bit i is point 32w+i.
+// Bytes 4w..4w+3 of a bit plane of plane_bytes bytes: bit i is point 32w+i;
+// 0, and nothing read, unless `in`.
 template <bool Wide>
 __device__ __forceinline__ uint32_t load_bit_word(const uint8_t* __restrict__ plane,
-                                                  int64_t plane_bytes, int64_t w) {
-  if (Wide) return __ldg(reinterpret_cast<const uint32_t*>(plane + 4 * w));
+                                                  int64_t plane_bytes, int64_t w,
+                                                  bool in = true) {
+  if (Wide) return in ? __ldg(reinterpret_cast<const uint32_t*>(plane + 4 * w)) : 0u;
   uint32_t v = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t idx = 4 * w + i;
-    if (idx < plane_bytes) v |= static_cast<uint32_t>(plane[idx]) << (8 * i);
+    if (in && idx < plane_bytes) v |= static_cast<uint32_t>(plane[idx]) << (8 * i);
   }
   return v;
 }
 
 // Every plane of column a at word w: NB byte planes into x, then (NB < 4)
-// the bit planes into d, bit planes past a.nbits 0. All loads are started
-// here, before any compare.
-template <bool Wide, int NB>
+// the first MB bit planes into d, bit planes past a.nbits 0 (MB = 7 takes
+// any column; a body built for one width, MB = its nbits, loads them with
+// no branch). All loads are started here, before any compare, and only
+// when `in` (predicated).
+template <bool Wide, int NB, int MB = 7>
 __device__ __forceinline__ void load_column(const Column& a, int64_t block_size, int64_t w,
                                             uint32_t (&x)[NB > 0 ? NB : 1][8],
-                                            uint32_t (&d)[7]) {
+                                            uint32_t (&d)[MB > 0 ? MB : 1], bool in = true) {
 #pragma unroll
   for (int p = 0; p < NB; ++p)
-    load_byte_words<Wide>(a.row + p * block_size, block_size, w, x[p]);
+    load_byte_words<Wide>(a.row + p * block_size, block_size, w, x[p], in);
   if constexpr (NB < 4) {
     const uint8_t* bit_planes = a.row + NB * block_size;
     const int64_t plane_bytes = block_size / 8;
 #pragma unroll
-    for (int q = 0; q < 7; ++q)
-      d[q] = q < a.nbits ? load_bit_word<Wide>(bit_planes + q * plane_bytes, plane_bytes, w)
-                         : 0u;
+    for (int q = 0; q < MB; ++q)
+      d[q] = MB < 7 || q < a.nbits  // a body built for its width has them all
+                 ? load_bit_word<Wide>(bit_planes + q * plane_bytes, plane_bytes, w, in)
+                 : 0u;
   }
 }
 
@@ -241,11 +247,12 @@ __device__ __forceinline__ uint32_t byte_tops_to_bits(const uint32_t (&m)[8]) {
 // Both chains through the bit planes d of a column with NB byte planes:
 // bit plane q holds bit 8 * NB + q of the column, and ok_lo, ok_hi carry
 // "not borrowed so far" of all 32 points.
-template <int NB>
-__device__ __forceinline__ void bit_chain(const uint32_t (&d)[7], int nbits, uint32_t lo,
-                                          uint32_t hi, uint32_t* ok_lo, uint32_t* ok_hi) {
+template <int NB, int MB = 7>
+__device__ __forceinline__ void bit_chain(const uint32_t (&d)[MB > 0 ? MB : 1], int nbits,
+                                          uint32_t lo, uint32_t hi, uint32_t* ok_lo,
+                                          uint32_t* ok_hi) {
 #pragma unroll
-  for (int q = 0; q < 7; ++q) {
+  for (int q = 0; q < MB; ++q) {
     if (q < nbits) {
       const uint32_t bl = ((lo >> (8 * NB + q)) & 1u) ? 0xffffffffu : 0u;
       const uint32_t bh = ((hi >> (8 * NB + q)) & 1u) ? 0xffffffffu : 0u;
@@ -257,15 +264,12 @@ __device__ __forceinline__ void bit_chain(const uint32_t (&d)[7], int nbits, uin
   }
 }
 
-// Bit i: point 32w + i of the axis has lo <= residual <= hi. Bits of points
-// past the row's end are unspecified.
-template <bool Wide, int NB>
-__device__ __forceinline__ uint32_t axis_word_nb(const Column& a, int64_t block_size,
-                                                 int64_t w) {
-  uint32_t x[NB > 0 ? NB : 1][8];
-  uint32_t d[7];
-  load_column<Wide, NB>(a, block_size, w, x, d);
-
+// Bit i: point i of the 32 whose planes load_column gave, x and d, has lo
+// <= residual <= hi.
+template <int NB, int MB = 7>
+__device__ __forceinline__ uint32_t axis_chains(const Column& a,
+                                                const uint32_t (&x)[NB > 0 ? NB : 1][8],
+                                                const uint32_t (&d)[MB > 0 ? MB : 1]) {
   // per point: r - lo and hi - r have not borrowed so far
   uint32_t ok_lo = 0xffffffffu;
   uint32_t ok_hi = 0xffffffffu;
@@ -281,8 +285,19 @@ __device__ __forceinline__ uint32_t axis_word_nb(const Column& a, int64_t block_
     ok_lo = byte_tops_to_bits(nl);
     ok_hi = byte_tops_to_bits(nh);
   }
-  if constexpr (NB < 4) bit_chain<NB>(d, a.nbits, a.lo, a.hi, &ok_lo, &ok_hi);
+  if constexpr (NB < 4) bit_chain<NB, MB>(d, a.nbits, a.lo, a.hi, &ok_lo, &ok_hi);
   return ok_lo & ok_hi;
+}
+
+// Bit i: point 32w + i of the axis has lo <= residual <= hi. Bits of points
+// past the row's end are unspecified.
+template <bool Wide, int NB>
+__device__ __forceinline__ uint32_t axis_word_nb(const Column& a, int64_t block_size,
+                                                 int64_t w) {
+  uint32_t x[NB > 0 ? NB : 1][8];
+  uint32_t d[7];
+  load_column<Wide, NB>(a, block_size, w, x, d);
+  return axis_chains<NB>(a, x, d);
 }
 
 template <bool Wide>
@@ -339,10 +354,17 @@ struct DictRow {
 // matching) as the tile loops of collect.cuh take it: one axis of the box
 // test with lo = hi = the target code, on the code planes as they lie. At
 // k <= 8 a column has at most one byte plane (NB), so a body holds one
-// axis_word_nb and few registers.
-template <bool Wide, int NB>
+// axis_word_nb and few registers. A count's body is built for its bit
+// planes too (MB, the column's nbits; the mask's takes up to 7): a word's
+// planes then take 8 NB + MB registers.
+template <bool Wide, int NB, int MB = 7>
 struct DictTiles {
   using Row = DictRow;
+  // a thread's planes of its word, for a count (collect.cuh count_tiles)
+  struct Loads {
+    uint32_t x[NB > 0 ? NB : 1][8];
+    uint32_t d[MB > 0 ? MB : 1];
+  };
   static constexpr int kMinCtas = 4;  // CTAs an SM the body is built for
   static constexpr bool kWarpWords = false;
   Planes cp;
@@ -359,6 +381,14 @@ struct DictTiles {
   }
   __device__ __forceinline__ uint32_t word(const Row& r, int64_t w) const {
     return valid_bits(r.nv, w) & axis_word_nb<Wide, NB>(r.c, block_size, w);
+  }
+  // word's loads, made only for 32w < r.nv, and the hits of its word
+  __device__ __forceinline__ void load(const Row& r, int64_t w, Loads& ld) const {
+    load_column<Wide, NB, MB>(r.c, block_size, w, ld.x, ld.d, 32 * w < r.nv);
+  }
+  __device__ __forceinline__ int hits(const Row& r, int64_t w, const Loads& ld) const {
+    return 32 * w < r.nv ? __popc(valid_bits(r.nv, w) & axis_chains<NB, MB>(r.c, ld.x, ld.d))
+                         : 0;
   }
 };
 

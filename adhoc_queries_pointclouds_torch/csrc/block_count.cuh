@@ -8,14 +8,14 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace aqpc {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// CUDA caps gridDim.y at 65535 (the grids of one CTA row a block) and
-// gridDim.x at 2^31 - 1 (the flattened grids).
-constexpr int64_t kMaxGridY = 65535;
+// CUDA caps gridDim.x at 2^31 - 1: the grids of one CTA a (chunk, block)
+// tile are flattened into x.
 constexpr int64_t kMaxGridX = 2147483647;
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -69,6 +69,18 @@ inline int64_t chunks_for(int64_t n_items, int64_t items_per_thread) {
   const int64_t per_cta = kThreads * items_per_thread;
   const int64_t c = (n_items + per_cta - 1) / per_cta;
   return c < 1 ? 1 : c;
+}
+
+// f(std::integral_constant<int, n>{}) for n in [0, N]; cudaErrorInvalidValue
+// for any other n.
+template <int N, class F>
+inline int with_int(int n, F&& f) {
+  if constexpr (N < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (n == N) return f(std::integral_constant<int, N>{});
+    return with_int<N - 1>(n, f);
+  }
 }
 
 }  // namespace aqpc

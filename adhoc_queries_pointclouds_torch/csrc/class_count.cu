@@ -13,109 +13,87 @@
 // word forms were two kernels because the VPU's element rate, not bytes,
 // bounded the u8 scan (predicate.py:609-622). Here both count the same
 // bytes, so one device body serves both entry points; they differ only in
-// how a target outside 0..255 behaves. The u8 entry compares the byte as an
-// int (no match), and the word entry replicates the target into a word as
-// uint32(t) * 0x01010101, exactly as (e) does.
+// how a target outside 0..255 behaves (class_tiles.cuh): the u8 entry
+// compares the byte as an int (no match, and the row is not read), and the
+// word entry replicates the target into a word as uint32(t) * 0x01010101,
+// exactly as (e) does.
 //
 // What bounds it: device-memory reads, 1 byte per valid point.
 //
-// What the design does about it: each thread loads 16 bytes at a time as
-// four 32-bit words and tests each with __vcmpeq4 (0xff at each equal
-// byte) and __popc >> 3, the SWAR equality test of (e) in one instruction.
-// The last partial chunk is masked per byte in little-endian order, as
-// _packed_keep does. A row that does not start on a 16-byte boundary, or
-// whose length is not a multiple of 16, takes byte loads. The CTA's count
-// reaches out[k] with one integer atomic.
+// What the design does about it: the test is the class mask's
+// (class_tiles.cuh ClassRawTiles: a warp reads 1024 points as one 16-byte
+// streaming load a lane for each 512, __vcmpeq4 tests four points an
+// instruction; rows off 16-byte boundaries or B % 16 != 0 take realigned
+// 4-byte loads) on the persistent tile loop (collect.cuh count_tiles: SM
+// count x resident CTAs walk the (chunk, block) tiles, any K). A count
+// needs no mask word, so each lane adds the equal bytes of its own loads
+// (__popc of __vcmpeq4 under a byte mask at nv) with no shuffle, and the
+// count stays in registers while the CTA's row is the same. The output is
+// written, not added to: each CTA adds its row sum and a ticket to its
+// row's word in a workspace with one 64-bit atomic, and the CTA that draws
+// the row's last ticket stores the sum and zeroes the word again
+// (collect.cuh row_done), so the caller launches no fill of out. A tile is
+// kCountChunks chunks of a row, whose loads a thread issues before it
+// counts, so that each thread keeps that many loads in flight.
 #include "block_count.cuh"
+#include "class_tiles.cuh"
+#include "collect.cuh"
 
 namespace {
 
+using aqpc::ClassRawTiles;
 using aqpc::kThreads;
 
-// The low n bytes of a word, n clamped to [0, 4].
-__device__ __forceinline__ uint32_t keep_bytes(int64_t n) {
-  return n >= 4 ? 0xffffffffu : (n <= 0 ? 0u : (1u << (8 * n)) - 1u);
+// Chunks a tile (a thread's loads in flight), and the CTAs an SM the body
+// is built for
+constexpr int kCountChunks = 2;
+constexpr int kCountCtas = 8;
+
+template <bool Wide>
+__global__ void __launch_bounds__(kThreads, kCountCtas)
+class_count_kernel(ClassRawTiles<Wide> f, int32_t* __restrict__ out,
+                   unsigned long long* __restrict__ work, int64_t row_tiles, int64_t n_tiles) {
+  aqpc::count_tiles<kCountChunks>(f, out, work, row_tiles, n_tiles);
 }
 
-__device__ __forceinline__ int equal_bytes(uint32_t w, uint32_t rep, uint32_t keep) {
-  return __popc(__vcmpeq4(w, rep) & keep) >> 3;
-}
-
-// Bytes of row[0, nv) equal to byte i % 4 of rep (row byte i against the
-// byte it meets when the row is read as little-endian words), over this
-// thread's share of the row.
-__device__ __forceinline__ int count_equal_bytes(const uint8_t* __restrict__ row, int64_t nv,
-                                                 uint32_t rep, bool vec16, int64_t tid,
-                                                 int64_t stride) {
-  int count = 0;
-  if (vec16) {
-    const uint4* row16 = reinterpret_cast<const uint4*>(row);
-    const int64_t chunks = (nv + 15) / 16;
-    for (int64_t c = tid; c < chunks; c += stride) {
-      const uint4 v = row16[c];
-      const int64_t left = nv - 16 * c;
-      if (left >= 16) {
-        count += (__popc(__vcmpeq4(v.x, rep)) + __popc(__vcmpeq4(v.y, rep)) +
-                  __popc(__vcmpeq4(v.z, rep)) + __popc(__vcmpeq4(v.w, rep))) >> 3;
-      } else {
-        count += equal_bytes(v.x, rep, keep_bytes(left)) +
-                 equal_bytes(v.y, rep, keep_bytes(left - 4)) +
-                 equal_bytes(v.z, rep, keep_bytes(left - 8)) +
-                 equal_bytes(v.w, rep, keep_bytes(left - 12));
-      }
-    }
-  } else {
-    for (int64_t i = tid; i < nv; i += stride)
-      count += row[i] == ((rep >> (8 * (i & 3))) & 0xffu);
-  }
-  return count;
-}
-
-// cols: (K, B) bytes; words != 0 selects the word entry's target rule.
-__global__ void __launch_bounds__(kThreads)
-class_count_kernel(const uint8_t* __restrict__ cols, const int32_t* __restrict__ targets,
-                   const int32_t* __restrict__ nvs, int32_t* __restrict__ out,
-                   int64_t block_size, int words) {
-  const int64_t k = blockIdx.y;
-  int64_t nv = nvs[k];
-  nv = nv < 0 ? 0 : (nv > block_size ? block_size : nv);
-  const uint8_t* row = cols + k * block_size;
-  const int t = targets[k];
-  const bool any = words || (t >= 0 && t <= 255);
-  const uint32_t rep = static_cast<uint32_t>(t) * 0x01010101u;
-  const bool vec16 = block_size % 16 == 0 && reinterpret_cast<uintptr_t>(row) % 16 == 0;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int count = any ? count_equal_bytes(row, nv, rep, vec16, tid, stride) : 0;
-  aqpc::cta_add(count, out + k);
-}
-
-int launch(const void* cols, const void* targets, const void* nvs, void* out,
-           int64_t k_blocks, int64_t block_size, int words, void* stream) {
-  if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
-  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(aqpc::chunks_for((block_size + 15) / 16, 4)),
-                  static_cast<unsigned>(k_blocks));
-  class_count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cols), static_cast<const int32_t*>(targets),
-      static_cast<const int32_t*>(nvs), static_cast<int32_t*>(out), block_size, words);
+template <bool Wide>
+int launch(const ClassRawTiles<Wide>& f, void* out, void* work, int64_t k_blocks,
+           void* stream) {
+  static const int64_t resident = aqpc::resident_ctas(class_count_kernel<Wide>);
+  const int64_t row_tiles = aqpc::count_row_tiles(f.block_size, kCountChunks);
+  const int64_t n_tiles = k_blocks * row_tiles;
+  class_count_kernel<Wide><<<aqpc::tile_grid(n_tiles, resident), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      f, static_cast<int32_t*>(out), static_cast<unsigned long long*>(work), row_tiles, n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+int count(const void* cls, const void* targets, const void* nvs, void* out, void* work,
+          int64_t k_blocks, int64_t block_size, bool words, void* stream) {
+  if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* c = static_cast<const uint8_t*>(cls);
+  const auto* t = static_cast<const int32_t*>(targets);
+  const auto* nv = static_cast<const int32_t*>(nvs);
+  if (block_size % 16 != 0 || reinterpret_cast<uintptr_t>(cls) % 16 != 0)
+    return launch(ClassRawTiles<false>{c, t, nv, block_size, words}, out, work, k_blocks, stream);
+  return launch(ClassRawTiles<true>{c, t, nv, block_size, words}, out, work, k_blocks, stream);
 }
 
 }  // namespace
 
-// cls: (K, B) u8; targets, nvs: (K,) int32; out: (K,) int32, zeroed by the
-// caller. Any B. Returns cudaGetLastError().
+// cls: (K, B) u8; targets, nvs: (K,) int32; out: (K,) int32, written (no
+// fill needed); work: (K,) 64-bit workspace, all 0, left all 0. Any B and
+// K. Returns cudaGetLastError().
 extern "C" int aqpc_class_count_multi(const void* cls, const void* targets, const void* nvs,
-                                      void* out, int64_t k_blocks, int64_t block_size,
-                                      void* stream) {
-  return launch(cls, targets, nvs, out, k_blocks, block_size, 0, stream);
+                                      void* out, void* work, int64_t k_blocks,
+                                      int64_t block_size, void* stream) {
+  return count(cls, targets, nvs, out, work, k_blocks, block_size, false, stream);
 }
 
 // words: (K, W) int32, the (K, 4W) u8 column viewed little-endian; nvs in
 // points; otherwise as aqpc_class_count_multi.
 extern "C" int aqpc_class_count_words(const void* words, const void* targets, const void* nvs,
-                                      void* out, int64_t k_blocks, int64_t n_words,
+                                      void* out, void* work, int64_t k_blocks, int64_t n_words,
                                       void* stream) {
-  return launch(words, targets, nvs, out, k_blocks, 4 * n_words, 1, stream);
+  return count(words, targets, nvs, out, work, k_blocks, 4 * n_words, true, stream);
 }

@@ -23,8 +23,8 @@
 // count kernels, plus one bit per row written.
 //
 // What the design does about it: the raw bbox entry alone runs one CTA
-// per (chunk, block) (mask_rows, the only user of prepare(), so K is held
-// to the grid's 65,535 rows in y there); each warp builds one mask word per
+// per (chunk, block) tile, the tiles flattened into the grid's x (mask_rows,
+// any K); each warp builds one mask word per
 // pass, lane j testing row 32w + j (neighbouring lanes on neighbouring
 // addresses) and __ballot_sync gathering the 32 results; counts stay in
 // registers and each CTA writes its chunk count and adds it to counts[k]
@@ -39,35 +39,41 @@
 // of a lane's loads in flight before the first compare: 16-byte loads,
 // four points a lane and three shuffles a word for time (TimeRawTiles);
 // 16 points a lane tested at once with __vcmpeq4 and two lanes paired into
-// a word by one shuffle for class (ClassRawTiles; rows off 16-byte
-// boundaries take realigned 4-byte loads). A row that no point can
+// a word by one shuffle for class (class_tiles.cuh ClassRawTiles, whose
+// body the u8 and word class counts share; rows off 16-byte boundaries
+// take realigned 4-byte loads). A row that no point can
 // match (an empty box or range, a dictionary miss, a class target outside
 // 0..255) reads nothing.
 #include "bbox_planes.cuh"
 #include "block_count.cuh"
+#include "class_tiles.cuh"
 #include "collect.cuh"
 #include "predicates.cuh"
 #include "time_planes.cuh"
 
 namespace {
 
+using aqpc::ClassRawTiles;
 using aqpc::kChunkWords;
 using aqpc::kThreads;
 using aqpc::kWarps;
 using aqpc::MaskOut;
 using aqpc::finish_chunk;
 using aqpc::Planes;
+using aqpc::valid_any;
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// Raw columns: lane j of a warp tests row 32w + j; pred(i) reads row i.
+// Raw columns, chunk c of row k: lane j of a warp tests row 32w + j;
+// pred(i) reads row i.
 template <class RowPred>
-__device__ __forceinline__ void mask_rows(const RowPred& pred, int64_t nv, const MaskOut& o) {
+__device__ __forceinline__ void mask_rows(const RowPred& pred, int64_t nv, const MaskOut& o,
+                                          int64_t k, int64_t c) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kChunkWords;
+  const int64_t w0 = c * kChunkWords;
   const int64_t w1 = w0 + kChunkWords < o.n_words ? w0 + kChunkWords : o.n_words;
-  uint32_t* out = o.bits + static_cast<int64_t>(blockIdx.y) * o.n_words;
+  uint32_t* out = o.bits + k * o.n_words;
   int count = 0;
   for (int64_t w = w0 + warp; w < w1; w += kWarps) {
     const int64_t i = 32 * w + lane;
@@ -77,7 +83,7 @@ __device__ __forceinline__ void mask_rows(const RowPred& pred, int64_t nv, const
       count += __popc(word);
     }
   }
-  finish_chunk(count, o);
+  finish_chunk(count, o, k, c);
 }
 
 struct BboxRows {
@@ -99,12 +105,6 @@ __device__ __forceinline__ uint32_t time_nibble(const int4& h, const int4& l, co
   using aqpc::in_time_range;
   return static_cast<uint32_t>(in_time_range(h.x, l.x, q) | in_time_range(h.y, l.y, q) << 1 |
                                in_time_range(h.z, l.z, q) << 2 | in_time_range(h.w, l.w, q) << 3);
-}
-
-// Bits of word w below nv, for any w (0 at or past nv).
-__device__ __forceinline__ uint32_t valid_any(int64_t nv, int64_t w) {
-  const int64_t left = nv - 32 * w;
-  return left >= 32 ? 0xffffffffu : (left <= 0 ? 0u : (1u << left) - 1u);
 }
 
 // The raw GPS-time test as the tile loops of collect.cuh take it: a warp
@@ -183,121 +183,15 @@ struct TimeRawTiles {
   }
 };
 
-// One block row of the raw class test; nv is 0 when the target lies
-// outside 0..255, where no byte can equal it.
-struct ClassRawRow {
-  const uint8_t* c;
-  int t;
-  uint32_t rep;  // the target's byte in each byte of a word
-  int64_t nv;
-};
-
-// Bit i (i < 4): byte i of w equals byte i of rep.
-__device__ __forceinline__ uint32_t equal_nibble(uint32_t w, uint32_t rep) {
-  // 0xff at each equal byte; keep bit i of byte i and add the four bytes
-  return ((__vcmpeq4(w, rep) & 0x08040201u) * 0x01010101u) >> 24;
-}
-
-// The raw class test as the tile loops of collect.cuh take it: a warp
-// makes its 32 words together (kWarpWords), lane L word w0 + L. Wide (B %
-// 16 == 0, rows on 16-byte boundaries): lane L tests points 16L..16L+15 of
-// each 512-point span of the warp's 1024 from one uint4 (a warp's load:
-// 512 consecutive bytes), both spans' loads in flight before the first
-// compare; __vcmpeq4 against the target's byte in all four bytes tests
-// four points an instruction (as class_count.cu), the four byte masks
-// make 16 bits, one __shfl_xor_sync pairs lanes 2m and 2m + 1 into word
-// 16s + m of the warp, and one __shfl_sync hands each lane its word.
-// Otherwise (any B, rows on any boundary) lane L reads the 4-byte word
-// holding points 4L..4L+3 of each 128-point span less the row's offset a
-// past a 4-byte boundary (a warp's load: 128 consecutive bytes), all eight
-// in flight, takes the next word from lane L + 1 with one shuffle and
-// shifts the pair by a bytes (__funnelshift_r), tests the four points with
-// __vcmpeq4, and eight lanes OR their 4-bit results into a word with three
-// __shfl_xor_sync, as TimeRawTiles does. A word is read only when it holds
-// a point below nv (its other bytes, up to 3 before the row or past nv, lie
-// in the same aligned 4 bytes as a point of the row and are shifted out or
-// masked), and every load is streaming (__ldcs). (Byte loads and
-// one __ballot_sync a word, 32 loads in flight, were slower than the
-// parent's mask_rows: PERF.md section 6.)
-template <bool Wide>
-struct ClassRawTiles {
-  using Row = ClassRawRow;
-  static constexpr int kMinCtas = 8;  // CTAs an SM the body is built for
-  static constexpr bool kWarpWords = true;
-  const uint8_t* cls;
-  const int32_t* targets;
-  const int32_t* nvs;
-  int64_t block_size;
-  __device__ __forceinline__ Row row(int64_t k) const {
-    Row r;
-    r.c = cls + k * block_size;
-    r.t = targets[k];
-    r.rep = static_cast<uint32_t>(r.t) * 0x01010101u;
-    r.nv = r.t >= 0 && r.t <= 255 ? aqpc::clamp_valid(nvs[k], block_size) : 0;
-    return r;
-  }
-  __device__ __forceinline__ uint32_t word(const Row& r, int64_t w) const {
-    const int lane = threadIdx.x & 31;
-    const int64_t p0 = 32 * (w - lane);  // the warp's first point
-    uint32_t mine = 0;
-    if (Wide) {
-      uint4 v[2];
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int64_t i = p0 + 512 * s + 16 * lane;
-        v[s] = i < r.nv ? __ldcs(reinterpret_cast<const uint4*>(r.c + i)) : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const uint32_t half = equal_nibble(v[s].x, r.rep) | equal_nibble(v[s].y, r.rep) << 4 |
-                              equal_nibble(v[s].z, r.rep) << 8 | equal_nibble(v[s].w, r.rep) << 12;
-        const uint32_t other = __shfl_xor_sync(kFull, half, 1);
-        const uint32_t pair = (lane & 1) ? (other | half << 16) : (half | other << 16);
-        // lanes 2m and 2m + 1 now hold word 16s + m of the warp
-        const uint32_t got = __shfl_sync(kFull, pair, 2 * (lane & 15));
-        if ((lane >> 4) == s) mine = got;
-      }
-    } else {
-      // 4-byte words on 4-byte boundaries: word q of the row holds its
-      // bytes 4q - a .. 4q - a + 3, a the row's offset past a boundary; a
-      // word is loaded only when it holds a byte below nv
-      const int a = static_cast<int>(reinterpret_cast<uintptr_t>(r.c) & 3);
-      const uint32_t* words = reinterpret_cast<const uint32_t*>(r.c - a);
-      const int64_t q0 = p0 / 4;
-      const int64_t end = r.nv + a;
-      uint32_t x[9];  // x[8]: lane 0 only, the word after the warp's 1024 bytes
-#pragma unroll
-      for (int j = 0; j < 9; ++j) {
-        const int64_t q = q0 + 32 * j + lane;
-        x[j] = (j < 8 || lane == 0) && 4 * q < end ? __ldcs(words + q) : 0u;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // lane L's points 128j + 4L .. + 3 end in the next word: lane L + 1's
-        // of this span, or lane 0's of the next span for lane 31
-        const uint32_t hi = __shfl_sync(kFull, lane == 0 ? x[j + 1] : x[j], (lane + 1) & 31);
-        uint32_t v = equal_nibble(__funnelshift_r(x[j], hi, 8 * a), r.rep) << (4 * (lane & 7));
-        v |= __shfl_xor_sync(kFull, v, 1);
-        v |= __shfl_xor_sync(kFull, v, 2);
-        v |= __shfl_xor_sync(kFull, v, 4);
-        // lanes 8g..8g+7 now hold word 4j + g of the warp
-        const uint32_t got = __shfl_sync(kFull, v, 8 * (lane & 3));
-        if ((lane >> 2) == j) mine = got;
-      }
-    }
-    return mine & valid_any(r.nv, w);
-  }
-};
-
 __global__ void __launch_bounds__(kThreads)
 mask_bbox_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,
                  const int32_t* __restrict__ zs, const int32_t* __restrict__ bounds,
                  const int32_t* __restrict__ nvs, MaskOut o, int64_t block_size) {
-  const int64_t k = blockIdx.y;
+  const int64_t k = blockIdx.x / o.n_chunks;
   BboxRows p{xs + k * block_size, ys + k * block_size, zs + k * block_size, {}};
 #pragma unroll
   for (int j = 0; j < 6; ++j) p.b[j] = bounds[k * 6 + j];
-  mask_rows(p, aqpc::clamp_valid(nvs[k], block_size), o);
+  mask_rows(p, aqpc::clamp_valid(nvs[k], block_size), o, k, blockIdx.x - k * o.n_chunks);
 }
 
 // One thread per mask word of a tile (chunk c of block k); the CTA walks
@@ -315,16 +209,6 @@ MaskOut mask_out(int64_t block_size, void* bits, void* counts, void* chunks) {
   return MaskOut{static_cast<uint32_t*>(bits), static_cast<int32_t*>(counts),
                  static_cast<int32_t*>(chunks), aqpc::mask_words(block_size),
                  aqpc::mask_chunks(block_size)};
-}
-
-// Outputs and grid of the raw bbox entry, one CTA per (chunk, block); false
-// on more blocks than the grid's y can hold.
-bool prepare(int64_t k_blocks, int64_t block_size, void* bits, void* counts, void* chunks,
-             dim3* grid, MaskOut* o) {
-  if (k_blocks > aqpc::kMaxGridY) return false;
-  *o = mask_out(block_size, bits, counts, chunks);
-  *grid = dim3(static_cast<unsigned>(o->n_chunks), static_cast<unsigned>(k_blocks));
-  return true;
 }
 
 int done() { return static_cast<int>(cudaGetLastError()); }
@@ -356,9 +240,9 @@ extern "C" int aqpc_mask_bbox(const void* xs, const void* ys, const void* zs,
                               void* chunks, int64_t k_blocks, int64_t block_size,
                               void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return done();
-  dim3 grid;
-  MaskOut o;
-  if (!prepare(k_blocks, block_size, bits, counts, chunks, &grid, &o)) return refused();
+  const MaskOut o = mask_out(block_size, bits, counts, chunks);
+  if (k_blocks > aqpc::kMaxGridX / o.n_chunks) return refused();  // one CTA a (chunk, block)
+  const auto grid = static_cast<unsigned>(k_blocks * o.n_chunks);
   mask_bbox_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(xs), static_cast<const int32_t*>(ys),
       static_cast<const int32_t*>(zs), static_cast<const int32_t*>(bounds),
@@ -400,8 +284,9 @@ extern "C" int aqpc_mask_class(const void* cls, const void* targets, const void*
   const auto* t = static_cast<const int32_t*>(targets);
   const auto* nv = static_cast<const int32_t*>(nvs);
   if (block_size % 16 != 0 || reinterpret_cast<uintptr_t>(cls) % 16 != 0)
-    return launch_packed(ClassRawTiles<false>{c, t, nv, block_size}, o, k_blocks, stream);
-  return launch_packed(ClassRawTiles<true>{c, t, nv, block_size}, o, k_blocks, stream);
+    return launch_packed(ClassRawTiles<false>{c, t, nv, block_size, false}, o, k_blocks,
+                         stream);
+  return launch_packed(ClassRawTiles<true>{c, t, nv, block_size, false}, o, k_blocks, stream);
 }
 
 // cp: (K, row width) u8 code planes at k_bits in [0, 8]; targets: (K,)

@@ -27,7 +27,8 @@
 //
 // What the design does about it: the raw kernel fuses both compares and the
 // count in one pass with 16-byte int4 loads when the rows are aligned and
-// B % 4 == 0 (scalar loads otherwise); the plain version materialises about
+// B % 4 == 0 (scalar loads otherwise), one CTA row a block, the rows
+// flattened into the grid's x (any K); the plain version materialises about
 // six (K, B) bool temporaries; each CTA's count reaches out[k] with one
 // integer atomic. The packed kernel rebuilds no word: the lexicographic
 // range is one range on the (k_hi + k_lo)-bit number hi:lo, tested as two
@@ -55,16 +56,17 @@ using aqpc::kThreads;
 __global__ void __launch_bounds__(kThreads)
 time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restrict__ tls,
                         const int32_t* __restrict__ qs, const int32_t* __restrict__ nvs,
-                        int32_t* __restrict__ out, int64_t block_size, int vec4) {
-  const int64_t k = blockIdx.y;
+                        int32_t* __restrict__ out, int64_t block_size, int64_t chunks,
+                        int vec4) {
+  const int64_t k = blockIdx.x / chunks;
   int q[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) q[j] = qs[k * 4 + j];
   const int64_t nv = aqpc::clamp_valid(nvs[k], block_size);
   const int32_t* h = ths + k * block_size;
   const int32_t* l = tls + k * block_size;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = (blockIdx.x - k * chunks) * blockDim.x + threadIdx.x;
+  const int64_t stride = chunks * blockDim.x;
 
   int count = 0;
   if (vec4) {
@@ -89,7 +91,7 @@ time_count_multi_kernel(const int32_t* __restrict__ ths, const int32_t* __restri
 template <class Tiles>
 __global__ void __launch_bounds__(kThreads, Tiles::kMinCtas)
 time_count_packed_kernel(Tiles f, int32_t* __restrict__ out, int64_t n_chunks, int64_t n_tiles) {
-  aqpc::count_tiles(f, out, n_chunks, n_tiles);
+  aqpc::count_tiles(f, out, nullptr, n_chunks, n_tiles);
 }
 
 }  // namespace
@@ -101,15 +103,15 @@ extern "C" int aqpc_time_count_multi(const void* ths, const void* tls, const voi
                                      const void* nvs, void* out, int64_t k_blocks,
                                      int64_t block_size, void* stream) {
   if (k_blocks <= 0 || block_size <= 0) return static_cast<int>(cudaGetLastError());
-  if (k_blocks > aqpc::kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t chunks = aqpc::chunks_for(block_size, 16);
+  if (k_blocks > aqpc::kMaxGridX / chunks) return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(ths) | reinterpret_cast<uintptr_t>(tls);
   const int vec4 = (block_size % 4 == 0) && (addr % 16 == 0);
-  const dim3 grid(static_cast<unsigned>(aqpc::chunks_for(block_size, 16)),
-                  static_cast<unsigned>(k_blocks));
-  time_count_multi_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  time_count_multi_kernel<<<static_cast<unsigned>(k_blocks * chunks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ths), static_cast<const int32_t*>(tls),
       static_cast<const int32_t*>(qs), static_cast<const int32_t*>(nvs),
-      static_cast<int32_t*>(out), block_size, vec4);
+      static_cast<int32_t*>(out), block_size, chunks, vec4);
   return static_cast<int>(cudaGetLastError());
 }
 

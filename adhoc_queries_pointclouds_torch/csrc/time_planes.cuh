@@ -38,7 +38,6 @@
 #pragma once
 
 #include <cstdint>
-#include <type_traits>
 
 #include "bbox_planes.cuh"
 
@@ -180,18 +179,6 @@ struct TimeTiles {
     return valid_bits(r.nv, w) & time_range_word<Wide, NBL, NBH>(r, block_size, w);
   }
 };
-
-// f(std::integral_constant<int, n>{}) for n in [0, N]; cudaErrorInvalidValue
-// for any other n.
-template <int N, class F>
-inline int with_int(int n, F&& f) {
-  if constexpr (N < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (n == N) return f(std::integral_constant<int, N>{});
-    return with_int<N - 1>(n, f);
-  }
-}
 
 // f(TimeTiles<Wide, NBL, NBH>{ph, pl, qs, nvs, block_size}) for the body
 // of the launch's shape: the wide loads (planes_wide) or not, and the byte

@@ -1,8 +1,7 @@
-// Bit-planar residual unpack shared by the packed-transport dictionary
-// class count and the packed density pass; the layout and the Planes
-// argument below also serve the packed bbox and GPS-time kernels and the
-// dictionary class mask, which compare without unpacking (bbox_planes.cuh,
-// time_planes.cuh).
+// Bit-planar residual unpack of the packed density pass; the layout and
+// the Planes argument below also serve the packed bbox and GPS-time
+// kernels and the dictionary class count and mask, which compare without
+// unpacking (bbox_planes.cuh, time_planes.cuh).
 //
 // Layout of one column, one block row of the (K, nbytes*B + nbits*B/8) u8
 // stack (k = 8*nbytes + nbits bits): byte plane p holds bits 8p..8p+7 of
@@ -97,22 +96,6 @@ __device__ __forceinline__ void unpack8(const uint8_t* __restrict__ row, int64_t
 #pragma unroll
     for (int i = 0; i < 8; ++i) r[i] |= ((byte >> i) & 1u) << (8 * nbytes + q);
   }
-}
-
-// Hit mask (bit i = point 8g+i) of lo <= residual <= hi, as int32.
-__device__ __forceinline__ unsigned range_mask8(const uint8_t* __restrict__ row,
-                                                int64_t block_size, int nbytes, int nbits,
-                                                int lo, int hi, int64_t g, int valid,
-                                                bool aligned) {
-  uint32_t r[8];
-  unpack8(row, block_size, nbytes, nbits, g, valid, aligned, r);
-  unsigned m = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int v = static_cast<int>(r[i]);
-    m |= static_cast<unsigned>((v >= lo) & (v <= hi)) << i;
-  }
-  return m;
 }
 
 // Mask of the first `valid` (1..8) points of a group.

@@ -155,6 +155,7 @@ def run_query(
     print_stream=None,
     density_grid_bounds: AABB | None = None,
     density_state_out: dict | None = None,
+    comm=None,
 ) -> QueryResult:
     """Count or collect the points of a file or directory that match plan's
     predicate: its closed box, its class, or its half-open GPS-time range;
@@ -176,13 +177,18 @@ def run_query(
     over several file lists share one grid this way.
     density_state_out: a dict that receives the winners (WINNER_DTYPE rows)
     of a density plan: under "global", or under "file" a dict by file index.
+    comm: the step-communication strategy (parallel/comm.py); default
+    LocalStepComm(device), one process. An empty file list raises only for a
+    lone participant (comm.is_local): a process of a multi-process run whose
+    share of the files is empty still dispatches the steps the others agree
+    on.
     """
-    comm = LocalStepComm(device)
+    comm = comm or LocalStepComm(device)
     if print_stream is None and plan.print_points:
         print_stream = sys.stdout
     timer = StageTimer()
     files = discover_files(input_path)
-    if not files:
+    if not files and comm.is_local:
         raise FileNotFoundError(f"No supported point-cloud files under {input_path}")
     total_bytes = sum(f.stat().st_size for f in files)
 
@@ -197,7 +203,7 @@ def run_query(
                 except Exception as e:
                     print(f"warning: skipping {f}: {e}", file=sys.stderr)
             files = kept
-            if not files:
+            if not files and comm.is_local:
                 raise FileNotFoundError(f"No readable point-cloud files under {input_path}")
         else:
             readers = [open_point_cloud(f) for f in files]

@@ -340,6 +340,31 @@ def _launch(name: str, tensors: tuple, sizes: tuple) -> torch.Tensor:
     return out
 
 
+# (device index, stream) -> the workspace of the counts that write their
+# output (the class entries): one 64-bit ticket word a row, zeroed when made
+# or grown; every launch leaves it zeroed (csrc/collect.cuh row_done).
+# Launches on one stream run in order, so one workspace a stream suffices.
+_workspaces: dict = {}
+
+
+def _workspace(k_blocks: int, dev) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    work = _workspaces.get(key)
+    if work is None or work.numel() < k_blocks:
+        work = torch.zeros(k_blocks, dtype=torch.int64, device=dev)
+        _workspaces[key] = work
+    return work
+
+
+def _launch_written(name: str, tensors: tuple, sizes: tuple) -> torch.Tensor:
+    """Run a count entry point that writes its (K,) int32 output, K =
+    sizes[0], through the stream's workspace: no fill of the output."""
+    dev = tensors[0].device
+    out = torch.empty(sizes[0], dtype=torch.int32, device=dev)
+    run(name, (*tensors, out, _workspace(sizes[0], dev)), sizes)
+    return out
+
+
 def _launch_mask(name: str, tensors: tuple, sizes: tuple) -> BitMask:
     """Run a mask entry point into a fresh BitMask for K = sizes[0] blocks of
     B = sizes[1] rows."""
@@ -421,7 +446,7 @@ def class_count_multi_kernel(cls, targets, nvs):
     if not _on_cuda(cls):
         return class_count_multi(cls, targets, nvs)
     k_blocks, block_size = _class_operands(cls, torch.uint8, targets, nvs)
-    return _launch("class_count_multi", (cls, targets, nvs), (k_blocks, block_size))
+    return _launch_written("class_count_multi", (cls, targets, nvs), (k_blocks, block_size))
 
 
 def class_count(cls, class_value, n_valid):
@@ -439,7 +464,7 @@ def class_count_words_kernel(words, targets, nvs):
     if not _on_cuda(words):
         return class_count_packed_multi(words, targets, nvs)
     k_blocks, w = _class_operands(words, torch.int32, targets, nvs)
-    return _launch("class_count_words", (words, targets, nvs), (k_blocks, w))
+    return _launch_written("class_count_words", (words, targets, nvs), (k_blocks, w))
 
 
 def class_count_packed(words, class_value, n_valid):
@@ -462,7 +487,8 @@ def class_count_dict_kernel(cp, targets, nvs, k: int, block_size: int):
     _check_planes(cp, "cp", int(k), 8, k_blocks, block_size, dev)
     _check(targets, "targets", torch.int32, (k_blocks,), dev)
     _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
-    return _launch("class_count_dict", (cp, targets, nvs), (k_blocks, block_size, int(k)))
+    return _launch_written("class_count_dict", (cp, targets, nvs),
+                           (k_blocks, block_size, int(k)))
 
 
 def _time_query(qs, nvs, k_blocks: int, device) -> None:

@@ -12,7 +12,7 @@ rows ("rows"), the same rows in the same order for both trees. For every
 row and reading (a row key of a time in ms) it prints and returns each
 tree's median of its runs' readings, its least run (the row's key with
 "ms" ending "min_ms", where the row has it) and the pairs root won (its
-reading below against's). The last line printed is one JSON object with
+reading below against's); a row without a reading skips it. The last line printed is one JSON object with
 those numbers.
 
 This file imports nothing of its package, so that a tool which times
@@ -48,7 +48,7 @@ def in_turns(script, root, against, pairs: int, argv, ident, readings) -> dict:
         by = {name: [r["rows"][at] for r in rs] for name, rs in runs.items()}
         s = {key: row[key] for key in ident}
         parts = []
-        for key in readings:
+        for key in (key for key in readings if key in row):
             least = key[:-2] + "min_ms"
             for name, rows in by.items():
                 s[f"{name}_{key}"] = statistics.median(r[key] for r in rows)

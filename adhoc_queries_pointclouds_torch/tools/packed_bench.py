@@ -18,8 +18,13 @@ compact_bits with every block skipped (its floor), of two partial blocks
 (of K, the others skipped) at hit shares 0.001, 0.05, 0.5 and 0.95 and at
 chip_smoke.py phase 3's (0.001 and 0.5), and of all K blocks at the
 density path's share (its candidates at the 10 m grid of
-density_bench.py, about one a cell). Each runs at the main path's shape
-(K = 4 blocks of 2^21 points) over random words, planes or bytes and a
+density_bench.py, about one a cell), then the u8, word and dictionary
+(k = 2) class counts at K = 4 and at a resident dataset's K = 64, each
+with one call split by torch.profiler into the launches that fill an
+output ("fill_ms") and the rest ("kernel_ms"); --only NAMES (kernel
+names, comma-separated) times only their rows. Each runs at the main
+path's shape (K = 4 blocks of 2^21 points; the class counts also at 64)
+over random words, planes or bytes and a
 non-empty range, a code
 the block's codes can hold or a class target, on every block (an empty one
 skips its block's planes), first against its plain version (exact; the
@@ -77,6 +82,8 @@ DICT_WIDTHS = (0, 1, 2, 4, 8)
 COMPACT_SHARES = (0.001, 0.05, 0.5, 0.95)
 SMOKE_SHARES = (0.0, 0.001, 0.5, 1.0)  # chip_smoke.py phase 3's blocks
 DENSITY_SHARE = 154_350 / B
+# the class counts' K: the main path's step, and a resident dataset's launch
+CLASS_COUNT_KS = (K, 64)
 HBM_BYTES_PER_S = 3.35e12
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
@@ -89,11 +96,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--against", help="second checkout: time both trees in turns")
     ap.add_argument("--pairs", type=int, default=10, help="pairs of runs with --against")
+    ap.add_argument("--only", help="comma-separated kernel names: only the rows of their sections")
     args = ap.parse_args(argv)
     if args.against:
+        only = ["--only", args.only] if args.only else []
         in_turns(Path(__file__).resolve(), args.root, args.against, args.pairs,
-                 ["--runs", str(args.runs), "--seed", str(args.seed)],
-                 ("kernel", "widths", "bound_ms"), ("device_ms", "ms"))
+                 ["--runs", str(args.runs), "--seed", str(args.seed), *only],
+                 ("kernel", "widths", "bound_ms"), ("device_ms", "ms", "fill_ms", "kernel_ms"))
         return 0
     sys.path.insert(0, args.root)
 
@@ -124,6 +133,10 @@ def main(argv=None) -> int:
         return torch.minimum(a, c).to(torch.int32), torch.maximum(a, c).to(torch.int32)
 
     rows = []
+    only = set(args.only.split(",")) if args.only else None
+
+    def want(*kernels) -> bool:
+        return only is None or bool(only & set(kernels))
 
     def timed(kernel, widths, fn, nbytes):
         call_ms, call_min_ms = timer.times(fn)
@@ -135,6 +148,31 @@ def main(argv=None) -> int:
         print(f"  {kernel} {widths}: call {call_ms:.4f} ms (least {call_min_ms:.4f}), device "
               f"{device_ms:.4f} ms (least {device_min_ms:.4f}); {nbytes / 1e6:.1f} MB, bound "
               f"{row['bound_ms']:.4f} ms")
+
+    def split(fn, runs: int = 20) -> dict:
+        """One call's device time by kernel (torch.profiler, mean of runs
+        calls, each after an L2 flush): fill_ms, the launches that fill an
+        output (0 where there is none), and kernel_ms, the rest."""
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        fill = kernel = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if "bitwise_not" in e.key:
+                continue
+            if "Fill" in e.key:
+                fill += us / runs / 1e3
+            else:
+                kernel += us / runs / 1e3
+        print(f"    split (torch.profiler, mean of {runs}): fill {fill:.4f} ms, kernel "
+              f"{kernel:.4f} ms")
+        return {"fill_ms": fill, "kernel_ms": kernel}
 
     def check(kernel, widths, count, mask, plain):
         if not torch.equal(count, plain.sum(1, dtype=torch.int32)):
@@ -150,7 +188,7 @@ def main(argv=None) -> int:
         return [torch.randint(0, 256, (K, packed_row_width(w, B)), dtype=torch.uint8,
                               device=dev, generator=gen) for w in widths]
 
-    for widths in WIDTHS:
+    for widths in WIDTHS if want("bbox_count_packed", "mask_bbox_packed") else ():
         lo, hi = ranges(widths)
         ops = (*planes_of(widths), lo, hi, nv, widths, B)
         check("bbox", widths, P.bbox_count_packed_kernel(*ops), P.bbox_mask_bits_packed(*ops),
@@ -159,7 +197,7 @@ def main(argv=None) -> int:
         timed("bbox_count_packed", widths, lambda: P.bbox_count_packed_kernel(*ops), count_bytes)
         timed("mask_bbox_packed", widths, lambda: P.bbox_mask_bits_packed(*ops),
               count_bytes + K * B / 8)
-    for widths in TIME_WIDTHS:
+    for widths in TIME_WIDTHS if want("time_count_packed", "mask_time_packed") else ():
         lo, hi = ranges(widths)
         qs = torch.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1]], 1)
         # inside residual space with lo <= hi on each column, [start, end)
@@ -174,7 +212,7 @@ def main(argv=None) -> int:
         timed("time_count_packed", widths, lambda: P.time_count_packed_kernel(*ops), count_bytes)
         timed("mask_time_packed", widths, lambda: P.time_mask_bits_packed(*ops),
               count_bytes + K * B / 8)
-    for bs in RAW_TIME_SIZES:
+    for bs in RAW_TIME_SIZES if want("mask_time") else ():
         # rows off 16-byte boundaries below B: the first K * bs words as (K, bs)
         ths, tls = (torch.randint(I32_MIN, I32_MAX + 1, (K * B,), device=dev, generator=gen)
                     .to(torch.int32)[:K * bs].view(K, bs) for _ in range(2))
@@ -184,7 +222,7 @@ def main(argv=None) -> int:
         ops = (ths, tls, qs, nv_raw)
         check_mask("mask_time", bs, P.time_mask_bits(*ops), P.time_mask_multi(*ops))
         timed("mask_time", f"B={bs}", lambda: P.time_mask_bits(*ops), 8 * K * bs + K * bs / 8)
-    for k in DICT_WIDTHS:
+    for k in DICT_WIDTHS if want("mask_class_dict") else ():
         cp = planes_of((k,))[0]
         codes = torch.randint(0, 1 << k, (K,), dtype=torch.int32, device=dev, generator=gen)
         ops = (cp, codes, nv, k, B)
@@ -192,7 +230,7 @@ def main(argv=None) -> int:
                    P.class_mask_dict_multi(*ops))
         timed("mask_class_dict", (k,), lambda: P.class_mask_bits_dict(*ops),
               k / 8 * K * B + K * B / 8)
-    for bs in RAW_TIME_SIZES:
+    for bs in RAW_TIME_SIZES if want("mask_class", "mask_class_dict") else ():
         # rows off 16-byte boundaries below B: the first K * bs bytes as (K, bs)
         cls = torch.randint(0, 256, (K * B,), dtype=torch.uint8, device=dev,
                             generator=gen)[:K * bs].view(K, bs)
@@ -206,20 +244,23 @@ def main(argv=None) -> int:
         timed("mask_class", f"B={bs}", lambda: P.class_mask_bits(cls, targets, nv_cls), nbytes)
         timed("mask_class_dict", f"k=8, class bytes, B={bs}",
               lambda: P.class_mask_bits_dict(cls, targets, nv_cls, 8, bs), nbytes)
-    # chip_smoke.py phase 3's bytes: class 6 at its blocks' hit shares, 7..255
-    # elsewhere, and target 6 in every block
-    hit = torch.rand((K, B), device=dev, generator=gen) < torch.tensor(SMOKE_SHARES,
-                                                                        device=dev)[:, None]
-    cls = torch.where(hit, 6, torch.randint(7, 256, (K, B), device=dev, generator=gen))
-    cls = cls.to(torch.uint8)
-    targets = torch.full((K,), 6, dtype=torch.int32, device=dev)
-    plain = P.class_mask_multi(cls, targets, nv)
-    check_mask("mask_class", "smoke", P.class_mask_bits(cls, targets, nv), plain)
-    check_mask("mask_class_dict", "smoke", P.class_mask_bits_dict(cls, targets, nv, 8, B), plain)
-    timed("mask_class", "smoke", lambda: P.class_mask_bits(cls, targets, nv), K * B * 9 / 8)
-    timed("mask_class_dict", "k=8, class bytes, smoke",
-          lambda: P.class_mask_bits_dict(cls, targets, nv, 8, B), K * B * 9 / 8)
-    for share in (0.0, *COMPACT_SHARES, SMOKE_SHARES, DENSITY_SHARE):
+    if want("mask_class", "mask_class_dict"):
+        # chip_smoke.py phase 3's bytes: class 6 at its blocks' hit shares, 7..255
+        # elsewhere, and target 6 in every block
+        hit = torch.rand((K, B), device=dev, generator=gen) < torch.tensor(SMOKE_SHARES,
+                                                                            device=dev)[:, None]
+        cls = torch.where(hit, 6, torch.randint(7, 256, (K, B), device=dev, generator=gen))
+        cls = cls.to(torch.uint8)
+        targets = torch.full((K,), 6, dtype=torch.int32, device=dev)
+        plain = P.class_mask_multi(cls, targets, nv)
+        check_mask("mask_class", "smoke", P.class_mask_bits(cls, targets, nv), plain)
+        check_mask("mask_class_dict", "smoke", P.class_mask_bits_dict(cls, targets, nv, 8, B),
+                   plain)
+        timed("mask_class", "smoke", lambda: P.class_mask_bits(cls, targets, nv), K * B * 9 / 8)
+        timed("mask_class_dict", "k=8, class bytes, smoke",
+              lambda: P.class_mask_bits_dict(cls, targets, nv, 8, B), K * B * 9 / 8)
+    share_cases = (0.0, *COMPACT_SHARES, SMOKE_SHARES, DENSITY_SHARE)
+    for share in share_cases if want("compact_bits") else ():
         density = share == DENSITY_SHARE
         shares = torch.tensor(share, device=dev)
         hit = torch.rand((K, B), device=dev, generator=gen) < shares.reshape(-1, 1)
@@ -241,6 +282,35 @@ def main(argv=None) -> int:
         timed("compact_bits", f"{label}, {total} hits of {len(partial)} blocks",
               lambda: C.compact_bits(mask.bits, mask.chunks, off, total, B),
               len(partial) * B / 8 + 4 * total)
+    # the class counts (u8, words, dictionary at k = 2) at the main path's K
+    # and at a resident dataset's, a target or code in every block, each
+    # with one call split into the profiler's kernels: the output's fill
+    # and the kernel
+    for k_rows in CLASS_COUNT_KS if want("class_count_multi", "class_count_words",
+                                         "class_count_dict") else ():
+        nv_k = torch.full((k_rows,), B, dtype=torch.int32, device=dev)
+        cls = torch.randint(0, 256, (k_rows, B), dtype=torch.uint8, device=dev, generator=gen)
+        targets = torch.randint(0, 256, (k_rows,), dtype=torch.int32, device=dev, generator=gen)
+        want = P.class_count_multi(cls, targets, nv_k)
+        words = cls.view(torch.int32)
+        for kernel, fn in (("class_count_multi", lambda: P.class_count_multi_kernel(cls, targets,
+                                                                                    nv_k)),
+                           ("class_count_words", lambda: P.class_count_words_kernel(words, targets,
+                                                                                    nv_k))):
+            if not torch.equal(fn(), want):
+                raise RuntimeError(f"{kernel} at K={k_rows} is not the plain version's count")
+            timed(kernel, f"K={k_rows}", fn, k_rows * B)
+            rows[-1].update(split(fn))
+        del cls, words
+        cp = torch.randint(0, 256, (k_rows, packed_row_width(2, B)), dtype=torch.uint8,
+                           device=dev, generator=gen)
+        codes = torch.arange(k_rows, dtype=torch.int32, device=dev) % 4
+        fn = lambda: P.class_count_dict_kernel(cp, codes, nv_k, 2, B)  # noqa: E731
+        if not torch.equal(fn(), P.class_count_dict_multi(cp, codes, nv_k, 2, B)):
+            raise RuntimeError(f"class_count_dict at K={k_rows} is not the plain version's count")
+        timed("class_count_dict", f"k=2, K={k_rows}", fn, k_rows * B / 4)
+        rows[-1].update(split(fn))
+        del cp
     print(json.dumps({"tree": args.root, "card": card, "runs": args.runs, "rows": rows}))
     return 0
 

@@ -14,8 +14,8 @@ Phases, in order; the first fault raises and the script exits non-zero:
   2. build: nvcc builds the kernels of adhoc_queries_pointclouds_torch/csrc
      and g++ the host codec of native/ (no codec is an error), and ptxas
      reports the registers and spills of the kernels on the persistent tile
-     loop (packed bbox and time pairs, raw time and class masks, dictionary
-     mask) and of the compaction
+     loop (packed bbox and time pairs, raw time and class masks, raw class
+     count, dictionary mask and count) and of the compaction
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
      points), exact equality; kernel and plain times (tools/kernel_timer.py:
@@ -27,7 +27,13 @@ Phases, in order; the first fault raises and the script exits non-zero:
      that take each branch of their compare, with bounds or query words at
      and beyond both ends of residual space, at block sizes 2^21, 2^21 - 8
      and 2^21 - 8189, and print the floor with no planes, (0, 0, 0) or
-     (0, 0), beside every width's time. The collect
+     (0, 0), beside every width's time. The u8, word and dictionary
+     class counts are timed on a target or code in every block (a
+     dictionary miss stays in the compares), the u8 and dictionary counts
+     also at K = 64 blocks of 2^21 (a resident dataset's one launch), and
+     one call of each is split into the profiler's kernels; the timer's
+     own floor is one empty kernel, and nothing, between its events. The
+     collect
      kernels (one bit-mask entry per collect kind, and the ordered
      compaction of the partial blocks' hits) run at hit densities 0, 0.1 %,
      1/2 and 1, n_valid 0, 1, B-1 and B, every packed width, and an
@@ -115,6 +121,7 @@ from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
 
 SEED = 20261016
 K, B = 4, 1 << 21  # AQPC_BLOCKS_PER_STEP blocks of DEFAULT_BLOCK_SIZE points
+K_RESIDENT = 64  # blocks of a resident dataset in one launch: 134 M points
 PACKED_WIDTHS = (0, 4, 12, 20, 28, 32)
 # further width triples of the two packed bbox kernels: bit planes only, a
 # full set of bit planes, byte planes only, 1 to 3 byte planes with bit
@@ -226,8 +233,9 @@ def phase_build() -> None:
     # (one body a load kind), the packed time pair (a body for each pair of
     # byte-plane counts and load kind: the e2e widths' body, (20, 32), the
     # range of registers over all 25 and every body that spills), the raw
-    # time and class masks (one body a load kind) and the dictionary mask (a
-    # body for each load kind and byte-plane count); and the compaction
+    # time and class masks and the raw class count (one body a load kind)
+    # and the dictionary mask and count (a body for each load kind and
+    # byte-plane count); and the compaction
     nvcc = _build._nvcc()
     with tempfile.TemporaryDirectory(prefix="aqpc_ptxas_") as tmp:
         jobs = [subprocess.Popen(
@@ -235,7 +243,7 @@ def phase_build() -> None:
              str(Path(_build.__file__).parent / "csrc" / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src in ("bbox_count_packed.cu", "time_count.cu", "mask_bits.cu",
-                        "compact_bits.cu")]
+                        "compact_bits.cu", "class_count.cu", "class_count_dict.cu")]
         bodies = {}
         for job in jobs:
             text = job.communicate()[0]
@@ -251,9 +259,10 @@ def phase_build() -> None:
                   f"bodies, {min(f['registers'] for f in shapes.values())}-"
                   f"{max(f['registers'] for f in shapes.values())} registers, spill bytes by "
                   f"(lo, hi) byte planes: {spilling or 'none'}")
-        else:
+        else:  # the dictionary bodies: (byte planes,) or (byte planes, bit planes)
             print(f"ptxas {name}<{loads} loads>: " + "; ".join(
-                f"{sh[0]} byte planes {f}" for sh, f in sorted(shapes.items())))
+                f"{sh[0]} byte planes{f', {sh[1]} bit planes' if len(sh) > 1 else ''} {f}"
+                for sh, f in sorted(shapes.items())))
 
 
 TILES_KERNELS = {"BoxTiles": "mask_bbox_packed", "TimeTiles": "mask_time_packed",
@@ -265,7 +274,8 @@ def ptxas_bodies(text: str) -> dict:
     """{(kernel, loads): {byte planes ((lo, hi) for the packed time pair),
     or None: facts}} of the tile-loop kernels and the compaction (loads
     "any") in one file's `nvcc -Xptxas -v` output."""
-    entry = re.compile(r"(bbox_count_packed_kernel|time_count_packed_kernel|mask_packed_kernel)I"
+    entry = re.compile(r"(bbox_count_packed_kernel|time_count_packed_kernel|mask_packed_kernel"
+                       r"|class_count_kernel|class_count_dict_kernel)I"
                        r"(?:N(?:4aqpc|S_)\d+(\w+?Tiles)I)?Lb([01])E((?:Li\d+E)*)"
                        r"|(compact_bits_kernel)")
     out: dict = {}
@@ -482,7 +492,7 @@ def floor_breakdown(name: str, fn, device_ms: float, runs: int = 20) -> None:
         us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
         if us and "bitwise_not" not in e.key:
             label = "counts memset (fill)" if "Fill" in e.key else e.key[:60]
-            kernels[label] = us / runs / 1e3
+            kernels[label] = kernels.get(label, 0.0) + us / runs / 1e3  # keys cut alike add up
     if not kernels:
         print(f"    {name}, one call's device time by kernel: not measured (no device time in "
               f"the profiler's trace)")
@@ -645,6 +655,7 @@ def kernels_class(dev, gen, timer, out) -> None:
         t = timed(timer, lambda: kernel(col, targets, nv_full),
                   lambda: plain(col, targets, nv_full), K * B, 2 * K * B)
         out[name] = dict(max_abs_err=max(errs), **t)
+        floor_breakdown(name, lambda: kernel(col, targets, nv_full), t["device_ms"])
 
     errs = []
     print(f"class_count_dict, K={K}, B={B}:")
@@ -657,11 +668,67 @@ def kernels_class(dev, gen, timer, out) -> None:
         compare(f"k={k}, target codes {codes.tolist()}",
                 lambda: P.class_count_dict_kernel(cp, codes, nvs, k, B),
                 lambda: P.class_count_dict_multi(cp, codes, nvs, k, B), errs)
-        times[k] = timed(timer, lambda: P.class_count_dict_kernel(cp, codes, nv_full, k, B),
-                         lambda: P.class_count_dict_multi(cp, codes, nv_full, k, B),
+        # timed on a code every block holds (a miss reads nothing)
+        present = torch.tensor([j % (1 << k) for j in range(K)], **i32)
+        compare(f"k={k}, target codes {present.tolist()}, n_valid B",
+                lambda: P.class_count_dict_kernel(cp, present, nv_full, k, B),
+                lambda: P.class_count_dict_multi(cp, present, nv_full, k, B), errs)
+        times[k] = timed(timer, lambda: P.class_count_dict_kernel(cp, present, nv_full, k, B),
+                         lambda: P.class_count_dict_multi(cp, present, nv_full, k, B),
                          k / 8 * K * B, (packed_ops(k) + 1) * K * B, "    ")
-    # k = 2: blocks of the e2e datasets hold at most 4 classes
+        if k == 2:  # blocks of the e2e datasets hold at most 4 classes
+            floor_breakdown("class_count_dict, k = 2",
+                            lambda: P.class_count_dict_kernel(cp, present, nv_full, k, B),
+                            times[k]["device_ms"])
     out["class_count_dict"] = dict(max_abs_err=max(errs), **times[2])
+    del cls, words, hit, cp
+    class_counts_resident(dev, gen, timer, out)
+
+
+def class_counts_resident(dev, gen, timer, out) -> None:
+    """The u8 and dictionary class counts at a resident dataset's K:
+    K_RESIDENT blocks of 2^21 points (134 M points) in one launch, a target
+    or present code in every block, against their plain versions; and the
+    timer's own floor: one empty kernel (a spin of 0 cycles) and nothing
+    at all between the events, in both readings."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    nv_full = torch.full((K_RESIDENT,), B, **i32)
+    targets = torch.tensor([6, 0, 255, 77] * (K_RESIDENT // 4), **i32)
+    cls = torch.randint(0, 256, (K_RESIDENT, B), dtype=torch.uint8, device=dev, generator=gen)
+    print(f"class_count_multi, K={K_RESIDENT}, B={B}:")
+    errs: list[int] = []
+    compare("n_valid B", lambda: P.class_count_multi_kernel(cls, targets, nv_full),
+            lambda: P.class_count_multi(cls, targets, nv_full), errs)
+    t = timed(timer, lambda: P.class_count_multi_kernel(cls, targets, nv_full),
+              lambda: P.class_count_multi(cls, targets, nv_full), K_RESIDENT * B,
+              2 * K_RESIDENT * B, what=f"{K_RESIDENT} full blocks")
+    floor_breakdown(f"class_count_multi, K={K_RESIDENT}",
+                    lambda: P.class_count_multi_kernel(cls, targets, nv_full), t["device_ms"])
+    out["class_count_multi"]["max_abs_err"] = max(out["class_count_multi"]["max_abs_err"], *errs)
+    del cls
+    k = 2
+    cp = torch.randint(0, 256, (K_RESIDENT, packed_row_width(k, B)), dtype=torch.uint8,
+                       device=dev, generator=gen)
+    present = torch.tensor([j % (1 << k) for j in range(K_RESIDENT)], **i32)
+    print(f"class_count_dict, k = {k}, K={K_RESIDENT}, B={B}:")
+    errs = []
+    compare("target codes 0..3 in turn, n_valid B",
+            lambda: P.class_count_dict_kernel(cp, present, nv_full, k, B),
+            lambda: P.class_count_dict_multi(cp, present, nv_full, k, B), errs)
+    t = timed(timer, lambda: P.class_count_dict_kernel(cp, present, nv_full, k, B),
+              lambda: P.class_count_dict_multi(cp, present, nv_full, k, B),
+              k / 8 * K_RESIDENT * B, (packed_ops(k) + 1) * K_RESIDENT * B,
+              what=f"{K_RESIDENT} full blocks")
+    floor_breakdown(f"class_count_dict, k = {k}, K={K_RESIDENT}",
+                    lambda: P.class_count_dict_kernel(cp, present, nv_full, k, B), t["device_ms"])
+    out["class_count_dict"]["max_abs_err"] = max(out["class_count_dict"]["max_abs_err"], *errs)
+    del cp
+    for what, fn in (("one empty kernel", lambda: torch.cuda._sleep(0)),
+                     ("no work between the events", lambda: None)):
+        ms, least = timer.times(fn)
+        device_ms, device_least = timer.times(fn, device=True)
+        print(f"timer floor, {what}: call {ms:.4f} ms (least {least:.4f}), device "
+              f"{device_ms:.4f} ms (least {device_least:.4f})")
 
 
 def kernels_time(dev, gen, timer, out) -> None:

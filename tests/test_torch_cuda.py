@@ -697,6 +697,114 @@ def test_class_mask_and_compaction_over_more_blocks_than_grid_y(dev):
         assert _compact_both(dev, got, ref, args[2], B) > 0
 
 
+def _tiled(case, rows: int):
+    """The K-row operands of case repeated down to `rows` rows (1-D ones
+    along their only axis)."""
+    reps = rows // len(case[-1]) + 1
+    return [np.tile(a, (reps, 1))[:rows] if a.ndim == 2 else np.tile(a, reps)[:rows]
+            for a in case]
+
+
+@pytest.mark.parametrize("entry", ["bbox_count_multi", "time_count_multi", "mask_bbox",
+                                   "class_count_multi", "class_count_words", "class_count_dict"])
+def test_raw_entries_over_more_blocks_than_grid_y(dev, entry):
+    """No count or mask entry holds K to a grid's 65,535 rows in y: the raw
+    bbox and time counts and the raw bbox mask flatten their CTA rows into
+    x, and the three class counts walk the persistent tile grid. Over
+    65,548 blocks of 128 points and of 99 (rows off 16-byte boundaries,
+    where the entry takes them), counts and BitMask equal the plain
+    versions'."""
+    rows = 65548
+    rng = np.random.default_rng(rows + len(entry))
+    # the second size: B % 16 != 0 (B % 8 == 0 for bit planes, B % 4 == 0 for words)
+    narrow = {"class_count_dict": 104, "class_count_words": 100}.get(entry, 99)
+    for B in (128, narrow):
+        if entry in ("bbox_count_multi", "mask_bbox"):
+            args = _tiled(_raw(rng, 7, B), rows)
+        elif entry == "time_count_multi":
+            args = _tiled(_time_raw_case(rng, 6, B), rows)
+        elif entry == "class_count_dict":
+            args = _tiled(_dict_case(rng, 5, B, 2), rows)
+        else:
+            args = _tiled(_class_case(rng, 7, B), rows)
+        assert len(args[-1]) == rows
+        if entry == "mask_bbox":
+            got, ref = _mask_both(TP.bbox_mask_bits, args, dev)
+            assert int(ref.counts.sum()) > 0
+            continue
+        extra = ()
+        if entry == "class_count_words":
+            args[0] = args[0].view(np.int32)
+        elif entry == "class_count_dict":
+            extra = (2, B)
+        fn = {"bbox_count_multi": TP.bbox_count_multi_kernel,
+              "time_count_multi": TP.time_count_multi_kernel,
+              "class_count_multi": TP.class_count_multi_kernel,
+              "class_count_words": TP.class_count_words_kernel,
+              "class_count_dict": TP.class_count_dict_kernel}[entry]
+        got, ref = _both(fn, args, dev, *extra)
+        assert torch.equal(got, ref) and int(ref.sum()) > 0
+
+
+def _workspace_clear(dev):
+    """Every class count's workspace on the card is back to all 0."""
+    for (index, _), work in TP._workspaces.items():
+        if index == dev.index:
+            assert int(work.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("K, B", [(3, 1 << 21), (200, 1 << 17), (1, 2200 * 8192 + 40), (5, 96)],
+                         ids=["tiles_below_grid", "rows_across_ctas", "row_over_grid",
+                              "one_cta_a_row"])
+def test_class_counts_write_their_output(dev, K, B):
+    """The class counts write out[k] through a per-row ticket word (no fill
+    of out): where a row's tiles are fewer than the grid (each CTA one
+    tile), where a CTA walks tiles of several rows, where one row has more
+    tiles (of up to 4 chunks) than the grid has CTAs, and where one CTA
+    covers a row. Ten calls in a row into outputs that hold garbage equal
+    the plain versions, and each leaves the workspace all 0."""
+    rng = np.random.default_rng(K + B)
+    cls, targets, nvs = _tiled(_class_case(rng, min(K, 7), B), K)
+    nvs[0] = B
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in (cls, targets, nvs)]
+    want = TP.class_count_multi(*cpu)
+    gpu = [t.to(dev) for t in cpu]
+    k = 4
+    dict_ops = _tiled(_dict_case(rng, max(2, min(K, 5)), B, k), K) if B % 8 == 0 else None
+    for _ in range(10):
+        torch.empty(4 * K + 64, dtype=torch.int32, device=dev).fill_(-7)  # garbage to reuse
+        assert torch.equal(TP.class_count_multi_kernel(*gpu).cpu(), want)
+        if B % 4 == 0:
+            words = gpu[0].view(torch.int32)
+            assert torch.equal(TP.class_count_words_kernel(words, *gpu[1:]).cpu(), want)
+        if dict_ops is not None:
+            got, ref = _both(TP.class_count_dict_kernel, dict_ops, dev, k, B)
+            assert torch.equal(got, ref)
+        torch.cuda.synchronize()
+        _workspace_clear(dev)
+    assert int(want.sum()) > 0
+
+
+def test_class_counts_on_two_streams(dev):
+    """Each stream has its own workspace: counts launched on two streams at
+    once, many times, equal the plain version's."""
+    rng = np.random.default_rng(77)
+    cls, targets, nvs = _tiled(_class_case(rng, 7, 1 << 16), 64)
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in (cls, targets, nvs)]
+    want = TP.class_count_multi(*cpu)
+    gpu = [t.to(dev) for t in cpu]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = []
+    for _ in range(20):
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(st):
+                outs.append(TP.class_count_multi_kernel(*gpu))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o.cpu(), want) for o in outs)
+    _workspace_clear(dev)
+
+
 CLASS_EDGE_TARGETS = [-1, 0, 255, 256, I32.max, I32.min, 6]
 
 

@@ -19,12 +19,14 @@ import pytest
 from adhoc_queries_pointclouds_tpu import engine as jax_engine
 from adhoc_queries_pointclouds_tpu.formats import open_point_cloud as jax_open_point_cloud
 from adhoc_queries_pointclouds_tpu.models import query as jax_query
+from adhoc_queries_pointclouds_tpu.parallel.comm import LocalStepComm as JaxLocalStepComm
 from adhoc_queries_pointclouds_tpu.utils.aabb import parse_aabb as jax_parse_aabb
 from adhoc_queries_pointclouds_torch import engine as torch_engine
 from adhoc_queries_pointclouds_torch import host
 from adhoc_queries_pointclouds_torch import index as index_mod
 from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.models import query as torch_query
+from adhoc_queries_pointclouds_torch.parallel.comm import LocalStepComm as TorchLocalStepComm
 from adhoc_queries_pointclouds_torch.utils.aabb import (
     clamp_bounds_to_i32,
     local_query_bounds,
@@ -213,3 +215,35 @@ def test_non_bbox_plans_are_not_ported(dataset, tmp_path):
                      [f.read_bytes() for f in written.output_files]))
     assert outs[0] == outs[1]
     assert outs[1][0] == outs[1][2] == outs[1][1].count("\n") > 0 and outs[1][3]
+
+
+class _JaxNotLocal(JaxLocalStepComm):
+    """A participant of a multi-process run, as far as the engine asks."""
+
+    is_local = False
+
+
+class _TorchNotLocal(TorchLocalStepComm):
+    is_local = False
+
+
+@pytest.mark.parametrize("keep_going", [False, True])
+@pytest.mark.parametrize("collect", [False, True], ids=["count", "collect"])
+@pytest.mark.parametrize("spec", [dict(box=BOXES["partial"]), dict(cls=6), dict(time=(1.0, 2.0))],
+                         ids=["box", "class", "time"])
+def test_empty_file_list_raises_only_for_a_lone_participant(tmp_path, spec, collect,
+                                                            keep_going):
+    """run_query(comm=...): over a directory with no point-cloud file, a
+    strategy that is not local (a process whose share of a multi-process
+    run's files is empty) gets a 0 count from both engines, each with its
+    own package's LocalStepComm made not local; the default, local
+    strategy raises FileNotFoundError in both."""
+    kw = dict(block_size=BLOCK, keep_going=keep_going, keep_hits=collect)
+    ref = run(jax_engine, tmp_path, spec, comm=_JaxNotLocal(), **kw)
+    got = run(torch_engine, tmp_path, spec, comm=_TorchNotLocal("cpu"), **kw)
+    assert got.match_count == ref.match_count == 0
+    assert got.files_searched == ref.files_searched == 0
+    assert got.points_scanned == ref.points_scanned == 0
+    for eng in (jax_engine, torch_engine):
+        with pytest.raises(FileNotFoundError):
+            run(eng, tmp_path, spec, **kw)
