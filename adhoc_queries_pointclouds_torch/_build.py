@@ -43,6 +43,7 @@ _ENTRY_POINTS = {
     "aqpc_mask_time": [_P] * 7 + [_I, _I, _P],
     "aqpc_mask_time_packed": [_P] * 7 + [_I] * 4 + [_P],
     "aqpc_compact_bits": [_P] * 4 + [_I, _I, _P],
+    "aqpc_compact_bits_gather": [_P] * 10 + [_I, _I, _P],
     "aqpc_density_leaders": [_P] * 20 + [_I] * 7 + [_P],
     "aqpc_density_leaders_packed": [_P] * 21 + [_I] * 10 + [_P],
     "aqpc_density_candidates": [_P] * 23 + [_I] * 7 + [_P],

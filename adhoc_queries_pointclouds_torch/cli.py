@@ -1,10 +1,13 @@
 """Command line of the port: bbox, class and GPS-time counts and collects,
-and max-density grid sampling, on one device.
+max-density grid sampling, device-resident datasets and the JSON query
+service, on one device.
 
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds "x0;y0;z0;x1;y1;z1"
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6 -o OUT_DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --time-range "start;end" --print-points
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --density 100 -o OUT_DIR
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --resident --repeat 20
+    python -m adhoc_queries_pointclouds_torch.cli serve -i DIR
 
 The query flags and output lines are those of adhoc_queries_pointclouds_tpu/
 cli.py (cmd_query, cli.py:101-193): "Searching N files...", one "Wrote
@@ -12,8 +15,11 @@ OUT_DIR/matching_points_{i}.las" per input file with hits under -o, "Found
 N matching points", the closing throughput line, and --stats; --print-points
 streams each hit as a "Found point: ..." line. --density X keeps at most one
 point per X^3 m^3 grid cell, per input file (--density-scope file) or over
-the whole query (global, the default: one output file). --device (default cuda) names
-the device; cuda without a card is an error, never a silent run on the CPU.
+the whole query (global, the default: one output file). --resident loads
+the dataset into device memory once and runs the query there, --repeat
+times (_run_resident, cli.py:231-280); `serve` answers JSON requests
+against a resident dataset (serve.py). --device (default cuda) names the
+device; cuda without a card is an error, never a silent run on the CPU.
 Flags of queries the port does not run yet exit with status 2.
 """
 
@@ -30,8 +36,6 @@ from .utils.timing import throughput_line
 
 # dest -> flag, for flags whose queries are not ported yet
 _NOT_PORTED = {
-    "resident": "--resident",
-    "repeat": "--repeat",
     "distributed": "--distributed",
     "coordinator": "--coordinator",
     "num_processes": "--num-processes",
@@ -84,15 +88,23 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--coordinator", help="(not yet ported)")
     parser.add_argument("--num-processes", type=int, default=None, help="(not yet ported)")
     parser.add_argument("--process-id", type=int, default=None, help="(not yet ported)")
-    parser.add_argument("--resident", action="store_true", help="(not yet ported)")
-    parser.add_argument("--repeat", type=int, help="(not yet ported)")
+    parser.add_argument(
+        "--resident", action="store_true",
+        help="Load the dataset into device memory once, then run the query "
+             "there (one launch per count query)",
+    )
+    parser.add_argument(
+        "--repeat", type=int, default=1,
+        help="Run the query N times (interactive/serving simulation; "
+             "pairs with --resident)",
+    )
 
 
 def cmd_query(args: argparse.Namespace) -> int:
     used = [flag for dest, flag in _NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
     if used:
-        print(f"not yet ported: {', '.join(used)} (the port runs counts, collects and density)",
-              file=sys.stderr)
+        print(f"not yet ported: {', '.join(used)} (the port runs counts, collects, density, "
+              f"--resident and serve)", file=sys.stderr)
         return 2
     maybe_bounds = parse_aabb(args.bounds) if args.bounds else None
     maybe_class = args.classification
@@ -121,6 +133,8 @@ def cmd_query(args: argparse.Namespace) -> int:
         print_points=args.print_points,
         parity_quirk=args.parity_quirk,
     )
+    if args.resident:
+        return _run_resident(args, plan)
     kwargs = {}
     if args.block_size:
         kwargs["block_size"] = args.block_size
@@ -151,6 +165,62 @@ def cmd_query(args: argparse.Namespace) -> int:
     return 0
 
 
+def _run_resident(args: argparse.Namespace, plan: QueryPlan) -> int:
+    """The query against the dataset loaded into device memory: a collect
+    once, or a count warmed once and then timed over --repeat runs, each
+    ending at its read-back (JAX cli.py:231-280, its output lines)."""
+    import time
+
+    from .parallel.resident import ResidentDataset
+
+    attrs = []
+    if plan.bounds is not None or plan.density is not None:
+        attrs.append("position")
+    if plan.classification is not None:
+        attrs.append("classification")
+    if plan.time_range is not None:
+        attrs.append("gps_time")
+    t0 = time.perf_counter()
+    ds = ResidentDataset.load(
+        args.input,
+        device=args.device,
+        attrs=tuple(attrs),
+        block_size=args.block_size or (1 << 21),
+        workers=args.workers,
+    )
+    load_s = time.perf_counter() - t0
+    print(
+        f"Resident: {ds.total_points} points, "
+        f"{ds.resident_bytes / 1048576.0:.1f} MiB in HBM, loaded in {load_s:.2f}s"
+    )
+    if plan.collects_points:
+        # the collect against the resident columns: one predicate launch and
+        # one compaction, attributes gathered from the files for hit rows only
+        t0 = time.perf_counter()
+        count, emitter = ds.collect(
+            plan,
+            output_dir=plan.output_dir,
+            print_stream=sys.stdout if args.print_points else None,
+        )
+        dt = time.perf_counter() - t0
+        for f in emitter.output_files:
+            print(f"Wrote {f}")
+        print(f"Found {count} matching points")
+        print(f"query in {dt * 1e3:.2f} ms against resident data")
+        return 0
+    count = ds.count(plan)  # warm (the kernels' first launch builds them)
+    t0 = time.perf_counter()
+    for _ in range(args.repeat):
+        count = ds.count(plan)
+    per_query = (time.perf_counter() - t0) / max(args.repeat, 1)
+    print(f"Found {count} matching points")
+    print(
+        f"{args.repeat} queries at {per_query * 1e3:.2f} ms/query "
+        f"({ds.total_points / max(per_query, 1e-12) / 1e6:.0f} Mpts/s/query)"
+    )
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # argparse rejects option values that start with '-'; bounding boxes
@@ -161,6 +231,10 @@ def main(argv: list[str] | None = None) -> int:
             if argv[k] == opt and argv[k + 1].startswith("-"):
                 argv[k : k + 2] = [f"{opt}={argv[k + 1]}"]
                 break
+    if argv and argv[0] == "serve":
+        from .serve import main as serve_main
+
+        return serve_main(argv[1:])
     if argv and argv[0] == "query":
         argv = argv[1:]
     parser = argparse.ArgumentParser(

@@ -17,8 +17,13 @@ is no cap, no bucket and no retry.
                          blocks the caller gives an offset: the kernel in
                          csrc/compact_bits.cu on CUDA tensors, its plain
                          version on CPU tensors
+  compact_bits_gather    compact_bits that also gathers three (K, B) int32
+                         columns at the rows it writes (the resident
+                         density path's x, y and z of the candidates);
+                         the second kernel of csrc/compact_bits.cu
 
-The kernel's launches are counted in predicate.launches["compact_bits"].
+The kernels' launches are counted in predicate.launches["compact_bits"] and
+["compact_bits_gather"].
 """
 
 from __future__ import annotations
@@ -77,3 +82,38 @@ def compact_bits(bits, chunks, offsets, total: int, block_size: int):
     out = torch.empty(total, dtype=torch.int32, device=dev)
     predicate.run("compact_bits", (bits, chunks, offsets, out), (k_blocks, block_size))
     return out
+
+
+def compact_bits_gather_plain(bits, chunks, offsets, total: int, block_size: int, xs, ys, zs):
+    """The plain version of compact_bits_gather: compact_bits_plain, then
+    each block's columns indexed at its rows."""
+    idx = compact_bits_plain(bits, chunks, offsets, total, block_size)
+    hits = unpack_mask_bits(bits, block_size).sum(dim=1).tolist()
+    block = torch.empty(total, dtype=torch.int64, device=bits.device)
+    for j, off in enumerate(offsets.tolist()):
+        if off >= 0:
+            block[off : off + hits[j]] = j
+    rows = idx.to(torch.int64)
+    return (idx, *(col[block, rows] for col in (xs, ys, zs)))
+
+
+def compact_bits_gather(bits, chunks, offsets, total: int, block_size: int, xs, ys, zs):
+    """compact_bits, with xs, ys, zs (K, B) int32 columns -> (idx, gx, gy,
+    gz), each (total,) int32: idx as compact_bits gives it, and each
+    column's value at the row idx names, in the row's block. No cap.
+    Replaces density_candidates_gather's take_along_axis of x, y and z at
+    the candidates' indices (adhoc_queries_pointclouds_tpu/ops/density.py:
+    598-610)."""
+    if not _on_cuda(bits):
+        return compact_bits_gather_plain(bits, chunks, offsets, total, block_size, xs, ys, zs)
+    k_blocks = bits.shape[0]
+    dev = bits.device
+    _check(bits, "bits", torch.int32, (k_blocks, mask_words(block_size)), dev)
+    _check(chunks, "chunks", torch.int32, (k_blocks, mask_chunks(block_size)), dev)
+    _check(offsets, "offsets", torch.int64, (k_blocks,), dev)
+    for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
+        _check(t, name, torch.int32, (k_blocks, block_size), dev)
+    outs = [torch.empty(total, dtype=torch.int32, device=dev) for _ in range(4)]
+    predicate.run("compact_bits_gather", (bits, chunks, offsets, xs, ys, zs, *outs),
+                  (k_blocks, block_size))
+    return tuple(outs)

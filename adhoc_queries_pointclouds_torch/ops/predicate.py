@@ -49,6 +49,7 @@ launches = {
     "mask_time": 0,
     "mask_time_packed": 0,
     "compact_bits": 0,
+    "compact_bits_gather": 0,
     "density_leaders": 0,
     "density_leaders_packed": 0,
     "density_candidates": 0,

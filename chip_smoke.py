@@ -54,10 +54,14 @@ Phases, in order; the first fault raises and the script exits non-zero:
      ops/density.py table_leaders), the mask and the compacted indices equal
      the plain version's; then every row a hit at the 30, 10 and 4.1 m
      grids, raw and packed, held and timed by tools/density_bench.py's
-     grid_case
+     grid_case. The compaction that gathers x, y and z
+     (compact_bits_gather) runs with every block skipped, blocks of 0
+     hits and full blocks given offsets, a partial last mask word at a B
+     no multiple of 8,192 and K > 65,535, and is timed at K=4 x 2^21 at
+     the collect cases' hit densities
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
-     (2 x 2M), six paths, each with the launch counters set to 0 just
+     (2 x 2M), seven paths, each with the launch counters set to 0 just
      before it and read just after:
        bbox: counts in both transports with the sidecar index off,
          auto-built and read, each equal to a numpy f64 oracle;
@@ -83,6 +87,18 @@ Phases, in order; the first fault raises and the script exits non-zero:
          (one run, and a --print-points run, byte-identical to --device
          cpu); every written LAS file, read back, holds exactly the winners
          of an independent numpy f64 oracle;
+       resident: the LAST 64M dataset loaded into device memory by the
+         CLI's --resident: the box, class 6, class 4 and the time range
+         with --repeat 20, each the oracle's count and one launch of its
+         count kernel a query; -o of the box and of one second of GPS
+         time, and density -o of the small box (25 m, file scope) and of
+         class 6 (5 m), each the oracle's files; ms a query for each
+         predicate (median of 20) in this process, with a torch.profiler
+         split of one query into the kernel, the fills, the H2D of the
+         query's bounds, the D2H of the counts and the host; and `serve`
+         as a subprocess (info, the three counts, a collect with limit 3
+         and an output dir, a line that is not JSON, quit), each reply
+         the oracle's;
      every kernel of a path must have launched in it
 
 It prints the nvidia-smi line and a JSON object of per-kernel numbers on the
@@ -98,6 +114,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -111,10 +128,13 @@ from adhoc_queries_pointclouds_torch import _build, cli, engine, index, native
 from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.formats.las import encode_point_records, make_writeback_header
 from adhoc_queries_pointclouds_torch.host import packed_row_width
-from adhoc_queries_pointclouds_torch.models.query import BoundsQuery, QueryPlan
+from adhoc_queries_pointclouds_torch.models.query import (
+    BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery,
+)
 from adhoc_queries_pointclouds_torch.ops import compact as C
 from adhoc_queries_pointclouds_torch.ops import density as D
 from adhoc_queries_pointclouds_torch.ops import predicate as P
+from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
 from adhoc_queries_pointclouds_torch.tools import bboxprobe, density_bench
 from adhoc_queries_pointclouds_torch.tools.kernel_timer import KernelTimer
 from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
@@ -153,6 +173,10 @@ E2E_TIME_LARGE = (52.5, 181.25)
 E2E_TIME_SMALL = (7.5, 13.25)
 # a selective box over LAZER file 0 for the --print-points run
 E2E_BOX_PRINT = "100500;200250;0;100560;200330;80"
+# one second of flight over the LAST files 1-2 boundary (200,000 points):
+# the resident time collect
+E2E_TIME_COLLECT = (79.5, 80.5)
+RESIDENT_REPEAT = 20  # --repeat of the resident counts
 FORMATS = ("las", "last", "lazer", "laz")
 DENSITIES = (0.0, 0.001, 0.5, 1.0)  # hit share of block k in the collect cases
 # the hit shares at which the packed mask kernels are timed: a range on every
@@ -177,6 +201,7 @@ KERNELS = {
     "mask_time": ("mask_bits.cu", _TPU + "ops/predicate.py:235"),
     "mask_time_packed": ("mask_bits.cu", _TPU + "ops/predicate.py:537"),
     "compact_bits": ("compact_bits.cu", _TPU + "ops/compact.py:86"),
+    "compact_bits_gather": ("compact_bits.cu", _TPU + "ops/density.py:598"),
     "density_leaders": ("density.cu", _TPU + "ops/density.py:339"),
     "density_leaders_packed": ("density.cu", _TPU + "ops/density.py:339"),
     "density_candidates": ("density.cu", _TPU + "ops/density.py:339"),
@@ -277,7 +302,7 @@ def ptxas_bodies(text: str) -> dict:
     entry = re.compile(r"(bbox_count_packed_kernel|time_count_packed_kernel|mask_packed_kernel"
                        r"|class_count_kernel|class_count_dict_kernel)I"
                        r"(?:N(?:4aqpc|S_)\d+(\w+?Tiles)I)?Lb([01])E((?:Li\d+E)*)"
-                       r"|(compact_bits_kernel)")
+                       r"|(compact_bits(?:_gather)?_kernel)")
     out: dict = {}
     lines = text.splitlines()
     for n, line in enumerate(lines):
@@ -606,6 +631,7 @@ def phase_kernels(dev) -> dict:
     kernels_time(dev, gen, timer, out)
     kernels_collect(dev, gen, timer, out)
     kernels_density(dev, gen, timer, out)
+    kernels_gather(dev, gen, timer, out)
     kernels_probe(dev, gen, timer, out)
     return out
 
@@ -1303,6 +1329,58 @@ def kernels_density(dev, gen, timer, out) -> None:
         out[kernel] = dict(max_abs_err=max(e[key] + e["compact"]), **times["main", kernel])
 
 
+def kernels_gather(dev, gen, timer, out) -> None:
+    """compact_bits_gather (compact_bits.cu) against its plain version on
+    the edges of the resident density path's gather: every block skipped,
+    blocks with 0 hits given an offset, full blocks (the density path gives
+    them offsets), skipped blocks, a partial last mask word at a B that is
+    no multiple of 8,192, K > 65,535; then at the path's shape, K blocks of
+    2^21 rows at the hit shares DENSITIES, every block given an offset,
+    timed (no PyTorch call computes the function: no library time)."""
+    errs: list[int] = []
+    print("compact_bits_gather:")
+
+    def case(label, rows, skip=()):
+        k_blocks, block_size = rows.shape
+        mask = P.pack_mask_bits(rows)
+        offsets, total = [], 0
+        for j, c in enumerate(mask.counts.tolist()):
+            offsets.append(-1 if j in skip else total)
+            total += 0 if j in skip else c
+        off = torch.tensor(offsets, dtype=torch.int64, device=dev)
+        xyz = [rand_i32(gen, (k_blocks, block_size), dev) for _ in range(3)]
+        args = (mask.bits, mask.chunks, off, total, block_size, *xyz)
+        got = C.compact_bits_gather(*args)
+        torch.cuda.synchronize()
+        want = C.compact_bits_gather_plain(*args)
+        same = all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if w.numel() else 0
+                  for g, w in zip(got, want))
+        errs.append(err)
+        print(f"  {label}, K={k_blocks}, B={block_size}: {total} rows and their x, y, z from "
+              f"{k_blocks - len(skip)} blocks; max_abs_err {err}")
+        if not same or err:
+            fail(f"compact_bits_gather, {label}: kernel disagrees with its plain version")
+        return args, total
+
+    def shares(k_blocks, block_size, values):
+        dens = torch.tensor(values, device=dev).repeat(k_blocks // len(values) + 1)[:k_blocks]
+        return torch.rand((k_blocks, block_size), device=dev, generator=gen) < dens[:, None]
+
+    odd = 3 * 8192 + 40  # no multiple of 8,192, and a partial last word
+    rows = shares(4, odd, DENSITIES)
+    case("every block skipped", rows, skip=range(4))
+    case("0 hits, 0.1 %, 1/2 and full blocks, all with offsets", rows)
+    case("block 2 skipped", rows, skip=(2,))
+    case("K > 65,535", shares(65548, 128, (0.0, 0.001, 0.3, 0.5, 0.9, 1.0, 0.05)))
+    args, total = case("the path's shape", hit_rows(gen, dev, B))
+    t = timed(timer, lambda: C.compact_bits_gather(*args),
+              lambda: C.compact_bits_gather_plain(*args),
+              K * B / 8 + 12 * total + 16 * total, K * B / 32 * 8 + 4 * total,
+              what=f"{total} rows of {K} blocks")
+    out["compact_bits_gather"] = dict(max_abs_err=max(errs), **t)
+
+
 def kernels_probe(dev, gen, timer, out) -> None:
     """The bbox probe variants (bbox_probe.cu) at the probe tool's size."""
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1337,6 +1415,17 @@ def kernels_probe(dev, gen, timer, out) -> None:
 # ---------------------------------------------------------------- phase 4
 
 
+# oracles a later path reads again, computed once a run: key -> value
+_ORACLES: dict = {}
+
+
+def kept(key, make):
+    """make(), computed once a run for key."""
+    if key not in _ORACLES:
+        _ORACLES[key] = make()
+    return _ORACLES[key]
+
+
 def point_files(data_dir: Path) -> list[Path]:
     return [f for f in sorted(data_dir.iterdir()) if f.suffix.lstrip(".") in FORMATS]
 
@@ -1353,7 +1442,8 @@ def column_oracle(data_dir: Path, match) -> int:
 
 def oracle(data_dir: Path, box: str) -> int:
     aabb = parse_aabb(box)
-    return column_oracle(data_dir, lambda r: aabb.contains_points(r.positions_world()))
+    return kept(("count", data_dir, box), lambda: column_oracle(
+        data_dir, lambda r: aabb.contains_points(r.positions_world())))
 
 
 def run_cli(args: list[str], pack: str) -> str:
@@ -1459,6 +1549,19 @@ def path_time(datasets) -> None:
                 fail(f"{data_dir.name}: the exact index did not prune the time range")
 
 
+def in_box(box: AABB):
+    """The numpy match of the closed box."""
+    return lambda r: box.contains_points(r.positions_world())
+
+
+def in_time(t0: float, t1: float):
+    """The numpy match of the half-open GPS-time range [t0, t1)."""
+    def match(r):
+        g = r.column("gps_time")
+        return (g >= t0) & (g < t1)
+    return match
+
+
 def written_oracle(data_dir: Path, match) -> list:
     """The numpy oracle of a collect: for each input file with hits, in file
     order, the write-back header and the LAS point records of exactly its
@@ -1554,12 +1657,6 @@ def path_collect(datasets) -> None:
     box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
     (t0_l, t1_l), (t0_s, t1_s) = E2E_TIME_LARGE, E2E_TIME_SMALL
 
-    def in_time(t0, t1):
-        def match(r):
-            g = r.column("gps_time")
-            return (g >= t0) & (g < t1)
-        return match
-
     last_queries = [
         (["--bounds", E2E_BOX_LARGE], lambda r: box_l.contains_points(r.positions_world())),
         (["--class", "6"], lambda r: r.column("classification") == 6),
@@ -1575,7 +1672,7 @@ def path_collect(datasets) -> None:
         for q, (query, match) in enumerate(last_queries):
             if q == 1:
                 build_exact_indexes(datasets)
-            want = written_oracle(big, match)
+            want = kept(("written", big, *query), lambda: written_oracle(big, match))
             print(f"{big.name}: {' '.join(query)}, oracle {sum(len(r) for _, r in want)} "
                   f"matching in {len(want)} files")
             for n, (pack, use_index) in enumerate([("1", False), ("0", False), ("1", True),
@@ -1685,9 +1782,6 @@ def path_density(datasets) -> None:
     big, small = datasets[0][0], datasets[2][0]
     box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
 
-    def in_box(box):
-        return lambda r: box.contains_points(r.positions_world())
-
     def is_class(r):
         return r.column("classification") == 6
 
@@ -1706,7 +1800,8 @@ def path_density(datasets) -> None:
         tmp = Path(tmp)
         for q, (query, match, bounds, cell, scope, runs) in enumerate(last_runs):
             t0 = time.perf_counter()
-            hits, want = density_oracle(big, match, cell, scope, bounds)
+            hits, want = kept(("density", big, *query, cell, scope),
+                              lambda: density_oracle(big, match, cell, scope, bounds))
             n_want = sum(len(recs) for _, recs in want)
             print(f"{big.name}: {' '.join(query)} --density {cell} --density-scope {scope}: "
                   f"oracle {n_want} winners of {hits} hits ({100 * n_want / hits:.2f} %) in "
@@ -1753,6 +1848,215 @@ def path_probe(datasets) -> None:
     bboxprobe.main(["--n", str(PROBE_N), "--iters", "8", "--device", "cuda"])
 
 
+def resident_collect(data_dir: Path, query: list[str], want: list, out_dir: Path) -> None:
+    """One CLI collect with --resident -o; its count and every written file
+    must equal the oracle's."""
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    out = run_cli(["-i", str(data_dir), *query, "--device", "cuda", "--resident",
+                   "-o", str(out_dir)], "1")
+    wall = time.perf_counter() - t0
+    label = f"{data_dir.name} --resident -o {' '.join(query)}"
+    found = int(re.search(r"^Found (\d+) matching points$", out, re.M).group(1))
+    n_want = sum(len(recs) for _, recs in want)
+    if found != n_want:
+        fail(f"{label}: found {found}, oracle {n_want}")
+    wrote = check_written(out, want, label)
+    lines = out.strip().splitlines()
+    print(f"  {label}: found {found} in {len(wrote)} files equal to the oracle's; {wall:.3f} s; "
+          f"{lines[0]}; {lines[-1]}")
+
+
+def resident_split(fn, wall_ms: float, runs: int = 20) -> str:
+    """Where one resident query's time goes: torch.profiler's device work of
+    runs queries, per query, by kind (the count kernel; the fills and the
+    bounds' join; the H2D of the per-query bounds or range; the D2H of the
+    counts), and the host's share: the query's wall, wall_ms, less all of
+    the device's work. The trace may lose records: a query launches its
+    count kernel once, so the kernel records it holds are the queries it
+    saw, and every kind is divided by them."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"kernel": 0.0, "fills and joins": 0.0, "H2D": 0.0, "D2H": 0.0}
+    seen = 0  # the queries whose kernel record the trace holds
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if not us:
+            continue
+        kind = ("H2D" if "HtoD" in e.key else "D2H" if "DtoH" in e.key
+                else "kernel" if "_count" in e.key else "fills and joins")
+        parts[kind] += us / 1e3
+        seen += e.count if kind == "kernel" else 0
+    if not seen:
+        return "not measured (no kernel in the profiler's trace)"
+    parts = {k: v / seen for k, v in parts.items()}
+    device = sum(parts.values())
+    return (", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+            + f"; host (wall less device) {wall_ms - device:.4f} ms; the trace held "
+              f"{seen} of {runs} queries' kernels")
+
+
+def serve_run(data_dir: Path, tmp: Path, wants: dict) -> None:
+    """`serve` as a subprocess on the card over stdin: info, the box, class
+    6, the time range, a collect with limit 3 and an output dir over a small
+    box, a line that is not JSON, quit; a reply for every line, each
+    count the oracle's, the written files the oracle's."""
+    box_l, box_p = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_PRINT)
+    out_dir = tmp / "served"
+    out_dir.mkdir()
+    requests = [
+        {"cmd": "info"},
+        {"bounds": [*box_l.min, *box_l.max]},
+        {"class": 6},
+        {"time_range": list(E2E_TIME_LARGE)},
+        {"bounds": [*box_p.min, *box_p.max], "collect": True, "limit": 3},
+        {"bounds": [*box_p.min, *box_p.max], "output": str(out_dir)},
+    ]
+    lines = [json.dumps(r) for r in requests] + ["not json", json.dumps({"cmd": "quit"})]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", "serve", "-i",
+         str(data_dir), "--device", "cuda"],
+        input="\n".join(lines) + "\n", capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"serve exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    replies = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    print(f"  serve -i {data_dir.name} --device cuda: {len(lines)} lines, {len(replies)} replies "
+          f"in {wall:.3f} s")
+    for reply in replies:
+        print(f"    {json.dumps(reply)[:300]}")
+    if len(replies) != 1 + len(lines):
+        fail(f"serve: {len(replies)} replies to {len(lines)} lines and the ready line")
+    ready, info, box, cls6, tr, pts, output, bad, bye = replies
+    n = wants["points"]
+    if not ready.get("ready") or ready["points"] != n or info["points"] != n:
+        fail(f"serve: ready {ready}, info {info}, {n} points")
+    if info["devices"] != 1:
+        fail(f"serve: info {info}")
+    for label, reply, want in (("box", box, wants["box"]), ("class 6", cls6, wants["class 6"]),
+                               ("time", tr, wants["time"]),
+                               ("collect", pts, wants["small box"]),
+                               ("output", output, wants["small box"])):
+        if reply.get("count") != want:
+            fail(f"serve {label}: {reply}, oracle {want}")
+    if len(pts["points"]) != 3 or pts["truncated"] is not True or not all(
+            box_p.contains_points(np.asarray([p[:3]]))[0] for p in pts["points"]):
+        fail(f"serve collect: {pts}")
+    check_written("\n".join(f"Wrote {f}" for f in output["files"]),
+                  written_oracle(data_dir, lambda r: box_p.contains_points(r.positions_world())),
+                  "serve output")
+    if not bad.get("error", "").startswith("bad json") or bye != {"bye": True}:
+        fail(f"serve: {bad}, {bye}")
+
+
+def path_resident(datasets) -> None:
+    """The LAST 64M dataset loaded into device memory through the CLI: the
+    box, class 6, class 4 and the time range with --resident --repeat 20,
+    each one launch of its count kernel a query and the oracle's count; -o
+    of the box and of a time range, density -o of the small box at file
+    scope and of class 6, each the oracle's files; ms a query for each
+    predicate (median of 20) with a profiler split, in this process; and
+    `serve` as a subprocess."""
+    big = datasets[0][0]
+    box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
+    t0, t1 = E2E_TIME_LARGE
+    wants = {
+        "box": oracle(big, E2E_BOX_LARGE),
+        "class 6": column_oracle(big, lambda r: r.column("classification") == 6),
+        "class 4": column_oracle(big, lambda r: r.column("classification") == 4),
+        "time": column_oracle(big, in_time(t0, t1)),
+        "small box": oracle(big, E2E_BOX_PRINT),
+        "points": sum(open_point_cloud(f).point_count for f in point_files(big)),
+    }
+    print(f"{big.name}: {wants['points']} points, oracles {wants}")
+    counts = [
+        ("box", ["--bounds", E2E_BOX_LARGE], "bbox_count_multi",
+         QueryPlan(bounds=BoundsQuery(box_l)), 12),
+        ("class 6", ["--class", "6"], "class_count_words",
+         QueryPlan(classification=ClassQuery(6)), 1),
+        ("class 4", ["--class", "4"], "class_count_words",
+         QueryPlan(classification=ClassQuery(4)), 1),
+        ("time", ["--time-range", f"{t0};{t1}"], "time_count_multi",
+         QueryPlan(time_range=TimeRangeQuery(t0, t1)), 8),
+    ]
+    for label, query, kernel, _, _ in counts:
+        before = dict(P.launches)
+        out = run_cli(["-i", str(big), *query, "--device", "cuda", "--resident", "--repeat",
+                       str(RESIDENT_REPEAT)], "1")
+        launched = {k: v - before[k] for k, v in P.launches.items() if v != before[k]}
+        found = int(re.search(r"^Found (\d+) matching points$", out, re.M).group(1))
+        lines = out.strip().splitlines()
+        print(f"  {big.name} --resident --repeat {RESIDENT_REPEAT} {' '.join(query)}: found "
+              f"{found}, oracle {wants[label]}; {lines[0]}; {lines[-1]}; launches {launched}")
+        if found != wants[label]:
+            fail(f"{big.name} --resident {' '.join(query)}: found {found}, oracle {wants[label]}")
+        if launched != {kernel: RESIDENT_REPEAT + 1}:
+            fail(f"{big.name} --resident {' '.join(query)}: launched {launched}, not {kernel} "
+                 f"once a query")
+
+    with tempfile.TemporaryDirectory(prefix="aqpc_resident_") as tmp:
+        tmp = Path(tmp)
+        resident_collect(big, ["--bounds", E2E_BOX_LARGE],
+                         kept(("written", big, "--bounds", E2E_BOX_LARGE),
+                              lambda: written_oracle(big, in_box(box_l))), tmp / "box")
+        lo, hi = E2E_TIME_COLLECT
+        resident_collect(big, ["--time-range", f"{lo};{hi}"],
+                         written_oracle(big, in_time(lo, hi)), tmp / "time")
+        for query, match, bounds, cell, scope in (
+                (["--bounds", E2E_BOX_SMALL], in_box(box_s), (box_s.min, box_s.max), 25.0, "file"),
+                (["--class", "6"], lambda r: r.column("classification") == 6, None, 5.0,
+                 "global")):
+            _, want = kept(("density", big, *query, cell, scope),
+                           lambda: density_oracle(big, match, cell, scope, bounds))
+            resident_collect(big, [*query, "--density", str(cell), "--density-scope", scope],
+                             want, tmp / f"density_{cell}")
+
+        # ms a query and where it goes, on one dataset with every column
+        t = time.perf_counter()
+        ds = ResidentDataset.load(big, device="cuda",
+                                  attrs=("position", "classification", "gps_time"))
+        print(f"  in this process: {ds.total_points} points, {ds.n_blocks} blocks of "
+              f"{ds.block_size}, {ds.resident_bytes / 2**20:.1f} MiB on the card, loaded in "
+              f"{time.perf_counter() - t:.2f} s")
+        smi = smi_line()
+        timer = KernelTimer(ds.device, TIMED_RUNS)
+        for label, _, kernel, plan, bytes_a_point in counts:
+            if ds.count(plan) != wants[label]:
+                fail(f"resident count {label}: not the oracle's {wants[label]}")
+            # the count entry's call alone on the query's operands: its
+            # device work (the kernel and its fills), L2 flushed
+            _, operands = ds._operands(plan, 0, ds.n_blocks)
+            if kernel == "class_count_words":
+                operands = (operands[0].view(torch.int32), *operands[1:])
+            entry = getattr(P, f"{kernel}_kernel")
+            entry_ms, entry_least = timer.times(lambda: entry(*operands), device=True)
+            walls = []
+            for _ in range(RESIDENT_REPEAT):
+                t = time.perf_counter()
+                found = ds.count(plan)
+                walls.append((time.perf_counter() - t) * 1e3)
+                if found != wants[label]:
+                    fail(f"resident count {label}: found {found}, oracle {wants[label]}")
+            wall = statistics.median(walls)
+            bound_ms, _ = bound_of(bytes_a_point * ds.total_points, ds.total_points)
+            print(f"  resident {label} ({kernel}): {wall:.4f} ms a query (median of "
+                  f"{RESIDENT_REPEAT}, least {min(walls):.4f}; {ds.total_points} points); the "
+                  f"count entry's device work {entry_ms:.4f} ms (least {entry_least:.4f}; "
+                  f"{bytes_a_point * ds.total_points / entry_ms / 1e6:.1f} GB/s), its bound "
+                  f"{bound_ms:.4f} ms; {smi}")
+            print(f"    one query (torch.profiler, 20 queries): "
+                  f"{resident_split(lambda: ds.count(plan), wall)}")
+        del ds
+        torch.cuda.empty_cache()
+        serve_run(big, tmp, wants)
+
+
 # path -> (driver, the kernels it must launch)
 PATHS = {
     "bbox": (path_bbox, ("bbox_count_multi", "bbox_count_packed")),
@@ -1763,6 +2067,9 @@ PATHS = {
     "probe": (path_probe, ("bbox_probe_acc", "bbox_probe_acc_nomask")),
     "density": (path_density, ("density_leaders", "density_leaders_packed", "density_candidates",
                                "density_candidates_packed", "compact_bits")),
+    "resident": (path_resident, ("bbox_count_multi", "class_count_words", "time_count_multi",
+                                 "mask_bbox", "mask_class", "mask_time", "compact_bits",
+                                 "density_leaders", "density_candidates", "compact_bits_gather")),
 }
 
 

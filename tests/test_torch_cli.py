@@ -1,5 +1,7 @@
 """The port's CLI against the JAX package's CLI, on the CPU."""
 
+import io
+import json
 import re
 
 import pytest
@@ -55,8 +57,17 @@ def test_found_line_matches_jax_cli(data, capsys, box, extra):
     ["--distributed"],
     ["--profile", "trace"],
     ["--devices", "2"],
+    ["serve"],
 ])
-def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, flag):
+def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, monkeypatch, flag):
+    if flag[0] in ("--resident", "--repeat"):
+        # ported: the JAX CLI's lines but the timing numbers
+        _same_resident_output(data, capsys, flag)
+        return
+    if flag[0] == "serve":
+        # ported: the JAX service's replies but times and layout
+        _same_serve_output(data, capsys, monkeypatch)
+        return
     if flag[0] in ("-o", "--print-points"):
         # ported: exit 0 and the JAX CLI's output, line for line (but the
         # timing line), and -o writes the JAX CLI's files byte for byte
@@ -77,6 +88,56 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, flag):
         assert err == capsys.readouterr().err != ""
     else:
         assert "not yet ported" in err
+
+
+def _resident_lines(out: str) -> list[str]:
+    """The CLI's lines with the resident path's timing numbers and its
+    device-memory size (which follows each package's block layout) cut."""
+    out = re.sub(r"[\d.]+ MiB in HBM, loaded in [\d.]+s", "MiB in HBM, loaded", out)
+    out = re.sub(r"queries at [\d.]+ ms/query \(\d+ Mpts/s/query\)", "queries at", out)
+    return out.splitlines()
+
+
+def _same_resident_output(data, capsys, flag):
+    """--resident, and --repeat alone (a streamed count, as in the JAX CLI)
+    and with --resident: the JAX CLI's lines but the timing numbers, and
+    the port's device memory of its own 4 blocks of 2^14 points."""
+    runs = [flag] if flag[0] == "--resident" else [flag, ["--resident", *flag]]
+    for extra in runs:
+        args = ["-i", str(data), "--bounds", BOXES[0], "--block-size", "16384", *extra]
+        assert jax_cli.main(args) == 0
+        ref = capsys.readouterr().out
+        assert torch_cli.main([*args, "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert _found(out) == _found(ref) > 0
+        if "--resident" not in extra:
+            assert out.splitlines()[:-1] == ref.splitlines()[:-1]
+            continue
+        assert _resident_lines(out) == _resident_lines(ref)
+        mib = 4 * 16384 * 12 / 1048576.0  # x, y, z of 2 files x 2 blocks
+        assert out.startswith(f"Resident: 60000 points, {mib:.1f} MiB in HBM, loaded in ")
+        repeat = int(extra[extra.index("--repeat") + 1]) if "--repeat" in extra else 1
+        assert re.search(rf"^{repeat} queries at [\d.]+ ms/query", out, re.M)
+
+
+def _same_serve_output(data, capsys, monkeypatch):
+    """`serve` over the same stdin lines: the JAX service's replies but the
+    times and the layout fields (blocks, devices, device memory)."""
+    lines = [{"cmd": "info"}, {"bounds": [100200, 200300, 10, 101500, 200800, 60]},
+             {"class": 6, "collect": True, "limit": 3}, {"bounds": [1, 2]}, {"cmd": "quit"}]
+    stdin = "\n".join(json.dumps(r) for r in lines) + "\nnot json\n"
+    replies = []
+    for cli, extra in ((jax_cli, []), (torch_cli, ["--device", "cpu"])):
+        monkeypatch.setattr("sys.stdin", io.StringIO(stdin))
+        assert cli.main(["serve", "-i", str(data), "--block-size", "16384", *extra]) == 0
+        replies.append([{k: v for k, v in json.loads(line).items()
+                         if k not in ("ms", "load_s", "resident_mib", "blocks", "devices")}
+                        for line in capsys.readouterr().out.splitlines()])
+    assert replies[0] == replies[1]
+    assert len(replies[1]) == len(lines) + 1  # the ready line; nothing after quit
+    assert replies[1][0] == {"ready": True, "points": 60_000}
+    assert replies[1][2]["count"] > 0 and len(replies[1][3]["points"]) == 3
+    assert replies[1][-1] == {"bye": True}
 
 
 def _same_collect_output(data, capsys, tmp_path, flag):

@@ -1188,3 +1188,87 @@ def test_density_engine_matches_cpu(dev, tmp_path, monkeypatch, scope, spec, pac
              else [(got["file"][i], ref["file"][i]) for i in sorted(ref["file"])])
     for a, b in pairs:
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("K, B", [(7, 4096), (7, 4099), (5, 8192 * 3 + 40), (6, 99),
+                                  (65548, 128)],
+                         ids=["aligned", "partial_last_word", "chunks", "short", "over_grid_y"])
+def test_compact_bits_gather_matches_plain(dev, K, B):
+    """The compaction that gathers x, y and z against its plain version:
+    blocks with no hits, a few, half, all (full blocks keep their offset
+    here, as the resident density path gives them), skipped blocks, and
+    every block skipped."""
+    rng = np.random.default_rng(K + B)
+    shares = np.resize([0.0, 0.001, 0.5, 1.0, 0.3, 0.05, 0.9], K)
+    rows = torch.from_numpy(rng.random((K, B)) < shares[:, None])
+    mask = TP.pack_mask_bits(rows)
+    xyz = [torch.from_numpy(rng.integers(I32.min, I32.max, (K, B), endpoint=True)
+                            .astype(np.int32)) for _ in range(3)]
+    counts = mask.counts.numpy()
+    for skip in (3, 1):  # every third block skipped; every block skipped
+        offsets = np.full(K, -1, np.int64)
+        total = 0
+        for j in range(K):
+            if j % 3 != 2 and skip == 3:
+                offsets[j], total = total, total + int(counts[j])
+        off = torch.from_numpy(offsets)
+        before = TP.launches["compact_bits_gather"]
+        got = TC.compact_bits_gather(mask.bits.to(dev), mask.chunks.to(dev), off.to(dev), total,
+                                     B, *(t.to(dev) for t in xyz))
+        torch.cuda.synchronize()
+        assert TP.launches["compact_bits_gather"] == before + 1
+        want = TC.compact_bits_gather_plain(mask.bits, mask.chunks, off, total, B, *xyz)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        assert torch.equal(want[0], TC.compact_bits(mask.bits, mask.chunks, off, total, B))
+        assert (total > 0) == (skip == 3)
+
+
+@pytest.mark.parametrize("B", [128, 99], ids=["words", "u8_rows"])
+def test_resident_count_over_more_blocks_than_grid_y(dev, tmp_path, B):
+    """A resident count is one launch of its predicate's count entry over
+    every block, summed in int64: over 65,548 blocks of one file, the bbox,
+    class and GPS-time counts equal a numpy oracle of the same columns."""
+    from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
+    from adhoc_queries_pointclouds_torch.utils.aabb import clamp_bounds_to_i32, local_query_bounds
+
+    synth.write_dataset(tmp_path, n_files=1, points_per_file=1000, seed=4, formats=("last",))
+    f = sorted((tmp_path / "last").iterdir())[0]
+    r = open_point_cloud(f)
+    h = r.header
+    r.close()
+    rows = 65548
+    rng = np.random.default_rng(rows + B)
+    box = AABB((100200.0, 200300.0, 10.0), (100700.0, 200800.0, 60.0))
+    lo, hi = clamp_bounds_to_i32(*local_query_bounds(box, h.scale, h.offset))
+    xyz = [rng.integers(int(lo[a]) - 200_000, int(hi[a]) + 200_000, (rows, B)).astype(np.int32)
+           for a in range(3)]
+    cls = rng.integers(0, 8, (rows, B)).astype(np.uint8)
+    times = rng.uniform(0.0, 100.0, (rows, B))
+    th, tl = host.encode_f64_sortable(times.reshape(-1))
+    nvs = rng.integers(0, B + 1, rows).astype(np.int32)
+    valid = np.arange(B)[None, :] < nvs[:, None]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ds = ResidentDataset(
+        device=dev, block_size=B, n_blocks=rows, headers=[h], files=[f],
+        file_idx=np.zeros(rows, np.int32), nvs=nvs, block_start=np.arange(rows) * B,
+        nvs_dev=put(nvs), xs=put(xyz[0]), ys=put(xyz[1]), zs=put(xyz[2]), cls=put(cls),
+        ths=put(th.reshape(rows, B)), tls=put(tl.reshape(rows, B)),
+        total_points=int(nvs.sum()),
+    )
+    inside = valid.copy()
+    for a in range(3):
+        inside &= (xyz[a] >= lo[a]) & (xyz[a] <= hi[a])
+    kernel = "class_count_words" if B % 4 == 0 else "class_count_multi"
+    for plan, entry, want in (
+        (QueryPlan(bounds=BoundsQuery(box)), "bbox_count_multi", inside.sum()),
+        (QueryPlan(classification=ClassQuery(6)), kernel, (valid & (cls == 6)).sum()),
+        (QueryPlan(time_range=TimeRangeQuery(12.5, 60.25)), "time_count_multi",
+         (valid & (times >= 12.5) & (times < 60.25)).sum()),
+    ):
+        before = dict(TP.launches)
+        assert ds.count(plan) == int(want) > 0
+        launched = {k: v - before[k] for k, v in TP.launches.items() if v != before[k]}
+        assert launched == {entry: 1}

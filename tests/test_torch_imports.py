@@ -30,13 +30,13 @@ JAX_PACKAGE = "adhoc_queries_pointclouds_tpu"
 _PROGRAM = r"""
 import pathlib, sys, tempfile
 import adhoc_queries_pointclouds_torch
-from adhoc_queries_pointclouds_torch import cli, engine, host, index, native, sinks
+from adhoc_queries_pointclouds_torch import cli, engine, host, index, native, serve, sinks
 from adhoc_queries_pointclouds_torch.formats import las, last, laz, lazer, lz4py, synth
 from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery,
 )
 from adhoc_queries_pointclouds_torch.ops import compact, density, predicate
-from adhoc_queries_pointclouds_torch.parallel import comm, pipeline, step
+from adhoc_queries_pointclouds_torch.parallel import comm, pipeline, resident, step
 from adhoc_queries_pointclouds_torch.tools import bboxprobe
 from adhoc_queries_pointclouds_torch.utils import timing
 from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
@@ -71,6 +71,18 @@ with tempfile.TemporaryDirectory() as d:
                     device="cpu", block_size=2048, density_state_out=state,
                     density_grid_bounds=parse_aabb("99000;199000;-10;102000;202000;200"))
                 assert 0 < res.match_count < 5000 and sorted(state) == [scope]
+    # the resident path: counts, a collect, density, and the service's replies
+    ds = resident.ResidentDataset.load(pathlib.Path(d) / "last", device="cpu",
+                                       attrs=("position", "classification", "gps_time"))
+    assert [ds.count(p) for p in plans] == counts, counts
+    n, emitter = ds.collect(QueryPlan(classification=ClassQuery(4), print_points=True),
+                            keep_hits=True, print_stream=open(os.devnull, "w"))
+    assert n == counts[1] == sum(h.count for h in emitter.all_hits)
+    assert 0 < ds.count(QueryPlan(classification=ClassQuery(4),
+                                  density=DensityConfig(30.0, "file"))) < 5000
+    path = str(pathlib.Path(d) / "last")
+    assert serve.handle_request(ds, {"cmd": "info"}, path)["points"] == 5000
+    assert serve.handle_request(ds, {"class": 4, "collect": True, "limit": 2}, path)["count"] == n
 bboxprobe.main(["--n", "4096", "--device", "cpu"])
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "adhoc_queries_pointclouds_tpu")))
@@ -78,8 +90,9 @@ print(sorted(m for m in sys.modules
 
 
 def test_port_imports_no_jax():
-    """After counts, collects, density queries and the probe tool in a fresh process,
-    sys.modules holds no jax, no jaxlib and nothing of the JAX package."""
+    """After counts, collects, density queries, resident queries, the
+    service's replies and the probe tool in a fresh process, sys.modules
+    holds no jax, no jaxlib and nothing of the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

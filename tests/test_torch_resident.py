@@ -1,0 +1,248 @@
+"""The port's resident datasets against the JAX package's, on the CPU.
+
+The same files are loaded by adhoc_queries_pointclouds_tpu's ResidentDataset
+(on the 8-device CPU mesh, so its blocks are padded to a multiple of 8) and
+by the port's (device="cpu", no padding). Counts, collects (hit attributes
+and written LAS bytes) and density winners (key, d2, file, gidx) must be
+equal, and each count must equal the port's streamed run_query. Everything
+compared is an integer, bytes or an f64 computed by the same host code from
+the same indices: the tolerance is 0.
+
+The dataset mirrors tests/test_resident.py (3 files x 25,000 points, seed
+17, blocks of 2^14), in point format 3 so that GPS-time queries run too.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from adhoc_queries_pointclouds_tpu import engine as jax_engine
+from adhoc_queries_pointclouds_tpu.models import query as jax_query
+from adhoc_queries_pointclouds_tpu.parallel.resident import ResidentDataset as JaxResident
+from adhoc_queries_pointclouds_torch import engine as torch_engine
+from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
+from adhoc_queries_pointclouds_torch.models import query as torch_query
+from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
+from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
+from test_torch_engine import make_plan
+
+BLOCK = 1 << 14
+ATTRS = ("position", "classification", "gps_time")
+BOX = "100200;200300;10;100700;200800;60"
+# query name -> make_plan arguments
+QUERIES = {
+    "box": dict(box=BOX),
+    "box_all": dict(box="-1e9;-1e9;-1e9;1e9;1e9;1e9"),
+    # about half of every block's points: partial blocks with many hits
+    "box_half": dict(box="-1e9;-1e9;-1e9;1e9;1e9;50"),
+    "box_disjoint": dict(box="0;0;0;10;10;10"),
+    # every file, in a box a density grid can cover
+    "box_files": dict(box="99000;199000;-10;104000;202000;200"),
+    "class6": dict(cls=6),
+    "class19": dict(cls=19),
+    "time": dict(time=(200_000.0, 800_000.0)),
+    "time_none": dict(time=(2e6, 3e6)),
+}
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_resident")
+    synth.write_dataset(root, n_files=3, points_per_file=25_000, seed=17, formats=("last",),
+                        point_format=3)
+    return root / "last"
+
+
+@pytest.fixture(scope="module")
+def both(data):
+    """(the JAX package's resident dataset, the port's), all three attrs."""
+    return (JaxResident.load(data, block_size=BLOCK, attrs=ATTRS),
+            ResidentDataset.load(data, device="cpu", block_size=BLOCK, attrs=ATTRS))
+
+
+def plans(density=None, scope="global", **fields):
+    """The JAX package's plan and the port's from the same arguments."""
+    out = []
+    for eng, q in ((jax_engine, jax_query), (torch_engine, torch_query)):
+        plan = make_plan(eng, **fields)
+        if density is not None:
+            plan = dataclasses.replace(plan, density=q.DensityConfig(density, scope))
+        out.append(plan)
+    return out
+
+
+def test_layout_has_no_padding(data, both):
+    """One device: a block for each (file, block) task, every row a file's."""
+    ref, got = both
+    assert got.device == torch.device("cpu")
+    assert got.n_blocks == 6 and ref.n_blocks == 8  # JAX pads to the 8-device mesh
+    assert got.file_idx.tolist() == [0, 0, 1, 1, 2, 2]
+    assert got.nvs.tolist() == [BLOCK, 25_000 - BLOCK] * 3
+    assert got.block_start.tolist() == [0, BLOCK] * 3
+    assert torch.equal(got.nvs_dev, torch.from_numpy(got.nvs))
+    assert got.total_points == ref.total_points == 75_000
+    assert got.resident_bytes == 6 * BLOCK * 21
+    for name in ("xs", "ys", "zs", "cls", "ths", "tls"):
+        t = getattr(got, name)
+        assert t.is_contiguous() and t.shape == (6, BLOCK)
+        assert np.array_equal(t.numpy(), np.asarray(getattr(ref, name))[ref.file_idx >= 0])
+    assert got.cls.dtype == torch.uint8
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_count_matches_jax_and_streaming(data, both, name):
+    ref, got = both
+    jax_plan, torch_plan = plans(**QUERIES[name])
+    want = ref.count(jax_plan)
+    assert got.count(torch_plan) == want
+    streamed = torch_engine.run_query(data, torch_plan, device="cpu", block_size=BLOCK,
+                                      use_index=False)
+    assert streamed.match_count == want
+    assert (want == 0) == name.endswith(("disjoint", "19", "none"))
+
+
+def test_repeated_distinct_boxes_match_the_oracle(data, both):
+    """Distinct boxes give distinct, oracle-correct counts (nothing cached)."""
+    _, got = both
+    worlds = []
+    for f in sorted(data.iterdir()):
+        r = open_point_cloud(f)
+        worlds.append(r.positions_world())
+        r.close()
+    for dx in (100.0, 300.0, 500.0):
+        box = parse_aabb(f"100200;200300;10;{100200 + dx};200800;60")
+        want = sum(int(np.sum(box.contains_points(w))) for w in worlds)
+        assert got.count(torch_query.QueryPlan(bounds=torch_query.BoundsQuery(box))) == want > 0
+
+
+def _hits_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.file_idx == y.file_idx
+        for field in ("position_world", "classification", "color", "intensity"):
+            assert np.array_equal(getattr(x, field), getattr(y, field)), field
+
+
+@pytest.mark.parametrize("name", ["box", "box_half", "box_all", "class6", "time", "box_disjoint"])
+def test_collect_matches_jax(both, tmp_path, name):
+    """Collect with -o and keep_hits: the JAX package's hits and LAS bytes."""
+    ref, got = both
+    outs = []
+    for ds, plan, sub in ((ref, plans(**QUERIES[name])[0], "jax"),
+                          (got, plans(**QUERIES[name])[1], "torch")):
+        out = tmp_path / sub
+        out.mkdir()
+        count, emitter = ds.collect(plan, output_dir=out, keep_hits=True)
+        outs.append((count, emitter, {f.name: f.read_bytes() for f in out.iterdir()}))
+    (want, ref_emitter, ref_files), (count, emitter, files) = outs
+    assert count == want == sum(h.count for h in emitter.all_hits)
+    _hits_equal(emitter.all_hits, ref_emitter.all_hits)
+    assert files == ref_files
+    assert bool(files) == (want > 0)
+
+
+def test_collect_returns_every_point_with_no_cap(both):
+    """Many matches in every block: the JAX package retries past its cap
+    (cap=8), the port reads each block's true count and compacts exactly
+    that many; both return every point of the half box, and every point of
+    the whole dataset."""
+    ref, got = both
+    jax_plan, torch_plan = plans(**QUERIES["box_half"])
+    want, ref_emitter = ref.collect(jax_plan, cap=8, keep_hits=True)
+    count, emitter = got.collect(torch_plan, keep_hits=True)
+    assert count == want > 20_000
+    _hits_equal(emitter.all_hits, ref_emitter.all_hits)
+    jax_plan, torch_plan = plans(**QUERIES["box_all"])
+    count, emitter = got.collect(torch_plan, keep_hits=True)
+    assert count == got.total_points == ref.collect(jax_plan, cap=8)[0]
+    assert [h.count for h in emitter.all_hits] == [25_000] * 3
+
+
+def _winners_equal(a, b):
+    assert a.dtype == b.dtype and len(a) == len(b)
+    for field in ("key", "d2", "file_idx", "gidx"):
+        assert np.array_equal(a[field], b[field]), field
+
+
+@pytest.mark.parametrize("scope", ["global", "file"])
+@pytest.mark.parametrize("name, cell", [("box", 5.0), ("box_files", 40.0), ("class6", 20.0),
+                                        ("time", 30.0)])
+def test_density_winners_match_jax(both, name, cell, scope):
+    ref, got = both
+    jax_plan, torch_plan = plans(density=cell, scope=scope, **QUERIES[name])
+    want_files, want_global = ref.density_states(jax_plan)
+    files, global_state = got.density_states(torch_plan)
+    if scope == "global":
+        assert files == {} and want_files == {}
+        _winners_equal(global_state, want_global)
+        assert len(global_state) > 0
+    else:
+        assert global_state is None and want_global is None
+        assert sorted(files) == sorted(want_files) != []
+        for i in files:
+            _winners_equal(files[i], want_files[i])
+    assert got.count(torch_plan) == ref.count(jax_plan)
+
+
+@pytest.mark.parametrize("scope", ["global", "file"])
+def test_density_collect_matches_jax(both, tmp_path, scope):
+    """Density with -o and keep_hits: the winners' attributes and the LAS
+    bytes of the JAX package's resident density collect."""
+    ref, got = both
+    outs = []
+    for ds, plan, sub in ((ref, plans(density=5.0, scope=scope, **QUERIES["box"])[0], "jax"),
+                          (got, plans(density=5.0, scope=scope, **QUERIES["box"])[1], "torch")):
+        out = tmp_path / sub
+        out.mkdir()
+        count, emitter = ds.collect(plan, output_dir=out, keep_hits=True)
+        outs.append((count, emitter, {f.name: f.read_bytes() for f in out.iterdir()}))
+    (want, ref_emitter, ref_files), (count, emitter, files) = outs
+    assert count == want > 0
+    _hits_equal(emitter.all_hits, ref_emitter.all_hits)
+    assert files == ref_files != {}
+
+
+def test_density_file_seq_counts_pruned_files(both):
+    """A box over file 1 only: the header prefilter drops files 0 and 2, and
+    the winners are the JAX package's (file_seq counts dropped files too)."""
+    ref, got = both
+    jax_plan, torch_plan = plans(density=2.0, box="101100;200000;0;101900;201000;100")
+    _winners_equal(got.density_states(torch_plan)[1], ref.density_states(jax_plan)[1])
+    assert set(got.density_states(torch_plan)[1]["file_idx"].tolist()) == {1}
+
+
+def test_count_rejects_a_collect_plan(both, tmp_path):
+    for ds, plan in zip(both, plans(box=BOX, output_dir=tmp_path)):
+        with pytest.raises(NotImplementedError, match="collect"):
+            ds.count(plan)
+
+
+@pytest.mark.parametrize("attrs, query, missing", [
+    (("position", "classification"), "time", "gps_time"),
+    (("classification",), "box", "position"),
+    (("position",), "class6", "classification"),
+])
+def test_missing_columns_raise_as_jax(data, attrs, query, missing):
+    """A query over a column the dataset was loaded without raises
+    ValueError naming it, in count and collect, as the JAX package's does."""
+    ref = JaxResident.load(data, block_size=BLOCK, attrs=attrs)
+    got = ResidentDataset.load(data, device="cpu", block_size=BLOCK, attrs=attrs)
+    jax_plan, torch_plan = plans(**QUERIES[query])
+    for ds, plan in ((ref, jax_plan), (got, torch_plan)):
+        with pytest.raises(ValueError, match=missing):
+            ds.count(plan)
+        with pytest.raises(ValueError, match=missing):
+            ds.collect(plan)
+    if missing != "classification":  # the JAX package's density fails otherwise there
+        for ds, plan in zip((ref, got), plans(density=10.0, **QUERIES[query])):
+            with pytest.raises(ValueError, match=missing):
+                ds.count(plan)
+
+
+def test_cuda_without_cuda_raises(data, monkeypatch):
+    """A dataset asked for on CUDA is never loaded on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResidentDataset.load(data, device="cuda", block_size=BLOCK)

@@ -1,0 +1,138 @@
+"""The port's JSON query service against the JAX package's, on the CPU.
+
+The same request lines go to adhoc_queries_pointclouds_tpu.serve's
+handle_request (a resident dataset on the 8-device CPU mesh) and to the
+port's (device="cpu"): every reply must be equal field for field but "ms",
+a wall time, and the layout fields of "info" ("blocks", "devices",
+"resident_mib"), which follow each package's own layout (JAX pads the
+blocks to its mesh; the port has one device). The tolerance is 0: counts,
+points rounded to 6 decimals by the same code, file names, LAS bytes.
+
+The service also runs as a subprocess, `serve --device cpu`, over stdin.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from adhoc_queries_pointclouds_tpu.parallel.resident import ResidentDataset as JaxResident
+from adhoc_queries_pointclouds_tpu.serve import handle_request as jax_handle_request
+from adhoc_queries_pointclouds_torch.formats import synth
+from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
+from adhoc_queries_pointclouds_torch.serve import handle_request
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCK = 1 << 14
+ATTRS = ("position", "classification", "gps_time")  # serve's rule: every file has GPS times
+BOX = [100200.0, 200300.0, 10.0, 100900.0, 200900.0, 70.0]
+LAYOUT = ("blocks", "devices", "resident_mib")
+REQUESTS = [
+    {"cmd": "info"},
+    {"bounds": BOX},
+    {"bounds": [-1e9, -1e9, -1e9, 1e9, 1e9, 1e9]},
+    {"class": 6},
+    {"class": 19},
+    {"time_range": [200_000.0, 800_000.0]},
+    {"bounds": BOX, "density": 100.0},
+    {"class": 6, "density": 50.0},
+    {"time_range": [200_000.0, 800_000.0], "density": 80.0},
+    {"bounds": BOX, "collect": True, "limit": 50},
+    {"class": 6, "collect": True, "limit": 3},
+    {"time_range": [0.0, 1e6], "collect": True},
+    {"bounds": BOX, "density": 100.0, "collect": True},
+    {"bounds": [1, 2, 3]},
+    {"time_range": [1.0]},
+    {"class": 300},
+    {"class": "six"},
+    {"bounds": BOX, "density": -1.0},
+    {"time_range": [5.0, 1.0]},
+    {},
+    {"cmd": "stats"},
+]
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_serve")
+    synth.write_dataset(root, n_files=2, points_per_file=15_000, seed=41, formats=("last",),
+                        point_format=3)
+    return root / "last"
+
+
+@pytest.fixture(scope="module")
+def both(data):
+    return (JaxResident.load(data, block_size=BLOCK, attrs=ATTRS),
+            ResidentDataset.load(data, device="cpu", block_size=BLOCK, attrs=ATTRS))
+
+
+def _comparable(reply: dict) -> dict:
+    return {k: v for k, v in reply.items() if k not in ("ms",) + LAYOUT}
+
+
+@pytest.mark.parametrize("req", REQUESTS, ids=[json.dumps(r) for r in REQUESTS])
+def test_replies_match_jax(data, both, req):
+    ref, got = both
+    want = jax_handle_request(ref, dict(req), str(data))
+    reply = handle_request(got, dict(req), str(data))
+    assert _comparable(reply) == _comparable(want)
+    assert ("ms" in reply) == ("ms" in want) == ("count" in want)
+    if req.get("cmd") == "info":
+        assert reply["devices"] == 1 and reply["blocks"] == got.n_blocks == 2
+        assert reply["resident_mib"] == round(got.resident_bytes / 1048576.0, 1)
+        assert reply["points"] == 30_000
+    if req.get("collect"):
+        assert len(reply["points"]) == min(req.get("limit", 1000), reply["count"])
+
+
+def test_output_writes_jax_bytes(data, both, tmp_path):
+    """A collect with "output" and one with density: the same files, byte
+    for byte, and the same reply but the directory."""
+    ref, got = both
+    for n, extra in enumerate(({}, {"density": 100.0}, {"collect": True, "limit": 5})):
+        files = []
+        for name, fn, ds in (("jax", jax_handle_request, ref), ("torch", handle_request, got)):
+            out = tmp_path / f"{name}_{n}"
+            out.mkdir()
+            reply = fn(ds, {"bounds": BOX, "output": str(out), **extra}, str(data))
+            assert [Path(f).parent for f in reply.pop("files")] == [out] * len(list(out.iterdir()))
+            files.append((_comparable(reply), {f.name: f.read_bytes() for f in out.iterdir()}))
+        assert files[0] == files[1]
+        assert files[1][1] and files[1][0]["count"] > 0
+
+
+def test_subprocess_protocol(data, both):
+    """`serve --device cpu` over stdin: the ready line, a reply for every
+    request line (the JAX handler's replies but "ms" and the layout), an
+    error for a line that is not JSON, and "bye" on quit."""
+    ref, _ = both
+    lines = [json.dumps(r) for r in REQUESTS[:6]] + ["not json", json.dumps({"cmd": "quit"})]
+    proc = subprocess.run(
+        [sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", "serve", "-i", str(data),
+         "--block-size", str(BLOCK), "--device", "cpu"],
+        input="\n".join(lines), capture_output=True, text=True, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    replies = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    assert len(replies) == 1 + len(lines)
+    ready = replies[0]
+    assert ready["ready"] is True and ready["points"] == 30_000
+    assert set(ready) == {"ready", "points", "resident_mib", "load_s"}
+    for req, reply in zip(REQUESTS[:6], replies[1:7]):
+        assert _comparable(reply) == _comparable(jax_handle_request(ref, dict(req), str(data)))
+    assert replies[7]["error"].startswith("bad json:")
+    assert replies[8] == {"bye": True}
+
+
+def test_serve_on_cuda_without_cuda_raises(data):
+    """`serve` on CUDA with no card fails before it answers anything."""
+    code = ("import sys, torch; torch.cuda.is_available = lambda: False; "
+            "from adhoc_queries_pointclouds_torch import cli; "
+            f"sys.exit(cli.main(['serve', '-i', {str(data)!r}]))")
+    proc = subprocess.run([sys.executable, "-c", code], input="", capture_output=True,
+                          text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert proc.stdout == ""
