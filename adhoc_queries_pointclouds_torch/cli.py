@@ -1,6 +1,6 @@
 """Command line of the port: bbox, class and GPS-time counts and collects,
 max-density grid sampling, device-resident datasets and the JSON query
-service, on one device.
+service, on one device a process.
 
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds "x0;y0;z0;x1;y1;z1"
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6 -o OUT_DIR
@@ -8,6 +8,8 @@ service, on one device.
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --density 100 -o OUT_DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --resident --repeat 20
     python -m adhoc_queries_pointclouds_torch.cli serve -i DIR
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --distributed \
+        --coordinator HOST:PORT --num-processes N --process-id I
 
 The query flags and output lines are those of adhoc_queries_pointclouds_tpu/
 cli.py (cmd_query, cli.py:101-193): "Searching N files...", one "Wrote
@@ -18,9 +20,12 @@ point per X^3 m^3 grid cell, per input file (--density-scope file) or over
 the whole query (global, the default: one output file). --resident loads
 the dataset into device memory once and runs the query there, --repeat
 times (_run_resident, cli.py:231-280); `serve` answers JSON requests
-against a resident dataset (serve.py). --device (default cuda) names the
-device; cuda without a card is an error, never a silent run on the CPU.
-Flags of queries the port does not run yet exit with status 2.
+against a resident dataset (serve.py). --distributed runs the query in
+each of N processes over its share of the files (parallel/distributed.py,
+_run_distributed, cli.py:196-228); with --device cuda process I runs on
+card I % the card count. --device (default cuda) names the device; cuda
+without a card is an error, never a silent run on the CPU. Flags the port
+does not run yet exit with status 2.
 """
 
 from __future__ import annotations
@@ -36,10 +41,6 @@ from .utils.timing import throughput_line
 
 # dest -> flag, for flags whose queries are not ported yet
 _NOT_PORTED = {
-    "distributed": "--distributed",
-    "coordinator": "--coordinator",
-    "num_processes": "--num-processes",
-    "process_id": "--process-id",
     "profile": "--profile",
     "devices": "--devices",
 }
@@ -84,10 +85,18 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
         help="Ignore block min/max sidecar indexes (pure brute-force scan)",
     )
     parser.add_argument("--profile", metavar="DIR", help="(not yet ported)")
-    parser.add_argument("--distributed", action="store_true", help="(not yet ported)")
-    parser.add_argument("--coordinator", help="(not yet ported)")
-    parser.add_argument("--num-processes", type=int, default=None, help="(not yet ported)")
-    parser.add_argument("--process-id", type=int, default=None, help="(not yet ported)")
+    parser.add_argument(
+        "--distributed", action="store_true",
+        help="Run across processes (torch.distributed; every "
+             "process reads its shard of the file manifest). Degenerates to "
+             "the local engine in a single process.",
+    )
+    parser.add_argument(
+        "--coordinator", help="torch.distributed coordinator address "
+        "(host:port); with --num-processes/--process-id brings up the group",
+    )
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument(
         "--resident", action="store_true",
         help="Load the dataset into device memory once, then run the query "
@@ -104,7 +113,7 @@ def cmd_query(args: argparse.Namespace) -> int:
     used = [flag for dest, flag in _NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
     if used:
         print(f"not yet ported: {', '.join(used)} (the port runs counts, collects, density, "
-              f"--resident and serve)", file=sys.stderr)
+              f"--resident, --distributed and serve)", file=sys.stderr)
         return 2
     maybe_bounds = parse_aabb(args.bounds) if args.bounds else None
     maybe_class = args.classification
@@ -135,6 +144,8 @@ def cmd_query(args: argparse.Namespace) -> int:
     )
     if args.resident:
         return _run_resident(args, plan)
+    if args.distributed:
+        return _run_distributed(args, plan)
     kwargs = {}
     if args.block_size:
         kwargs["block_size"] = args.block_size
@@ -162,6 +173,45 @@ def cmd_query(args: argparse.Namespace) -> int:
             f"({result.mpts_per_s:.1f} Mpts/s)"
         )
     print(throughput_line(result.total_file_bytes, result.elapsed_seconds))
+    return 0
+
+
+def _run_distributed(args: argparse.Namespace, plan: QueryPlan) -> int:
+    """The query across processes (parallel/distributed.py), with the JAX CLI's
+    output lines (cli.py:196-228). Each process drives one device, so the
+    last line's device count is the process count."""
+    import time
+
+    from .parallel import distributed
+    from .parallel.comm import require_device
+
+    require_device(args.device)  # cuda without a card raises before the group forms
+    distributed.initialize(args.coordinator, args.num_processes, args.process_id)
+    device = distributed.process_device(args.device)
+    kwargs = {}
+    if args.block_size:
+        kwargs["block_size"] = args.block_size
+    t0 = time.perf_counter()
+    if plan.density is not None:
+        count = distributed.distributed_density(args.input, plan, device=device, **kwargs)
+    elif plan.collects_points:
+        count, emitter = distributed.distributed_collect(
+            args.input, plan, device=device,
+            output_dir=plan.output_dir,
+            print_stream=sys.stdout if args.print_points else None,
+            parity_quirk=plan.parity_quirk, **kwargs,
+        )
+        for f in emitter.output_files:
+            print(f"Wrote {f}")
+    else:
+        count = distributed.distributed_count(
+            args.input, plan, device=device, parity_quirk=plan.parity_quirk, **kwargs
+        )
+    n = distributed.process_count()
+    print(
+        f"Found {count} matching points "
+        f"({n} process(es), {n} devices, {time.perf_counter() - t0:.2f}s)"
+    )
     return 0
 
 

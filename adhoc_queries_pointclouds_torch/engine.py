@@ -180,8 +180,8 @@ def run_query(
     comm: the step-communication strategy (parallel/comm.py); default
     LocalStepComm(device), one process. An empty file list raises only for a
     lone participant (comm.is_local): a process of a multi-process run whose
-    share of the files is empty still dispatches the steps the others agree
-    on.
+    share of the files is empty still joins the final reductions
+    (parallel/distributed.py).
     """
     comm = comm or LocalStepComm(device)
     if print_stream is None and plan.print_points:
@@ -214,7 +214,6 @@ def run_query(
     if max_pts and max_pts < block_size:
         quantum = BLOCK_QUANTUM
         block_size = min(block_size, ((max_pts + quantum - 1) // quantum) * quantum)
-    block_size = comm.agree_block_size(block_size)
 
     is_bounds = plan.bounds is not None
 
@@ -462,12 +461,11 @@ def _packed_bounds(task) -> tuple[np.ndarray, np.ndarray]:
     return lo.astype(np.int32), hi.astype(np.int32)
 
 
-def _step_operands(plan, comm, *, block_size, pack):
-    """The function (batch, rows) -> (kind, arrays, plane_stacks, extra)
-    that stacks one step's blocks into the numpy operands of its step kind
-    (parallel/step.py), padded to rows with empty rows (n_valid 0, an empty
-    box or range). plane_stacks are the point payload among arrays (the h2d
-    bytes); extra holds the packed kinds' widths and block size."""
+def _step_operands(plan, *, block_size, pack):
+    """The function batch -> (kind, arrays, plane_stacks, extra) that stacks
+    one step's blocks, one row each, into the numpy operands of its step kind
+    (parallel/step.py). plane_stacks are the point payload among arrays (the
+    h2d bytes); extra holds the packed kinds' widths and block size."""
     is_bounds = plan.bounds is not None
     is_time = plan.time_range is not None
     if is_time:
@@ -477,33 +475,29 @@ def _step_operands(plan, comm, *, block_size, pack):
             np.int32,
         )
 
-    def widths(batch, n: int) -> tuple:
-        w = comm.agree_widths(
-            np.maximum.reduce([t.columns["w"] for t in batch]) if batch else np.zeros(n, np.int64)
-        )
-        return tuple(int(k) for k in w)
+    def widths(batch) -> tuple:
+        return tuple(int(k) for k in np.maximum.reduce([t.columns["w"] for t in batch]))
 
-    def operands(batch, rows):
-        pad = rows - len(batch)
-        nvs = np.asarray([t.n_valid for t in batch] + [0] * pad, np.int32)
+    def operands(batch):
+        rows = len(batch)
+        nvs = np.asarray([t.n_valid for t in batch], np.int32)
         if is_bounds and pack:
-            kxyz = widths(batch, 3)
+            kxyz = widths(batch)
             pbounds = [_packed_bounds(t) for t in batch]
             stacks = [host._stack_planes(batch, key, a, rows, kxyz[a], block_size)
                       for a, key in enumerate(("xp", "yp", "zp"))]
-            los = np.stack([b[0] for b in pbounds] + [np.zeros(3, np.int32)] * pad)
-            his = np.stack([b[1] for b in pbounds] + [np.full(3, -1, np.int32)] * pad)
+            los = np.stack([b[0] for b in pbounds])
+            his = np.stack([b[1] for b in pbounds])
             return "bbox_packed", (*stacks, los, his, nvs), stacks, (kxyz, block_size)
         if is_bounds:
             stacks = [host._stack_rows(batch, key, rows, block_size, np.int32)
                       for key in ("x", "y", "z")]
-            los = np.stack([t.lo for t in batch] + [np.zeros(3, np.int32)] * pad)
-            his = np.stack([t.hi for t in batch] + [np.zeros(3, np.int32)] * pad)
+            los = np.stack([t.lo for t in batch])
+            his = np.stack([t.hi for t in batch])
             return "bbox", (*stacks, los, his, nvs), stacks, ()
         if is_time and pack:
-            khl = widths(batch, 2)
+            khl = widths(batch)
             q_rows = [host._packed_time_query(q_enc, t.columns["base"]) for t in batch]
-            q_rows += [np.zeros(4, np.int32)] * pad
             stacks = [host._stack_planes(batch, key, a, rows, khl[a], block_size)
                       for a, key in enumerate(("thp", "tlp"))]
             return "time_packed", (*stacks, np.stack(q_rows), nvs), stacks, (khl, block_size)
@@ -512,9 +506,9 @@ def _step_operands(plan, comm, *, block_size, pack):
                       for key in ("th", "tl")]
             return "time", (*stacks, np.tile(q_enc, (rows, 1)), nvs), stacks, ()
         if pack:
-            (k,) = widths(batch, 1)
+            (k,) = widths(batch)
             stacks = [host._stack_planes(batch, "clsp", 0, rows, k, block_size)]
-            codes = np.asarray([int(t.columns["t"][0]) for t in batch] + [0] * pad, np.int32)
+            codes = np.asarray([int(t.columns["t"][0]) for t in batch], np.int32)
             return "class_dict", (*stacks, codes, nvs), stacks, (k, block_size)
         stacks = [host._stack_rows(batch, "cls", rows, block_size, np.uint8)]
         targets = np.full(rows, plan.classification.classification, np.int32)
@@ -534,13 +528,13 @@ def _run_count(
 ) -> int:
     # K blocks per step amortize the per-step launch and copy overhead
     blocks_per_step = int(os.environ.get("AQPC_BLOCKS_PER_STEP", "4"))
-    rows_per_step = comm.batch_rows(max(1, blocks_per_step))
+    rows_per_step = max(1, blocks_per_step)
     tasks, indexed_total, _ = _plan_tasks(
         plan, readers, active, file_bounds, block_index, block_size, timer, ordered=False)
     pack = host._pack_transport_enabled()
     feeder = _feeder(plan, readers, tasks, file_bounds, index_collectors,
                      block_size=block_size, pack=pack, workers=workers, prefetch=prefetch)
-    operands = _step_operands(plan, comm, block_size=block_size, pack=pack)
+    operands = _step_operands(plan, block_size=block_size, pack=pack)
 
     pending: list = []  # 0-d int32 device totals of steps not yet read back
     device_total = 0
@@ -554,21 +548,19 @@ def _run_count(
             device_total += int(pending.pop(0))
 
     def flush(batch):
-        kind, arrays, stacks, extra = operands(batch, comm.step_rows(len(batch), rows_per_step))
+        kind, arrays, stacks, extra = operands(batch)
         if kind == "class" and block_size % 4 == 0:
             # words (4 points each) when the rows split into them, else u8
             arrays = (host.pack_class_words(arrays[0]), *arrays[1:])
         pending.append(step.count(kind, _put(comm, timer, arrays, stacks), extra))
         drain(comm.inflight() - 1)
 
-    # the dictionary's host fast paths change the flushed-step count, so
-    # they are for a lone participant only
-    is_class_dict = (pack and plan.bounds is None and plan.time_range is None
-                     and comm.is_local)
-    n_steps = comm.agree_steps((len(tasks) + rows_per_step - 1) // rows_per_step)
+    # the dictionary's host fast paths resolve some blocks with no step; in a
+    # multi-process run too, since each process launches its own steps and
+    # the processes meet only in finish_total (parallel/distributed.py)
+    is_class_dict = pack and plan.bounds is None and plan.time_range is None
     batch = []
     with timer.stage("scan"):
-        flushed = 0
         for task in feeder:
             if is_class_dict:
                 # target class absent: count 0; single-class block holding
@@ -582,14 +574,9 @@ def _run_count(
             batch.append(task)
             if len(batch) == rows_per_step:
                 flush(batch)
-                flushed += 1
                 batch = []
         if batch:
             flush(batch)
-            flushed += 1
-        while flushed < n_steps:  # other participants still have steps
-            flush([])
-            flushed += 1
         drain(0)
     timer.seconds["decode_cpu"] += feeder.decode_seconds
 
@@ -654,7 +641,7 @@ def _collect_steps(
     resolves them for free (miss code / all-match).
     """
     blocks_per_step = int(os.environ.get("AQPC_BLOCKS_PER_STEP", "4"))
-    rows_per_step = comm.batch_rows(max(1, blocks_per_step))
+    rows_per_step = max(1, blocks_per_step)
     tasks, _, emit_queue = _plan_tasks(
         plan, readers, active, file_bounds, block_index, block_size, timer, ordered=True)
     pack = host._pack_transport_enabled()
@@ -662,7 +649,7 @@ def _collect_steps(
     # transport's raw coordinates never cross the link
     feeder = _feeder(plan, readers, tasks, file_bounds, index_collectors,
                      block_size=block_size, pack=pack, workers=workers, prefetch=prefetch)
-    operands = _step_operands(plan, comm, block_size=block_size, pack=pack)
+    operands = _step_operands(plan, block_size=block_size, pack=pack)
 
     finalize_order = list(active)
     next_final = 0  # position in finalize_order of the next unfinalized file
@@ -701,7 +688,7 @@ def _collect_steps(
     pending: deque = deque()  # (batch, BitMask) of steps not yet read back
 
     def flush(batch):
-        kind, arrays, stacks, extra = operands(batch, comm.step_rows(len(batch), rows_per_step))
+        kind, arrays, stacks, extra = operands(batch)
         mask = step.collect_mask(kind, _put(comm, timer, arrays, stacks), extra)
         pending.append((batch, mask))
         drain(comm.inflight() - 1)
@@ -765,23 +752,16 @@ def _collect_steps(
         while len(pending) > limit:
             process(*pending.popleft())
 
-    n_steps = comm.agree_steps((len(tasks) + rows_per_step - 1) // rows_per_step)
     with timer.stage("scan"):
         try:
             batch = []
-            flushed = 0
             for task in feeder:
                 batch.append(task)
                 if len(batch) == rows_per_step:
                     flush(batch)
-                    flushed += 1
                     batch = []
             if batch:
                 flush(batch)
-                flushed += 1
-            while flushed < n_steps:  # other participants still have steps
-                flush([])
-                flushed += 1
             drain(0)
             if active:
                 submit_emit(lambda: finalize_through(max(active)))
@@ -860,22 +840,23 @@ def _density_feeder(plan, readers, tasks, file_bounds, *, block_size, pack, work
     )
 
 
-def _density_operands(plan, comm, *, block_size, pack):
-    """The function (batch, rows) -> (kind, n_pred, arrays, extra, xyz_at,
+def _density_operands(plan, *, block_size, pack):
+    """The function batch -> (kind, n_pred, arrays, extra, xyz_at,
     widths, stacks) of one density step. arrays[:n_pred] are the predicate's
     operands as _step_operands stacks them (the bbox predicate in the step's
     transport, class and time raw); arrays[xyz_at:xyz_at + 3] are the x/y/z
     the candidate selection reads: the bbox predicate's own rows or planes,
     else raw rows or planes of their own after the predicate's operands. In
     the packed transport widths are the planes' and the last array is the
-    (rows, 3) int32 bases; in the raw one widths is None. stacks is the point
+    (len(batch), 3) int32 bases; in the raw one widths is None. stacks is the point
     payload (the h2d bytes)."""
     is_bounds = plan.bounds is not None
-    predicate_operands = _step_operands(plan, comm, block_size=block_size,
+    predicate_operands = _step_operands(plan, block_size=block_size,
                                         pack=pack and is_bounds)
 
-    def operands(batch, rows):
-        kind, arrays, stacks, extra = predicate_operands(batch, rows)
+    def operands(batch):
+        rows = len(batch)
+        kind, arrays, stacks, extra = predicate_operands(batch)
         n_pred = len(arrays)
         widths = None
         if is_bounds:
@@ -895,8 +876,7 @@ def _density_operands(plan, comm, *, block_size, pack):
             arrays = (*arrays, *xyz)
             stacks = [*stacks, *xyz]
         if pack:
-            bases = np.stack([t.columns["base"].astype(np.int32) for t in batch]
-                             + [np.zeros(3, np.int32)] * (rows - len(batch)))
+            bases = np.stack([t.columns["base"].astype(np.int32) for t in batch])
             arrays = (*arrays, bases)
         return kind, n_pred, arrays, extra, xyz_at, widths, stacks
 
@@ -956,7 +936,7 @@ def _run_density(
     is_time = plan.time_range is not None
     scope = plan.density.scope
     blocks_per_step = int(os.environ.get("AQPC_BLOCKS_PER_STEP", "4"))
-    rows_per_step = comm.batch_rows(max(1, blocks_per_step))
+    rows_per_step = max(1, blocks_per_step)
     pack = host._pack_transport_enabled()
     # packed loads keep the raw absolute columns under xp/yp/zp (the planes
     # are cut at stack time), so the host reads them directly either way
@@ -968,7 +948,7 @@ def _run_density(
             + host.encode_f64_scalar(plan.time_range.end),
             np.int32,
         )
-    operands = _density_operands(plan, comm, block_size=block_size, pack=pack)
+    operands = _density_operands(plan, block_size=block_size, pack=pack)
     # deferred-merge accumulators (ops/density.py WinnerAccum): the same
     # fold as a per-block merge_winners_host, O(N log N) in total
     global_acc = density_ops.WinnerAccum()
@@ -1041,8 +1021,7 @@ def _run_density(
 
             def flush():
                 nonlocal batch, batch_hits
-                kind, n_pred, arrays, extra, xyz_at, widths, stacks = operands(
-                    batch, comm.step_rows(len(batch), rows_per_step))
+                kind, n_pred, arrays, extra, xyz_at, widths, stacks = operands(batch)
                 dev = _put(comm, timer, arrays, stacks)
                 mask = step.density_mask(
                     kind, dev[:n_pred], extra, dev[xyz_at : xyz_at + 3], tables_dev, block_size,

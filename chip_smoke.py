@@ -61,7 +61,7 @@ Phases, in order; the first fault raises and the script exits non-zero:
      the collect cases' hit densities
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
-     (2 x 2M), seven paths, each with the launch counters set to 0 just
+     (2 x 2M), eight paths, each with the launch counters set to 0 just
      before it and read just after:
        bbox: counts in both transports with the sidecar index off,
          auto-built and read, each equal to a numpy f64 oracle;
@@ -99,7 +99,25 @@ Phases, in order; the first fault raises and the script exits non-zero:
          as a subprocess (info, the three counts, a collect with limit 3
          and an output dir, a line that is not JSON, quit), each reply
          the oracle's;
-     every kernel of a path must have launched in it
+       distributed: the LAST 64M dataset queried through
+         parallel/distributed.py by tools/dist2.py workers (gloo over
+         tcp://127.0.0.1, each started as `chip_smoke.py --dist2-worker`,
+         which checks that it loads no jax): once by one process and once
+         by two processes sharing card 0, 4 files each. The box, class 6,
+         class 4 and the time range in both transports, index off, each the
+         oracle's count in every process; -o of the box, whose host0/ and
+         host1/ files together are the oracle's (process p's j-th file is
+         input file j * 2 + p of the files with hits); density -o of the
+         small box at 25 m, global and file scope, whose count and winners
+         in two processes equal one process's (and at file scope the numpy
+         oracle's files). Each query's wall in one process and in two,
+         with the card's name and power limit. Then the box through the
+         CLI's --distributed --device cuda in two processes, each one's
+         Found line the oracle's count. A worker that fails or outlasts its
+         timeout fails the run; the two workers' launch counters are summed
+         for the path's kernel check;
+     every kernel of a path must have launched in it (in the distributed
+     path, one of each named pair: which one runs depends on the transport)
 
 It prints the nvidia-smi line and a JSON object of per-kernel numbers on the
 lines before the last, and {"ok": true, "device": {...}} as the last line.
@@ -135,7 +153,7 @@ from adhoc_queries_pointclouds_torch.ops import compact as C
 from adhoc_queries_pointclouds_torch.ops import density as D
 from adhoc_queries_pointclouds_torch.ops import predicate as P
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
-from adhoc_queries_pointclouds_torch.tools import bboxprobe, density_bench
+from adhoc_queries_pointclouds_torch.tools import bboxprobe, density_bench, dist2
 from adhoc_queries_pointclouds_torch.tools.kernel_timer import KernelTimer
 from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
 
@@ -1584,6 +1602,13 @@ def check_written(out: str, want: list, label: str) -> list[Path]:
     """Every "Wrote" file, read back with the shared readers, holds the
     oracle's points of its input file, in order."""
     wrote = [Path(p) for p in re.findall(r"^Wrote (.+)$", out, re.M)]
+    check_files(wrote, want, label)
+    return wrote
+
+
+def check_files(wrote: list[Path], want: list, label: str) -> None:
+    """The files wrote, in order, are matching_points_0.. and each holds
+    exactly the points of its (header, records) of the oracle."""
     if [p.name for p in wrote] != [f"matching_points_{j}.las" for j in range(len(want))]:
         fail(f"{label}: wrote {[p.name for p in wrote]}, the oracle has {len(want)} files with hits")
     for path, (header, recs) in zip(wrote, want):
@@ -1600,7 +1625,6 @@ def check_written(out: str, want: list, label: str) -> list[Path]:
         r.close()
         if not same:
             fail(f"{label}: {path.name} is not the oracle's matches of its input file")
-    return wrote
 
 
 def cli_collect(data_dir: Path, query: list[str], pack: str, use_index: bool, want: list,
@@ -2057,7 +2081,166 @@ def path_resident(datasets) -> None:
         serve_run(big, tmp, wants)
 
 
-# path -> (driver, the kernels it must launch)
+DIST_PROCS = 2  # processes of the distributed path, all on card 0
+DIST_TIMEOUT = 300.0  # seconds a run of the distributed path's workers may take
+
+
+def dist_queries(big: Path, out: Path) -> list[dict]:
+    """The distributed path's query specs (tools/dist2.py) over the LAST
+    64M dataset: the four counts in both transports, index off; -o of the
+    box; density -o of the small box at 25 m, global and file scope."""
+    t0, t1 = E2E_TIME_LARGE
+    queries = []
+    for pack in ("1", "0"):
+        for label, pred in (("box", {"bounds": E2E_BOX_LARGE}), ("class 6", {"class": 6}),
+                            ("class 4", {"class": 4}), ("time", {"time": [t0, t1]})):
+            queries.append({"name": f"{label} AQPC_PACK={pack}", "op": "count", "pack": pack,
+                            "use_index": False, **pred})
+    queries += [
+        {"name": "box -o", "op": "collect", "bounds": E2E_BOX_LARGE, "out": str(out / "box")},
+        {"name": "density 25 global -o", "op": "density", "bounds": E2E_BOX_SMALL,
+         "density": [25.0, "global"], "out": str(out / "density_global")},
+        {"name": "density 25 file -o", "op": "density", "bounds": E2E_BOX_SMALL,
+         "density": [25.0, "file"], "out": str(out / "density_file")},
+    ]
+    for q in queries:
+        q["data"] = str(big)
+    return queries
+
+
+def dist_run(big: Path, out: Path, procs: int) -> list[dict]:
+    """dist_queries in procs worker processes on the card, each started as
+    `chip_smoke.py --dist2-worker` (dist2_worker); their reports."""
+    t = time.perf_counter()
+    reports = dist2.run_workers(
+        dist_queries(big, out), procs=procs, device="cuda", timeout=DIST_TIMEOUT,
+        command=[sys.executable, str(Path(__file__).resolve()), "--dist2-worker"])
+    print(f"  {procs} process(es) on {[w['device'] for w in reports]} "
+          f"({reports[0]['device_name']}): ran in {time.perf_counter() - t:.1f} s with start-up")
+    return reports
+
+
+def dist2_worker(argv: list[str]) -> int:
+    """A worker of the distributed path: tools/dist2.py's, between two
+    checks that it loads no jax."""
+    check_no_jax("dist2 worker, start")
+    rc = dist2.worker_main(argv)
+    check_no_jax("dist2 worker, end")
+    return rc
+
+
+def dist_cli_count(big: Path, want: int, smi: str) -> None:
+    """The box counted by the CLI, as a user starts it: `cli --distributed
+    --device cuda` in DIST_PROCS processes on card 0 (tools/dist2.py
+    run_processes). Each process must print the oracle's count in its
+    Found line."""
+    port = dist2.free_port()
+    argvs = [[sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", "-i", str(big),
+              "--bounds", E2E_BOX_LARGE, "--device", "cuda", "--distributed",
+              "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(DIST_PROCS),
+              "--process-id", str(pid)] for pid in range(DIST_PROCS)]
+    done = dist2.run_processes(argvs, timeout=DIST_TIMEOUT, env=dict(os.environ, AQPC_PACK="1"))
+    found = re.compile(rf"^Found (\d+) matching points \({DIST_PROCS} process\(es\), "
+                       rf"{DIST_PROCS} devices, ([\d.]+)s\)$", re.M)
+    walls = []
+    for pid, (rc, out) in enumerate(done):
+        m = found.search(out)
+        if rc != 0 or m is None or int(m.group(1)) != want:
+            fail(f"{big.name} cli --distributed process {pid} exited {rc}, want Found {want}:\n"
+                 f"{out[-4000:]}")
+        walls.append(m.group(2))
+    print(f"  cli --distributed --device cuda --bounds, {DIST_PROCS} processes: each found "
+          f"{want} in {', '.join(walls)} s; {smi}")
+
+
+def path_distributed(datasets) -> dict:
+    """The LAST 64M dataset queried by two processes on the one card
+    (parallel/distributed.py through tools/dist2.py; 4 files a process),
+    and by one process: every count equals the numpy oracle in both runs;
+    the -o files of the box, host0/ and host1/ together, are the oracle's
+    (process p's j-th file is input file j * 2 + p among the files with
+    hits); density's count and winners in two processes equal one
+    process's, whose file-scope files equal the numpy oracle's. The wall of
+    each query in one process against two, with the card's name and power
+    limit. Then the box through the CLI's --distributed in two processes
+    (dist_cli_count). Returns the kernel launches of the two workers
+    together: the CLI processes report none."""
+    big = datasets[0][0]
+    box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
+    t0, t1 = E2E_TIME_LARGE
+    wants = {
+        "box": oracle(big, E2E_BOX_LARGE),
+        "class 6": column_oracle(big, lambda r: r.column("classification") == 6),
+        "class 4": column_oracle(big, lambda r: r.column("classification") == 4),
+        "time": column_oracle(big, in_time(t0, t1)),
+    }
+    written = kept(("written", big, "--bounds", E2E_BOX_LARGE),
+                   lambda: written_oracle(big, in_box(box_l)))
+    # the box's files with hits: those whose header meets the box, every
+    # one with hits (the oracle has as many files)
+    hit_files = []
+    for i, f in enumerate(point_files(big)):
+        r = open_point_cloud(f)
+        if r.header.bounds.intersects(box_l):
+            hit_files.append(i)
+        r.close()
+    if len(hit_files) != len(written):
+        fail(f"distributed: {len(hit_files)} files meet the box, the oracle has "
+             f"{len(written)} with hits")
+    _, density_file = kept(("density", big, "--bounds", E2E_BOX_SMALL, 25.0, "file"),
+                           lambda: density_oracle(big, in_box(box_s), 25.0, "file",
+                                                  (box_s.min, box_s.max)))
+    smi = smi_line()
+    with tempfile.TemporaryDirectory(prefix="aqpc_distributed_") as tmp:
+        tmp = Path(tmp)
+        (one,) = dist_run(big, tmp / "one", 1)
+        got = dist_run(big, tmp / "two", DIST_PROCS)
+        for q in dist_queries(big, tmp):
+            name = q["name"]
+            counts = [w["queries"][name]["count"] for w in [one, *got]]
+            label = f"{big.name} distributed {name}"
+            want = wants.get(name.split(" AQPC_PACK")[0])
+            if want is None and q["op"] == "collect":
+                want = sum(len(recs) for _, recs in written)
+            if want is None:
+                want = counts[0]  # density: the one process's count
+            if counts != [want] * len(counts):
+                fail(f"{label}: counted {counts} (one process, then each of "
+                     f"{DIST_PROCS}), want {want}")
+            one_files = [Path(f) for f in one["queries"][name]["files"]]
+            if q["op"] == "collect":
+                check_files(one_files, written, f"{label}, one process")
+                for w in got:
+                    pid = w["pid"]
+                    sources = [j for j, i in enumerate(hit_files) if i % DIST_PROCS == pid]
+                    check_files([Path(f) for f in w["queries"][name]["files"]],
+                                [written[j] for j in sources], f"{label}, process {pid}")
+            elif q["op"] == "density":
+                files = [f for w in got for f in w["queries"][name]["files"]]
+                if q["density"][1] == "file":
+                    check_files(one_files, density_file, f"{label}, one process")
+                    same = dist2.file_digests(files) == dist2.file_digests(one_files)
+                else:
+                    same = dist2.point_rows(files) == dist2.point_rows(one_files)
+                if not same or not files:
+                    fail(f"{label}: the {DIST_PROCS} processes' {len(files)} files differ "
+                         f"from the one process's {len(one_files)}")
+            walls = [w["queries"][name]["seconds"] for w in got]
+            print(f"  {name}: {want} in {one['queries'][name]['seconds']:.3f} s in one process, "
+                  f"{max(walls):.3f} s in {DIST_PROCS} (each {', '.join(f'{s:.3f}' for s in walls)}"
+                  f"){f'; {len(one_files)} files' if one_files else ''}; {smi}")
+    dist_cli_count(big, wants["box"], smi)
+    launched: dict = {}
+    for w in got:
+        for kernel, n in w["launches"].items():
+            launched[kernel] = launched.get(kernel, 0) + n
+    print(f"  launches of the one-process run: {one['launches']}")
+    return launched
+
+
+# path -> (its function, the kernels it must launch: a tuple is any one of
+# them); a function whose kernels launch in other processes returns their
+# launches
 PATHS = {
     "bbox": (path_bbox, ("bbox_count_multi", "bbox_count_packed")),
     "collect": (path_collect, ("mask_bbox", "mask_bbox_packed", "mask_class", "mask_class_dict",
@@ -2070,6 +2253,12 @@ PATHS = {
     "resident": (path_resident, ("bbox_count_multi", "class_count_words", "time_count_multi",
                                  "mask_bbox", "mask_class", "mask_time", "compact_bits",
                                  "density_leaders", "density_candidates", "compact_bits_gather")),
+    "distributed": (path_distributed, (
+        "bbox_count_multi", "bbox_count_packed",
+        ("class_count_multi", "class_count_words", "class_count_dict"),
+        "time_count_multi", "time_count_packed", ("mask_bbox", "mask_bbox_packed"),
+        "compact_bits", ("density_leaders", "density_leaders_packed"),
+        ("density_candidates", "density_candidates_packed"))),
 }
 
 
@@ -2096,14 +2285,15 @@ def main() -> int:
         for name, (drive, path_kernels) in PATHS.items():
             t = time.perf_counter()
             P.reset_launches()
-            drive(datasets)
-            got = dict(P.launches)
+            got = drive(datasets) or dict(P.launches)
             seconds[f"end to end, {name}"] = time.perf_counter() - t
             print(f"kernel launches in the {name} path: {got}")
-            for kernel in path_kernels:
-                if got[kernel] == 0:
-                    fail(f"the {name} path never launched {kernel}")
-                launches.setdefault(kernel, got[kernel])  # a shared kernel: its first path's
+            for names in path_kernels:
+                names = names if isinstance(names, tuple) else (names,)
+                if not any(got.get(kernel, 0) for kernel in names):
+                    fail(f"the {name} path never launched {' or '.join(names)}")
+                for kernel in names:  # a shared kernel: its first path's
+                    launches.setdefault(kernel, got.get(kernel, 0))
     for name, s in seconds.items():
         print(f"phase {name}: {s:.1f} s")
     check_no_jax("at the end of the run")
@@ -2124,4 +2314,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist2-worker"]:
+        sys.exit(dist2_worker(sys.argv[2:]))
     sys.exit(main())

@@ -78,6 +78,11 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, monkeypatch, flag
         # is the plain count, as in the JAX CLI
         _same_density_output(data, capsys, tmp_path, flag, ["--bounds", BOXES[0]])
         return
+    if flag[0] == "--distributed":
+        # ported: in one process, the JAX CLI's lines but the last line's
+        # timing and device count
+        _same_distributed_output(data, capsys, tmp_path)
+        return
     args = ["-i", str(data), "--bounds", BOXES[0], "--device", "cpu", *flag]
     assert torch_cli.main(args) != 0
     err = capsys.readouterr().err
@@ -88,6 +93,31 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, monkeypatch, flag
         assert err == capsys.readouterr().err != ""
     else:
         assert "not yet ported" in err
+
+
+def _same_distributed_output(data, capsys, tmp_path):
+    """--distributed in one process (no coordinator): a count, a collect
+    with -o and density with -o give the JAX CLI's lines but the timing and
+    the device count of the last one (each process of the port drives one
+    device; the JAX process sees its 8-device CPU mesh), and -o writes the
+    JAX CLI's files byte for byte."""
+    for n, extra in enumerate(([], ["-o", "OUT"], ["--density", "25", "-o", "OUT"])):
+        outs = []
+        for name, cli, device in (("jax", jax_cli, []), ("torch", torch_cli, ["--device", "cpu"])):
+            out_dir = tmp_path / f"{name}_{n}"
+            out_dir.mkdir()
+            args = ["-i", str(data), "--bounds", BOXES[0], "--block-size", "16384",
+                    "--distributed", *device, *(str(out_dir) if a == "OUT" else a for a in extra)]
+            assert cli.main(args) == 0
+            lines = capsys.readouterr().out.replace(str(out_dir), "OUT").splitlines()
+            outs.append((lines[:-1], re.sub(r"\d+ devices, [\d.]+s\)$", "", lines[-1]),
+                         [f.read_bytes() for f in sorted(out_dir.glob("*.las"))]))
+            if cli is torch_cli:
+                assert re.search(r"\(1 process\(es\), 1 devices, [\d.]+s\)$", lines[-1])
+        assert outs[1] == outs[0]
+        assert _found(outs[1][1].split(" (")[0]) > 0
+        # the collect names its files; density writes one and names none
+        assert len(outs[1][2]) == (0, 2, 1)[n] and len(outs[1][0]) == (0, 2, 0)[n]
 
 
 def _resident_lines(out: str) -> list[str]:

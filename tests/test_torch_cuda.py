@@ -1272,3 +1272,37 @@ def test_resident_count_over_more_blocks_than_grid_y(dev, tmp_path, B):
         assert ds.count(plan) == int(want) > 0
         launched = {k: v - before[k] for k, v in TP.launches.items() if v != before[k]}
         assert launched == {entry: 1}
+
+
+def test_two_processes_on_cuda_match_one_cpu_process(dev, tmp_path):
+    """tools/dist2.py with --device cuda: two worker processes in a gloo
+    group, process i on card i % the card count (both on one card where
+    there is one), run every query kind of the harness; their counts and
+    written files equal one process's on the CPU (the plain versions), and
+    together they launched the count, mask, compaction and density
+    kernels."""
+    from adhoc_queries_pointclouds_torch import _build
+    from adhoc_queries_pointclouds_torch.tools import dist2
+
+    _build.library()  # built once here, before the workers load it
+    dist2.write_datasets(tmp_path / "data")
+    queries = dist2.default_queries(tmp_path / "data", tmp_path / "out")
+    got = dist2.run_workers(queries, procs=2, device="cuda", timeout=600.0)
+    cpu_queries = dist2.default_queries(tmp_path / "data", tmp_path / "out_cpu")
+    (want,) = dist2.run_workers(cpu_queries, procs=1, device="cpu", timeout=600.0)
+    dist2.compare(queries, got, want["queries"])
+    n_cards = torch.cuda.device_count()
+    assert [w["device"] for w in got] == [f"cuda:{pid % n_cards}" for pid in range(2)]
+    assert want["launches"] == {}
+    launched = {}
+    for w in got:
+        for name, n in w["launches"].items():
+            launched[name] = launched.get(name, 0) + n
+    # a density block with few hits ships its hits' raw x, y, z alone
+    for names in (["bbox_count_multi"], ["bbox_count_packed"], ["class_count_words"],
+                  ["class_count_dict"], ["time_count_multi"], ["time_count_packed"],
+                  ["mask_bbox_packed"], ["compact_bits"],
+                  ["density_leaders", "density_leaders_packed"],
+                  ["density_candidates", "density_candidates_packed"]):
+        assert sum(launched.get(name, 0) for name in names) > 0, (names, launched)
+    assert sum(w["queries"]["indexed_count"]["index_skipped_blocks"] for w in got) > 0

@@ -36,8 +36,8 @@ from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery,
 )
 from adhoc_queries_pointclouds_torch.ops import compact, density, predicate
-from adhoc_queries_pointclouds_torch.parallel import comm, pipeline, resident, step
-from adhoc_queries_pointclouds_torch.tools import bboxprobe
+from adhoc_queries_pointclouds_torch.parallel import comm, distributed, pipeline, resident, step
+from adhoc_queries_pointclouds_torch.tools import bboxprobe, dist2
 from adhoc_queries_pointclouds_torch.utils import timing
 from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
 with tempfile.TemporaryDirectory() as d:
@@ -83,6 +83,14 @@ with tempfile.TemporaryDirectory() as d:
     path = str(pathlib.Path(d) / "last")
     assert serve.handle_request(ds, {"cmd": "info"}, path)["points"] == 5000
     assert serve.handle_request(ds, {"class": 4, "collect": True, "limit": 2}, path)["count"] == n
+    # parallel/distributed.py in one process: a count, a collect, density
+    assert [distributed.distributed_count(path, p, device="cpu") for p in plans] == counts
+    out = pathlib.Path(d) / "dist_out"
+    out.mkdir()
+    total, res = distributed.distributed_collect(path, plans[1], device="cpu", output_dir=out)
+    assert total == counts[1] and len(res.output_files) == 1
+    assert 0 < distributed.distributed_density(path, QueryPlan(
+        classification=ClassQuery(4), density=DensityConfig(30.0)), device="cpu") < 5000
 bboxprobe.main(["--n", "4096", "--device", "cpu"])
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "adhoc_queries_pointclouds_tpu")))
@@ -91,8 +99,9 @@ print(sorted(m for m in sys.modules
 
 def test_port_imports_no_jax():
     """After counts, collects, density queries, resident queries, the
-    service's replies and the probe tool in a fresh process, sys.modules
-    holds no jax, no jaxlib and nothing of the JAX package."""
+    service's replies, parallel/distributed.py's count, collect and
+    density and the probe tool in a fresh process, sys.modules holds no
+    jax, no jaxlib and nothing of the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -129,3 +138,26 @@ def test_cuda_without_cuda_raises(tmp_path, monkeypatch):
             engine.run_query(tmp_path / "last", plan, device="cuda")
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             engine.run_query(tmp_path / "last", plan, device=torch.device("cuda", 0))
+
+
+def test_distributed_cuda_without_cuda_raises(tmp_path, monkeypatch):
+    """--distributed --device cuda, and parallel/distributed.py on cuda,
+    raise without CUDA: no process carries on on the CPU."""
+    from adhoc_queries_pointclouds_torch import cli
+    from adhoc_queries_pointclouds_torch.parallel import distributed
+
+    synth.write_dataset(tmp_path, n_files=1, points_per_file=1000, seed=2, formats=("last",))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    box = "-1e9;-1e9;-1e9;1e9;1e9;1e9"
+    for extra in ([], ["-o", str(tmp_path)], ["--density", "5"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["-i", str(tmp_path / "last"), "--bounds", box, "--distributed", *extra])
+    plan = QueryPlan(bounds=BoundsQuery(parse_aabb(box)))
+    for fn in (distributed.distributed_count, distributed.distributed_density,
+               distributed.distributed_collect):
+        p = plan if fn is not distributed.distributed_density else QueryPlan(
+            bounds=plan.bounds, density=DensityConfig(5.0))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(tmp_path / "last", p, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.process_device("cuda")
