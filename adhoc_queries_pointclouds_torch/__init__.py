@@ -19,6 +19,10 @@ plain PyTorch versions:
     sinks.py             hit emission: LAS write-back, printing
     ops/predicate.py     kernel wrappers and plain versions
     csrc/*.cu            the CUDA kernels, built by _build.py at first use
+
+The drivers sit on engine.run_query: cli.py (the JAX CLI's subcommands),
+serve.py, experiments.py (the paper's harness), postgis.py, and tools/
+(soak, memcheck, paperscale, the probes and benches).
 """
 
 __version__ = "0.1.0"

@@ -1,31 +1,44 @@
 """Command line of the port: bbox, class and GPS-time counts and collects,
-max-density grid sampling, device-resident datasets and the JSON query
-service, on one device a process.
+max-density grid sampling, device-resident datasets, the JSON query
+service, multi-process queries, and the JAX CLI's other subcommands, on one
+device a process.
 
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds "x0;y0;z0;x1;y1;z1"
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6 -o OUT_DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --time-range "start;end" --print-points
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --density 100 -o OUT_DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --resident --repeat 20
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --profile TRACE_DIR
     python -m adhoc_queries_pointclouds_torch.cli serve -i DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --distributed \
         --coordinator HOST:PORT --num-processes N --process-id I
+    python -m adhoc_queries_pointclouds_torch.cli convert -i IN.las -o OUT.{last,lazer,laz}
+    python -m adhoc_queries_pointclouds_torch.cli index -i DIR
+    python -m adhoc_queries_pointclouds_torch.cli count-points -i DIR
+    python -m adhoc_queries_pointclouds_torch.cli experiments -i ROOT -e 2
+    python -m adhoc_queries_pointclouds_torch.cli postgis --host H --dbname D --user U --pwd P
 
-The query flags and output lines are those of adhoc_queries_pointclouds_tpu/
-cli.py (cmd_query, cli.py:101-193): "Searching N files...", one "Wrote
-OUT_DIR/matching_points_{i}.las" per input file with hits under -o, "Found
-N matching points", the closing throughput line, and --stats; --print-points
-streams each hit as a "Found point: ..." line. --density X keeps at most one
-point per X^3 m^3 grid cell, per input file (--density-scope file) or over
-the whole query (global, the default: one output file). --resident loads
-the dataset into device memory once and runs the query there, --repeat
-times (_run_resident, cli.py:231-280); `serve` answers JSON requests
-against a resident dataset (serve.py). --distributed runs the query in
-each of N processes over its share of the files (parallel/distributed.py,
-_run_distributed, cli.py:196-228); with --device cuda process I runs on
-card I % the card count. --device (default cuda) names the device; cuda
-without a card is an error, never a silent run on the CPU. Flags the port
-does not run yet exit with status 2.
+The surface and output lines are those of adhoc_queries_pointclouds_tpu/
+cli.py: the subcommands query (also the bare form, `-i ... --bounds ...`),
+convert, count-points and index, with experiments, postgis and serve handed
+their own argument lists (main, cli.py:331-403). A query prints
+"Searching N files...", one "Wrote OUT_DIR/matching_points_{i}.las" per
+input file with hits under -o, "Found N matching points", the closing
+throughput line, and --stats; --print-points streams each hit as a "Found
+point: ..." line. --density X keeps at most one point per X^3 m^3 grid
+cell, per input file (--density-scope file) or over the whole query
+(global, the default: one output file). --resident loads the dataset into
+device memory once and runs the query there, --repeat times; `serve`
+answers JSON requests against a resident dataset (serve.py).
+--distributed runs the query in each of N processes over its share of the
+files (parallel/distributed.py); with --device cuda process I runs on card
+I % the card count. --profile DIR records the query with torch.profiler
+(CPU activity, and the card's under --device cuda) and writes its trace
+into DIR. A process drives one device: --devices 1 is the default, and
+more is --distributed's job. --device (default cuda) names the device;
+cuda without a card is an error, never a silent run on the CPU. convert,
+index and count-points run on the host alone and write the JAX CLI's
+files byte for byte.
 """
 
 from __future__ import annotations
@@ -38,13 +51,6 @@ from .engine import run_query
 from .models.query import BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery
 from .utils.aabb import parse_aabb
 from .utils.timing import throughput_line
-
-# dest -> flag, for flags whose queries are not ported yet
-_NOT_PORTED = {
-    "profile": "--profile",
-    "devices": "--devices",
-}
-
 
 def build_query_parser(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("-i", "--input", required=True, help="Input point cloud file or directory")
@@ -73,7 +79,11 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--parity-quirk", action="store_true",
                         help="Replicate the reference's exact world->local bounds conversion")
     parser.add_argument("--block-size", type=int, default=None, help="Points per device block")
-    parser.add_argument("--devices", type=int, default=None, help="(not yet ported)")
+    parser.add_argument(
+        "--devices", type=int, default=None,
+        help="Devices this process drives: 1 (a process drives one device; "
+             "--distributed runs one process per card)",
+    )
     parser.add_argument("--workers", type=int, default=8, help="Host decode threads")
     parser.add_argument("--stats", action="store_true", help="Print per-stage timings")
     parser.add_argument(
@@ -84,7 +94,10 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
         "--no-index", action="store_true",
         help="Ignore block min/max sidecar indexes (pure brute-force scan)",
     )
-    parser.add_argument("--profile", metavar="DIR", help="(not yet ported)")
+    parser.add_argument(
+        "--profile", metavar="DIR",
+        help="Record the query with torch.profiler and write its trace into DIR",
+    )
     parser.add_argument(
         "--distributed", action="store_true",
         help="Run across processes (torch.distributed; every "
@@ -110,10 +123,9 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
 
 
 def cmd_query(args: argparse.Namespace) -> int:
-    used = [flag for dest, flag in _NOT_PORTED.items() if getattr(args, dest) not in (None, False)]
-    if used:
-        print(f"not yet ported: {', '.join(used)} (the port runs counts, collects, density, "
-              f"--resident, --distributed and serve)", file=sys.stderr)
+    if args.devices not in (None, 1):
+        print(f"--devices {args.devices}: a process drives one device; run one process per "
+              f"card with --distributed", file=sys.stderr)
         return 2
     maybe_bounds = parse_aabb(args.bounds) if args.bounds else None
     maybe_class = args.classification
@@ -149,18 +161,26 @@ def cmd_query(args: argparse.Namespace) -> int:
     kwargs = {}
     if args.block_size:
         kwargs["block_size"] = args.block_size
-    result = run_query(
-        args.input,
-        plan,
-        device=args.device,
-        workers=args.workers,
-        keep_going=args.keep_going,
-        use_index=not args.no_index,
-        # --print-points streams each hit as it is found; nothing is
-        # buffered in RAM
-        print_stream=sys.stdout if args.print_points else None,
-        **kwargs,
-    )
+
+    def execute():
+        return run_query(
+            args.input,
+            plan,
+            device=args.device,
+            workers=args.workers,
+            keep_going=args.keep_going,
+            use_index=not args.no_index,
+            # --print-points streams each hit as it is found; nothing is
+            # buffered in RAM
+            print_stream=sys.stdout if args.print_points else None,
+            **kwargs,
+        )
+
+    if args.profile:
+        result = _profiled(execute, args.device, Path(args.profile))
+        print(f"Profiler trace written to {args.profile}")
+    else:
+        result = execute()
     print(f"Searching {result.files_searched} files...")
     if plan.output_dir is not None:
         for f in result.output_files:
@@ -174,6 +194,33 @@ def cmd_query(args: argparse.Namespace) -> int:
         )
     print(throughput_line(result.total_file_bytes, result.elapsed_seconds))
     return 0
+
+
+PROFILE_TRACE = "trace.json"  # the file --profile writes into its DIR
+
+
+def _profiled(execute, device, trace_dir: Path):
+    """execute() under torch.profiler: CPU activity, and the card's under a
+    CUDA device (which is checked to exist first, so a run asked for on
+    the card never profiles one on the CPU). The card is synchronized
+    before the profiler stops, so every kernel the query launched has
+    ended inside the window; the trace goes to trace_dir/PROFILE_TRACE
+    (Chrome trace JSON: one "kernel" event a kernel the trace holds)."""
+    import torch
+
+    from .parallel.comm import require_device
+
+    dev = require_device(device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        result = execute()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(str(trace_dir / PROFILE_TRACE))
+    return result
 
 
 def _run_distributed(args: argparse.Namespace, plan: QueryPlan) -> int:
@@ -271,6 +318,59 @@ def _run_resident(args: argparse.Namespace, plan: QueryPlan) -> int:
     return 0
 
 
+def cmd_convert(args: argparse.Namespace) -> int:
+    """LAS to LAST, LAZER or LAZ by the output's suffix (JAX cli.py:283-300)."""
+    from .formats import las_to_last, las_to_laz, las_to_lazer
+
+    src = Path(args.input)
+    dst = Path(args.output)
+    fmt = dst.suffix.lower().lstrip(".")
+    if fmt == "last":
+        las_to_last(src, dst)
+    elif fmt == "lazer":
+        las_to_lazer(src, dst, block_size=args.lazer_block_size)
+    elif fmt == "laz":
+        las_to_laz(src, dst, chunk_size=args.lazer_block_size,
+                   strict_interop=args.strict_laz)
+    else:
+        print(f"Unsupported conversion target .{fmt}", file=sys.stderr)
+        return 1
+    print(f"Converted {src} -> {dst}")
+    return 0
+
+
+def cmd_index(args: argparse.Namespace) -> int:
+    """Exact block min/max sidecar indexes, class bitmaps and GPS ranges
+    (JAX cli.py:303-317)."""
+    from .engine import discover_files
+    from .formats import open_point_cloud
+    from .index import build_index, save_index
+
+    for f in discover_files(args.input):
+        r = open_point_cloud(f)
+        blocks, bitmap, gps_mm = build_index(r)
+        p = save_index(f, blocks, bitmap, gps_mm, n_points=r.point_count)
+        gps_note = " + gps" if gps_mm is not None else ""
+        print(f"Indexed {f} -> {p} ({len(blocks)} blocks{gps_note})")
+        r.close()
+    return 0
+
+
+def cmd_count_points(args: argparse.Namespace) -> int:
+    """Header-only dataset point count (JAX cli.py:320-328)."""
+    from .engine import discover_files
+    from .formats.las import parse_las_header_file
+
+    total = 0
+    for f in discover_files(args.input):
+        total += parse_las_header_file(f).point_count
+    print(f"Total number of points: {total}")
+    return 0
+
+
+SUBCOMMANDS = ("query", "convert", "count-points", "experiments", "postgis", "serve", "index")
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # argparse rejects option values that start with '-'; bounding boxes
@@ -281,18 +381,54 @@ def main(argv: list[str] | None = None) -> int:
             if argv[k] == opt and argv[k + 1].startswith("-"):
                 argv[k : k + 2] = [f"{opt}={argv[k + 1]}"]
                 break
+    # the bare reference form: `-i ... --bounds ...` is a query
+    if argv and argv[0] not in SUBCOMMANDS + ("-h", "--help"):
+        argv = ["query"] + argv
+    if argv and argv[0] == "experiments":
+        from .experiments import main as exp_main
+
+        return exp_main(argv[1:])
+    if argv and argv[0] == "postgis":
+        from .postgis import main as pg_main
+
+        return pg_main(argv[1:])
     if argv and argv[0] == "serve":
         from .serve import main as serve_main
 
         return serve_main(argv[1:])
-    if argv and argv[0] == "query":
-        argv = argv[1:]
+
     parser = argparse.ArgumentParser(
         prog="aqpc-torch",
         description="Ad-hoc point cloud queries on a CUDA GPU (LAS/LAZ/LAST/LAZER)",
     )
-    build_query_parser(parser)
-    return cmd_query(parser.parse_args(argv))
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    qp = sub.add_parser("query", help="Run a bbox/class/time/density query")
+    build_query_parser(qp)
+    qp.set_defaults(fn=cmd_query)
+
+    cp = sub.add_parser("convert", help="Convert LAS to LAST/LAZER/LAZ")
+    cp.add_argument("-i", "--input", required=True)
+    cp.add_argument("-o", "--output", required=True)
+    cp.add_argument("--lazer-block-size", type=int, default=50_000)
+    cp.add_argument(
+        "--strict-laz", action="store_true",
+        help="LAZ output: refuse anything outside the maximally-conservative "
+             "interop subset (formats 0-3, fixed chunks; "
+             "docs/LASZIP_INTEROP.md)",
+    )
+    cp.set_defaults(fn=cmd_convert)
+
+    np_ = sub.add_parser("count-points", help="Header-only total point count")
+    np_.add_argument("-i", "--input", required=True)
+    np_.set_defaults(fn=cmd_count_points)
+
+    ix = sub.add_parser("index", help="Build block min/max sidecar indexes")
+    ix.add_argument("-i", "--input", required=True)
+    ix.set_defaults(fn=cmd_index)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

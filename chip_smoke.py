@@ -58,16 +58,18 @@ Phases, in order; the first fault raises and the script exits non-zero:
      (compact_bits_gather) runs with every block skipped, blocks of 0
      hits and full blocks given offsets, a partial last mask word at a B
      no multiple of 8,192 and K > 65,535, and is timed at K=4 x 2^21 at
-     the collect cases' hit densities
+     the collect cases' hit densities; the probe variants and the K = 1
+     launch of bbox_count_multi (bbox_count, the JAX bbox_count_pallas) at
+     2^24 points
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
-     (2 x 2M), eight paths, each with the launch counters set to 0 just
+     (2 x 2M), nine paths, each with the launch counters set to 0 just
      before it and read just after:
        bbox: counts in both transports with the sidecar index off,
          auto-built and read, each equal to a numpy f64 oracle;
-       collect: -o over LAST (the box, class 6 and the time range, both
-         transports, index off and read: auto-built for the box, exact for
-         class and time) and LAZER (one run per predicate, and a
+       collect: -o over LAST (the box, class 6 and the time range, packed
+         with the index off and raw with it read: auto-built for the box,
+         exact for class and time) and LAZER (one run per predicate, and a
          --print-points run); every written LAS file, read back, holds
          exactly the numpy oracle's matches of its input file in file
          order; the LAZER outputs and printed text are byte-identical to
@@ -116,6 +118,25 @@ Phases, in order; the first fault raises and the script exits non-zero:
          Found line the oracle's count. A worker that fails or outlasts its
          timeout fails the run; the two workers' launch counters are summed
          for the path's kernel check;
+       drivers: the CLI's count-points over LAST 64M (64,000,000); convert
+         of one 8M-point LAS file to LAST, LAZER and LAZ, each read back
+         with the source's columns and its box count the oracle's; index
+         over a copy of LAST 64M, then the box count reading the sidecars
+         (the oracle's, points pruned); --profile DIR over the box count in
+         both transports in this process, the trace's kernel events of the
+         port's kernels printed beside the launch counters, at least one
+         event a launched kernel, and once through a fresh CLI process,
+         whose trace holds one event a launch; --devices 1 (the oracle's count) and 2 (exit 2); the
+         experiment harness over its synthetic stand-ins (4 x 2M points a
+         format): experiment 2 as cold subprocesses, all sizes, full and
+         max-density, over LAST and LAZ, and experiments 4 and 6 in
+         process, warm, 3 runs, over all four formats,
+         every row's count a numpy f64 oracle's (the harness checks
+         cross-format parity itself); soak at 3 x 300,000 points (every
+         cell); memcheck at 64M points (every point collected and written,
+         STREAMING OK, peak anonymous RSS); paperscale generate, oracle and
+         run at 4 x 64M LAST points (all four checks); the kernel check
+         counts the in-process steps only;
      every kernel of a path must have launched in it (in the distributed
      path, one of each named pair: which one runs depends on the transport)
 
@@ -142,9 +163,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from adhoc_queries_pointclouds_torch import _build, cli, engine, index, native
+from adhoc_queries_pointclouds_torch import _build, cli, engine, experiments, index, native
 from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
-from adhoc_queries_pointclouds_torch.formats.las import encode_point_records, make_writeback_header
+from adhoc_queries_pointclouds_torch.formats.las import (
+    encode_point_records, make_writeback_header, parse_las_header_file,
+)
 from adhoc_queries_pointclouds_torch.host import packed_row_width
 from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery,
@@ -153,7 +176,9 @@ from adhoc_queries_pointclouds_torch.ops import compact as C
 from adhoc_queries_pointclouds_torch.ops import density as D
 from adhoc_queries_pointclouds_torch.ops import predicate as P
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
-from adhoc_queries_pointclouds_torch.tools import bboxprobe, density_bench, dist2
+from adhoc_queries_pointclouds_torch.tools import (
+    bboxprobe, density_bench, dist2, memcheck, paperscale, soak,
+)
 from adhoc_queries_pointclouds_torch.tools.kernel_timer import KernelTimer
 from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
 
@@ -1428,6 +1453,19 @@ def kernels_probe(dev, gen, timer, out) -> None:
               lambda: P.bbox_probe_acc_nomask(x, y, z, lo, hi), 12 * n, 12 * n,
               what=f"{n} points")
     out["bbox_probe_acc_nomask"] = dict(max_abs_err=max(errs), **t)
+    # (b), bbox_count_pallas: the K = 1 launch of bbox_count_multi, one
+    # block of the probe's size
+    errs = []
+    print(f"bbox_count (the K=1 launch of bbox_count_multi), one block of {n}:")
+    nvt = torch.tensor(n, **i32)
+    one = (x[None], y[None], z[None], lo[None], hi[None], nvt.reshape(1))
+    for label, nv in (("n_valid n", n), ("n_valid n - 5", n - 5)):
+        nvt = torch.tensor(nv, **i32)
+        compare(label, lambda: P.bbox_count(x, y, z, lo, hi, nvt).reshape(1),
+                lambda: P.bbox_count_multi(*one[:5], nvt.reshape(1)), errs)
+    nvt = torch.tensor(n, **i32)
+    timed(timer, lambda: P.bbox_count(x, y, z, lo, hi, nvt), lambda: P.bbox_count_multi(*one),
+          12 * n, 12 * n, what=f"one block of {n} points")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1464,12 +1502,17 @@ def oracle(data_dir: Path, box: str) -> int:
         data_dir, lambda r: aabb.contains_points(r.positions_world())))
 
 
-def run_cli(args: list[str], pack: str) -> str:
-    os.environ["AQPC_PACK"] = pack
+def cli_output(args: list[str]) -> tuple[int, str]:
+    """cli.main(args) in this process: its exit code and standard output."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(args)
-    out = buf.getvalue()
+    return rc, buf.getvalue()
+
+
+def run_cli(args: list[str], pack: str) -> str:
+    os.environ["AQPC_PACK"] = pack
+    rc, out = cli_output(args)
     if rc != 0:
         fail(f"cli {' '.join(args)} exited {rc}:\n{out}")
     return out
@@ -1699,8 +1742,8 @@ def path_collect(datasets) -> None:
             want = kept(("written", big, *query), lambda: written_oracle(big, match))
             print(f"{big.name}: {' '.join(query)}, oracle {sum(len(r) for _, r in want)} "
                   f"matching in {len(want)} files")
-            for n, (pack, use_index) in enumerate([("1", False), ("0", False), ("1", True),
-                                                   ("0", True)]):
+            # each transport once, and the index off and read once
+            for n, (pack, use_index) in enumerate([("1", False), ("0", True)]):
                 out_dir = tmp / f"last_{q}_{n}"
                 cli_collect(big, query, pack, use_index, want, out_dir)
                 shutil.rmtree(out_dir)
@@ -2238,6 +2281,297 @@ def path_distributed(datasets) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------- drivers
+
+
+CONVERT_COLUMNS = ("position", "intensity", "classification", "gps_time", "color")
+# kernel counter -> its CUDA function's name, as a profiler trace's kernel
+# events carry it (the profiled box counts launch these two)
+KERNEL_SYMBOLS = {"bbox_count_multi": "bbox_count_multi_kernel",
+                  "bbox_count_packed": "bbox_count_packed_kernel"}
+EXP_POINTS, EXP_FILES = 2_000_000, 4  # the experiments' synthetic datasets: 8 M points each
+# the cold subprocess rows' formats: a cold row is mostly a fresh process's
+# start (8.5-9.8 s on the card's machine for a row of 27,335 hits), so the
+# cold rows of experiment 2 run over the columnar and the compressed format
+EXP_COLD_FORMATS = ("last", "laz")
+MEMCHECK_POINTS = 64_000_000
+PAPERSCALE_FILES, PAPERSCALE_POINTS = 4, 64_000_000  # 256 M points of LAST
+
+
+def tool_output(label: str, main, args: list[str]) -> str:
+    """A tool's main(args) in this process, which must exit 0; its standard
+    output."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    out = buf.getvalue()
+    if rc != 0:
+        fail(f"{label} exited {rc}:\n{out[-6000:]}")
+    print(f"  {label}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def drivers_count_points(big: Path, n_points: int) -> None:
+    rc, out = cli_output(["count-points", "-i", str(big)])
+    if rc != 0 or out != f"Total number of points: {n_points}\n":
+        fail(f"count-points -i {big.name}: exit {rc}, {out!r}")
+    print(f"  count-points -i {big.name}: {out.strip()}")
+
+
+def drivers_convert(src: Path, box: str, tmp: Path) -> None:
+    """One LAS file to LAST, LAZER and LAZ through the CLI: every output
+    holds the source's columns, and the box count over it is the source's
+    oracle."""
+    aabb = parse_aabb(box)
+    r = open_point_cloud(src)
+    columns = {name: r.column(name) for name in CONVERT_COLUMNS}
+    want = int(np.count_nonzero(aabb.contains_points(r.positions_world())))
+    n = r.point_count
+    r.close()
+    for fmt in ("last", "lazer", "laz"):
+        out_dir = tmp / f"convert_{fmt}"
+        out_dir.mkdir()
+        dst = out_dir / f"{src.stem}.{fmt}"
+        t0 = time.perf_counter()
+        rc, out = cli_output(["convert", "-i", str(src), "-o", str(dst)])
+        wall = time.perf_counter() - t0
+        if rc != 0 or out != f"Converted {src} -> {dst}\n":
+            fail(f"convert -o .{fmt}: exit {rc}, {out!r}")
+        r = open_point_cloud(dst)
+        same = r.point_count == n and all(np.array_equal(r.column(name), col)
+                                          for name, col in columns.items())
+        r.close()
+        if not same:
+            fail(f"convert {src.name} -> .{fmt}: the columns read back differ from the source's")
+        print(f"  convert {src.name} -> .{fmt} ({dst.stat().st_size / 1e6:.1f} MB) in {wall:.1f} s: "
+              f"{n} points, {', '.join(CONVERT_COLUMNS)} equal to the source's")
+        cli_count(out_dir, ["--bounds", box], "1", False, want)
+
+
+def drivers_index(big: Path, box: str, tmp: Path) -> None:
+    """`cli index` over a copy of the LAST files; then the box count reads
+    the sidecars, prunes points and equals the oracle."""
+    copy = tmp / "indexed"
+    copy.mkdir()
+    for f in point_files(big):
+        shutil.copy(f, copy / f.name)
+    t0 = time.perf_counter()
+    rc, out = cli_output(["index", "-i", str(copy)])
+    lines = out.splitlines()
+    if rc != 0 or len(lines) != len(point_files(big)) or not all(
+            re.fullmatch(r"Indexed \S+ -> \S+\.aqpc-idx \(\d+ blocks \+ gps\)", s) for s in lines):
+        fail(f"index -i {copy}: exit {rc}:\n{out}")
+    print(f"  index -i {copy.name}: {len(lines)} sidecars in {time.perf_counter() - t0:.1f} s; "
+          f"{lines[0]}")
+    out = cli_count(copy, ["--bounds", box], "1", True, oracle(big, box))
+    if pruned_points(out) <= 0:
+        fail(f"index: the box count over {copy.name} pruned no points")
+
+
+def trace_kernels(trace: Path) -> dict:
+    """kernel name -> its events in a Chrome trace (torch.profiler's)."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    names: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def drivers_profile(big: Path, box: str, tmp: Path, smi: str) -> None:
+    """--profile DIR over the box count in both transports, index off, in
+    this process: the trace parses and holds an event of every kernel the
+    query launched; its events of the port's kernels beside the launch
+    counters. Then the packed count through a fresh CLI process, as a user
+    runs --profile: its trace must hold one event a launch of this
+    process's run (a long-lived process that profiled before loses the
+    first kernel records of a later trace; PERF.md §7)."""
+    want = oracle(big, box)
+    query = ["-i", str(big), "--bounds", box, "--device", "cuda", "--no-index"]
+    launches = {}
+    for pack in ("1", "0"):
+        trace_dir = tmp / f"profile_{pack}"
+        before = dict(P.launches)
+        t0 = time.perf_counter()
+        out = run_cli([*query, "--profile", str(trace_dir)], pack)
+        wall = time.perf_counter() - t0
+        if (f"Profiler trace written to {trace_dir}" not in out.splitlines()
+                or f"Found {want} matching points" not in out):
+            fail(f"--profile AQPC_PACK={pack}: want the trace line and Found {want}:\n{out}")
+        launched = {k: n - before[k] for k, n in P.launches.items() if n > before[k]}
+        ours, others = traced_launches(trace_dir / cli.PROFILE_TRACE, launched)
+        print(f"  --profile AQPC_PACK={pack} --bounds {box} index off: found {want} in {wall:.3f} s "
+              f"(traced, in this process); launches {launched}, the trace's kernel events {ours}, "
+              f"other kernel events {others}; {smi}")
+        if not launched or any(ours[k] < 1 for k in launched):
+            fail(f"--profile AQPC_PACK={pack}: the trace holds {ours} of the launches {launched}")
+        launches[pack] = launched
+    trace_dir = tmp / "profile_fresh"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", *query,
+                           "--profile", str(trace_dir)], capture_output=True, text=True,
+                          env=dict(os.environ, AQPC_PACK="1"), timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or f"Found {want} matching points" not in proc.stdout:
+        fail(f"cli --profile in a fresh process exited {proc.returncode}:\n{proc.stdout}"
+             f"{proc.stderr[-4000:]}")
+    ours, others = traced_launches(trace_dir / cli.PROFILE_TRACE, launches["1"])
+    print(f"  cli --profile AQPC_PACK=1 in a fresh process: {wall:.1f} s with start-up; the trace's "
+          f"kernel events {ours}, other kernel events {others}; this process's launches of the "
+          f"same query {launches['1']}")
+    if ours != launches["1"]:
+        fail(f"cli --profile in a fresh process: the trace holds {ours}, want {launches['1']}")
+
+
+def traced_launches(trace: Path, launched: dict) -> tuple[dict, int]:
+    """The kernel events in a Chrome trace of each launched kernel, and the
+    trace's other kernel events."""
+    events = trace_kernels(trace)
+    ours = {}
+    for kernel in launched:
+        if kernel not in KERNEL_SYMBOLS:
+            fail(f"{trace}: {kernel} launched, its kernel name is unknown")
+        ours[kernel] = sum(n for name, n in events.items() if KERNEL_SYMBOLS[kernel] in name)
+    return ours, sum(events.values()) - sum(ours.values())
+
+
+def drivers_devices(big: Path, box: str) -> None:
+    want = oracle(big, box)
+    out = run_cli(["-i", str(big), "--bounds", box, "--device", "cuda", "--devices", "1"], "1")
+    if f"Found {want} matching points" not in out:
+        fail(f"--devices 1: want Found {want}:\n{out}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, _ = cli_output(["-i", str(big), "--bounds", box, "--device", "cuda", "--devices", "2"])
+    if rc != 2 or "--distributed" not in err.getvalue():
+        fail(f"--devices 2: exit {rc}, {err.getvalue()!r}; want 2 and a word of --distributed")
+    print(f"  --devices 1: found {want}; --devices 2: exit 2, {err.getvalue().strip()}")
+
+
+def experiment_oracles(root: Path, e: int) -> dict:
+    """Row label (but its format) -> the numpy f64 oracle's count over the
+    synthesized LAS files of experiment e: the box (full), the density
+    winners at file scope (lod), the class, the GPS-time window."""
+    dataset = experiments.EXPERIMENT_DATASETS[e]
+    las = root / dataset / "las"
+    want = {}
+    if e <= 3:
+        for size, box in experiments.AABBS[dataset].items():
+            want[f"{dataset}_{size}_full"] = column_oracle(las, in_box(box))
+            _, files = density_oracle(las, in_box(box), experiments.DENSITIES[dataset], "file",
+                                      (box.min, box.max))
+            want[f"{dataset}_{size}_lod"] = sum(h.point_count for h, _ in files)
+    elif e <= 5:
+        for name, value in experiments.CLASS_EXPERIMENTS:
+            want[f"{dataset}_{name}"] = column_oracle(
+                las, lambda r, v=value: r.column("classification") == v)
+    else:
+        span = sum(parse_las_header_file(f).point_count
+                   for f in point_files(las)) / experiments.TIME_RATE
+        for name, f0, f1 in experiments.TIME_EXPERIMENTS:
+            want[f"{dataset}_{name}"] = column_oracle(las, in_time(f0 * span, f1 * span))
+    return want
+
+
+def drivers_experiments(tmp: Path, smi: str) -> None:
+    """The paper's harness through the CLI: experiment 2 as cold
+    subprocesses, all sizes, full and max-density, over EXP_COLD_FORMATS;
+    experiments 4 and 6 in this process, warm, 3 runs, over all four
+    formats. The harness checks cross-format parity; every row's count must
+    equal the numpy oracle."""
+    root = tmp / "experiments"
+    synth = ["--synthesize", str(EXP_POINTS), "--synthesize-files", str(EXP_FILES), "--clustered"]
+    runs = [(2, EXP_COLD_FORMATS, ["--runs", "1", *synth]),
+            (4, experiments.FORMATS, ["--in-process", "--warm", "--runs", "3"]),
+            (6, experiments.FORMATS, ["--in-process", "--warm", "--runs", "3", *synth])]
+    for e, formats, extra in runs:
+        extra = ["--formats", ",".join(formats), *extra]
+        t0 = time.perf_counter()
+        rc, out = cli_output(["experiments", "-i", str(root), "-e", str(e), "--device", "cuda",
+                              *extra])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"experiments -e {e} exited {rc}:\n{out}")
+        want = experiment_oracles(root, e)
+        rows = [line.split(";") for line in out.splitlines() if ";" in line]
+        n_cells = len(want) * len(formats)
+        print(f"  experiments -e {e} {' '.join(extra)}: {len(rows)} rows in {wall:.1f} s; {smi}")
+        for row in rows:
+            print(f"    {';'.join(row)}")
+        got = {}
+        for row in rows:
+            got.setdefault(row[0].rsplit("_", 1)[0], []).append(row[4])
+        if len(rows) != n_cells or any(got.get(k) != [str(v)] * len(formats)
+                                       for k, v in want.items()):
+            fail(f"experiments -e {e}: rows {got}, oracle {want}")
+        print(f"  experiments -e {e}: every row's count equals the numpy oracle {want}")
+
+
+def drivers_soak() -> None:
+    os.environ["AQPC_PACK"] = "1"
+    out = tool_output("soak --device cuda", soak.main, ["--device", "cuda"])
+    lines = out.strip().splitlines()
+    if sum(line.startswith("OK ") for line in lines) != 9 or not lines[-1].endswith(" 0 failures"):
+        fail(f"soak: {out}")
+    for line in lines:
+        print(f"    {line}")
+
+
+def drivers_memcheck() -> None:
+    os.environ["AQPC_PACK"] = "1"
+    out = tool_output(f"memcheck --device cuda --points {MEMCHECK_POINTS}", memcheck.main,
+                      ["--device", "cuda", "--points", str(MEMCHECK_POINTS)])
+    if "STREAMING OK" not in out:
+        fail(f"memcheck: {out}")
+    for line in out.strip().splitlines():
+        print(f"    {line}")
+
+
+def drivers_paperscale(tmp: Path, smi: str) -> None:
+    os.environ["AQPC_PACK"] = "1"
+    root = tmp / "paperscale"
+    scale = ["--root", str(root), "--files", str(PAPERSCALE_FILES),
+             "--pts-per-file", str(PAPERSCALE_POINTS)]
+    tool_output("paperscale generate", paperscale.main, ["generate", *scale])
+    tool_output("paperscale oracle", paperscale.main, ["oracle", *scale])
+    out = tool_output("paperscale run --device cuda", paperscale.main,
+                      ["run", *scale, "--device", "cuda", "--json", str(root / "report.json")])
+    report = json.loads((root / "report.json").read_text())
+    if not report["pass"] or report["oracle"]["points"] != PAPERSCALE_FILES * PAPERSCALE_POINTS:
+        fail(f"paperscale: {out}")
+    for line in out.strip().splitlines()[1:]:
+        print(f"    {line}")
+    print(f"    {smi}")
+
+
+def path_drivers(datasets) -> None:
+    """The JAX CLI's other subcommands and flags, the paper's experiment
+    harness and the three tools, each on the card: count-points over LAST
+    64M; convert of one LAS file to LAST, LAZER and LAZ; index over a copy
+    of LAST 64M; --profile's trace against the launches; --devices; the
+    experiments; soak; memcheck at 64 M points; paperscale at 256 M."""
+    big, box, _, n_points = datasets[0]
+    las = datasets[1][0]
+    smi = smi_line()
+    steps = [
+        ("count-points", lambda tmp: drivers_count_points(big, n_points)),
+        ("convert", lambda tmp: drivers_convert(point_files(las)[0], box, tmp)),
+        ("index", lambda tmp: drivers_index(big, box, tmp)),
+        ("profile", lambda tmp: drivers_profile(big, box, tmp, smi)),
+        ("devices", lambda tmp: drivers_devices(big, box)),
+        ("experiments", lambda tmp: drivers_experiments(tmp, smi)),
+        ("soak", lambda tmp: drivers_soak()),
+        ("memcheck", lambda tmp: drivers_memcheck()),
+        ("paperscale", lambda tmp: drivers_paperscale(tmp, smi)),
+    ]
+    for name, step in steps:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=f"aqpc_{name}_") as tmp:
+            step(Path(tmp))
+        print(f"  drivers step {name}: {time.perf_counter() - t0:.1f} s")
+
+
 # path -> (its function, the kernels it must launch: a tuple is any one of
 # them); a function whose kernels launch in other processes returns their
 # launches
@@ -2257,6 +2591,12 @@ PATHS = {
         "bbox_count_multi", "bbox_count_packed",
         ("class_count_multi", "class_count_words", "class_count_dict"),
         "time_count_multi", "time_count_packed", ("mask_bbox", "mask_bbox_packed"),
+        "compact_bits", ("density_leaders", "density_leaders_packed"),
+        ("density_candidates", "density_candidates_packed"))),
+    "drivers": (path_drivers, (
+        ("bbox_count_multi", "bbox_count_packed"),
+        ("class_count_multi", "class_count_words", "class_count_dict"),
+        ("time_count_multi", "time_count_packed"), ("mask_bbox", "mask_bbox_packed"),
         "compact_bits", ("density_leaders", "density_leaders_packed"),
         ("density_candidates", "density_candidates_packed"))),
 }

@@ -83,6 +83,10 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, monkeypatch, flag
         # timing and device count
         _same_distributed_output(data, capsys, tmp_path)
         return
+    if flag[0] == "--profile":
+        # ported: torch.profiler's trace in DIR, then the JAX CLI's lines
+        _same_profile_output(data, capsys, tmp_path)
+        return
     args = ["-i", str(data), "--bounds", BOXES[0], "--device", "cpu", *flag]
     assert torch_cli.main(args) != 0
     err = capsys.readouterr().err
@@ -92,7 +96,27 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, monkeypatch, flag
         assert jax_cli.main(["-i", str(data), "--bounds", BOXES[0], *flag]) == 1
         assert err == capsys.readouterr().err != ""
     else:
-        assert "not yet ported" in err
+        # ported: a process drives one device; more is --distributed's
+        assert flag == ["--devices", "2"]
+        assert torch_cli.main(args) == 2
+        assert err == capsys.readouterr().err
+        assert "--distributed" in err
+
+
+def _same_profile_output(data, capsys, tmp_path):
+    """--profile DIR: the JAX CLI's first line, "Profiler trace written to
+    DIR", a Chrome trace in DIR, and then the lines of the same query
+    without --profile (but the timing line)."""
+    trace_dir = tmp_path / "trace"
+    args = ["-i", str(data), "--bounds", BOXES[0], "--block-size", "16384", "--device", "cpu"]
+    assert torch_cli.main(args) == 0
+    plain = capsys.readouterr().out.splitlines()
+    assert torch_cli.main([*args, "--profile", str(trace_dir)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == f"Profiler trace written to {trace_dir}"
+    assert lines[1:-1] == plain[:-1] and _found("\n".join(lines)) > 0
+    trace = json.loads((trace_dir / torch_cli.PROFILE_TRACE).read_text())
+    assert trace["traceEvents"]
 
 
 def _same_distributed_output(data, capsys, tmp_path):

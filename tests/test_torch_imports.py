@@ -28,20 +28,22 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_PACKAGE = "adhoc_queries_pointclouds_tpu"
 
 _PROGRAM = r"""
-import pathlib, sys, tempfile
+import contextlib, io, pathlib, sys, tempfile
 import adhoc_queries_pointclouds_torch
-from adhoc_queries_pointclouds_torch import cli, engine, host, index, native, serve, sinks
+from adhoc_queries_pointclouds_torch import (
+    cli, engine, experiments, host, index, native, postgis, serve, sinks,
+)
 from adhoc_queries_pointclouds_torch.formats import las, last, laz, lazer, lz4py, synth
 from adhoc_queries_pointclouds_torch.models.query import (
     BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery,
 )
 from adhoc_queries_pointclouds_torch.ops import compact, density, predicate
 from adhoc_queries_pointclouds_torch.parallel import comm, distributed, pipeline, resident, step
-from adhoc_queries_pointclouds_torch.tools import bboxprobe, dist2
+from adhoc_queries_pointclouds_torch.tools import bboxprobe, dist2, memcheck, paperscale, soak
 from adhoc_queries_pointclouds_torch.utils import timing
 from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
 with tempfile.TemporaryDirectory() as d:
-    synth.write_dataset(d, n_files=1, points_per_file=5000, seed=1, formats=("last",),
+    synth.write_dataset(d, n_files=1, points_per_file=5000, seed=1, formats=("last", "las"),
                         point_format=3)
     plans = [
         QueryPlan(bounds=BoundsQuery(parse_aabb("-1e9;-1e9;-1e9;1e9;1e9;1e9"))),
@@ -91,6 +93,19 @@ with tempfile.TemporaryDirectory() as d:
     assert total == counts[1] and len(res.output_files) == 1
     assert 0 < distributed.distributed_density(path, QueryPlan(
         classification=ClassQuery(4), density=DensityConfig(30.0)), device="cpu") < 5000
+    # the CLI's host subcommands, and one in-process experiment cell
+    d = pathlib.Path(d)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        for suffix in ("last", "lazer", "laz"):
+            assert cli.main(["convert", "-i", str(d / "las" / "file_0.las"),
+                             "-o", str(d / f"converted.{suffix}")]) == 0
+        assert cli.main(["index", "-i", str(d / "las")]) == 0
+        assert cli.main(["count-points", "-i", str(d / "las")]) == 0
+        experiments.synthesize_dataset(d / "exp", "doc", 1, 2000)
+        assert cli.main(["experiments", "-i", str(d / "exp"), "-e", "4", "--runs", "1",
+                         "--warm", "--in-process", "--formats", "last", "--device", "cpu"]) == 0
+    lines = buf.getvalue().splitlines()
+    assert lines[4] == "Total number of points: 5000" and lines[5].startswith("doc_building_last;")
 bboxprobe.main(["--n", "4096", "--device", "cpu"])
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "adhoc_queries_pointclouds_tpu")))
@@ -100,8 +115,9 @@ print(sorted(m for m in sys.modules
 def test_port_imports_no_jax():
     """After counts, collects, density queries, resident queries, the
     service's replies, parallel/distributed.py's count, collect and
-    density and the probe tool in a fresh process, sys.modules holds no
-    jax, no jaxlib and nothing of the JAX package."""
+    density, the CLI's convert, index and count-points, an in-process
+    experiment cell and the probe tool in a fresh process, sys.modules
+    holds no jax, no jaxlib and nothing of the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -113,7 +129,7 @@ def test_no_import_line_names_jax_or_the_jax_package():
     jax or the JAX package."""
     sources = sorted((ROOT / "adhoc_queries_pointclouds_torch").rglob("*.py"))
     sources.append(ROOT / "chip_smoke.py")
-    assert len(sources) > 25
+    assert len(sources) > 30
     line = re.compile(rf"^\s*(import|from)\s.*\b(jax|jaxlib|{JAX_PACKAGE})\b")
     found = [f"{f.relative_to(ROOT)}:{n}: {text.strip()}"
              for f in sources
