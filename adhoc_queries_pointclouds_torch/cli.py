@@ -44,6 +44,7 @@ files byte for byte.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from pathlib import Path
 
@@ -177,7 +178,7 @@ def cmd_query(args: argparse.Namespace) -> int:
         )
 
     if args.profile:
-        result = _profiled(execute, args.device, Path(args.profile))
+        result = profiled(execute, args.device, Path(args.profile))
         print(f"Profiler trace written to {args.profile}")
     else:
         result = execute()
@@ -199,7 +200,7 @@ def cmd_query(args: argparse.Namespace) -> int:
 PROFILE_TRACE = "trace.json"  # the file --profile writes into its DIR
 
 
-def _profiled(execute, device, trace_dir: Path):
+def profiled(execute, device, trace_dir: Path):
     """execute() under torch.profiler: CPU activity, and the card's under a
     CUDA device (which is checked to exist first, so a run asked for on
     the card never profiles one on the CPU). The card is synchronized
@@ -221,6 +222,14 @@ def _profiled(execute, device, trace_dir: Path):
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(str(trace_dir / PROFILE_TRACE))
     return result
+
+
+def profile_events(trace_dir: Path, category: str) -> list[dict]:
+    """The events of one category of the trace that profiled() wrote into
+    trace_dir: "kernel" (a kernel on the card), "cuda_runtime" (a runtime
+    call on the host, a launch among them), "cpu_op" (an operator)."""
+    events = json.loads((Path(trace_dir) / PROFILE_TRACE).read_text())["traceEvents"]
+    return [e for e in events if e.get("cat") == category]
 
 
 def _run_distributed(args: argparse.Namespace, plan: QueryPlan) -> int:

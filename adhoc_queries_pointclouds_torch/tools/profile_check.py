@@ -2,15 +2,15 @@
 over the process's life.
 
 Each profile records N launches of bbox_count_multi (K=4 blocks of 2^21
-points) and counts, in its exported Chrome trace, the kernel events of that
-kernel and the runtime launch events; a launch whose kernel event is missing
-is reported by its position. The profiles run in a fresh process, then ROUNDS
-times after 3,000 unprofiled launches and IDLE_S seconds of idling, each in
-three forms: launches 10 ms apart, back to back, and with 0.5 s of idle
-inside the profiler's window before and after them. One JSON line a
-profile: its age in the process, the kernel events against the launches,
-and the least and largest kernel timestamp less its launch's (us). About
-two minutes.
+points) through the CLI's --profile (cli.profiled) and counts, in the
+Chrome trace it writes, the kernel events of that kernel and the runtime
+launch events; a launch whose kernel event is missing is reported by its
+position. The profiles run in a fresh process, then ROUNDS times after
+3,000 unprofiled launches and IDLE_S seconds of idling, each in three
+forms: launches 10 ms apart, back to back, and with 0.5 s of idle inside
+the profiler's window before and after them. One JSON line a profile: its
+age in the process, the kernel events against the launches, and the least
+and largest kernel timestamp less its launch's (us). About two minutes.
 
     python -m adhoc_queries_pointclouds_torch.tools.profile_check
 
@@ -23,9 +23,11 @@ import argparse
 import json
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
+from ..cli import profile_events, profiled
 from ..ops import predicate as P
 from ..parallel.comm import require_device
 
@@ -36,9 +38,9 @@ IDLE_S = 30.0
 
 
 def profile_launches(fn, n: int, gap: float, pad: float) -> dict:
-    """n launches of fn under torch.profiler (CPU and CUDA activity)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    """n launches of fn under the CLI's --profile (CPU and CUDA activity)."""
+
+    def window():
         time.sleep(pad)
         for _ in range(n):
             fn()
@@ -47,16 +49,15 @@ def profile_launches(fn, n: int, gap: float, pad: float) -> dict:
                 time.sleep(gap)
         torch.cuda.synchronize()
         time.sleep(pad)
+
     with tempfile.TemporaryDirectory() as d:
-        prof.export_chrome_trace(f"{d}/trace.json")
-        with open(f"{d}/trace.json") as f:
-            events = json.load(f)["traceEvents"]
-    kernels = {e["args"]["correlation"]: e for e in events
-               if e.get("cat") == "kernel" and KERNEL in e["name"]}
+        profiled(window, "cuda", Path(d))
+        kernels = {e["args"]["correlation"]: e for e in profile_events(d, "kernel")
+                   if KERNEL in e["name"]}
+        launches = [e for e in profile_events(d, "cuda_runtime") if "aunch" in e["name"]]
     # each call launches the same kernels in the same order (the output's
     # fill, the bounds' join, then the count): its launches are the last of
     # each call's runtime launch events
-    launches = [e for e in events if e.get("cat") == "cuda_runtime" and "aunch" in e["name"]]
     per_call = len(launches) // n
     if not per_call or len(launches) % n:
         raise RuntimeError(f"{len(launches)} runtime launch events for {n} calls")

@@ -67,9 +67,9 @@ Phases, in order; the first fault raises and the script exits non-zero:
      before it and read just after:
        bbox: counts in both transports with the sidecar index off,
          auto-built and read, each equal to a numpy f64 oracle;
-       collect: -o over LAST (the box, class 6 and the time range, packed
-         with the index off and raw with it read: auto-built for the box,
-         exact for class and time) and LAZER (one run per predicate, and a
+       collect: -o over LAST (the box, class 6 and the time range, both
+         transports, index off and read: auto-built for the box, exact for
+         class and time) and LAZER (one run per predicate, and a
          --print-points run); every written LAS file, read back, holds
          exactly the numpy oracle's matches of its input file in file
          order; the LAZER outputs and printed text are byte-identical to
@@ -129,8 +129,8 @@ Phases, in order; the first fault raises and the script exits non-zero:
          whose trace holds one event a launch; --devices 1 (the oracle's count) and 2 (exit 2); the
          experiment harness over its synthetic stand-ins (4 x 2M points a
          format): experiment 2 as cold subprocesses, all sizes, full and
-         max-density, over LAST and LAZ, and experiments 4 and 6 in
-         process, warm, 3 runs, over all four formats,
+         max-density, and experiments 4 and 6 in process, warm, 3 runs,
+         each over all four formats,
          every row's count a numpy f64 oracle's (the harness checks
          cross-format parity itself); soak at 3 x 300,000 points (every
          cell); memcheck at 64M points (every point collected and written,
@@ -157,6 +157,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -288,36 +289,55 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"built {_build.library_path()} in {time.perf_counter() - t0:.3f} s")
-    # the host codec (g++): the card's machine must not decode in Python
-    t0 = time.perf_counter()
-    lib = native.load()
-    if lib is None:
-        fail("the port's native codec did not build or load (g++): formats would decode in Python")
-    print(f"built {lib._name} in {time.perf_counter() - t0:.3f} s")
     # registers and spills of the tile-loop kernels: the packed bbox pair
     # (one body a load kind), the packed time pair (a body for each pair of
     # byte-plane counts and load kind: the e2e widths' body, (20, 32), the
     # range of registers over all 25 and every body that spills), the raw
     # time and class masks and the raw class count (one body a load kind)
     # and the dictionary mask and count (a body for each load kind and
-    # byte-plane count); and the compaction
+    # byte-plane count); and the compaction. These nvcc -Xptxas -v jobs,
+    # the kernel library's build and the host codec's (g++) run together.
     nvcc = _build._nvcc()
+    sources = ("bbox_count_packed.cu", "time_count.cu", "mask_bits.cu", "compact_bits.cu",
+               "class_count.cu", "class_count_dict.cu")
     with tempfile.TemporaryDirectory(prefix="aqpc_ptxas_") as tmp:
-        jobs = [subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", f"{tmp}/{src}.o",
-             str(Path(_build.__file__).parent / "csrc" / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("bbox_count_packed.cu", "time_count.cu", "mask_bits.cu",
-                        "compact_bits.cu", "class_count.cu", "class_count_dict.cu")]
-        bodies = {}
-        for job in jobs:
-            text = job.communicate()[0]
-            if job.returncode != 0:
-                fail(f"nvcc -Xptxas -v failed:\n{text}")
-            bodies.update(ptxas_bodies(text))
+        jobs = []
+        for src in sources:
+            with open(f"{tmp}/{src}.log", "w") as log:  # nvcc keeps its own descriptor
+                jobs.append(subprocess.Popen(
+                    [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", f"{tmp}/{src}.o",
+                     str(Path(_build.__file__).parent / "csrc" / src)],
+                    stdout=log, stderr=subprocess.STDOUT))
+        codec = {}
+
+        def build_codec():
+            t0 = time.perf_counter()
+            codec["lib"], codec["s"] = native.load(), time.perf_counter() - t0
+
+        codec_thread = threading.Thread(target=build_codec)
+        codec_thread.start()
+        try:
+            t0 = time.perf_counter()
+            _build.library()
+            print(f"built {_build.library_path()} in {time.perf_counter() - t0:.3f} s")
+            codec_thread.join()
+            # the host codec (g++): the card's machine must not decode in Python
+            if codec.get("lib") is None:
+                fail("the port's native codec did not build or load (g++): formats would "
+                     "decode in Python")
+            print(f"built {codec['lib']._name} in {codec['s']:.3f} s")
+            bodies = {}
+            for src, job in zip(sources, jobs):
+                job.wait()
+                text = Path(f"{tmp}/{src}.log").read_text()
+                if job.returncode != 0:
+                    fail(f"nvcc -Xptxas -v failed:\n{text}")
+                bodies.update(ptxas_bodies(text))
+        finally:
+            for job in jobs:
+                if job.poll() is None:
+                    job.kill()
+                    job.wait()
     for (name, loads), shapes in sorted(bodies.items()):
         if None in shapes:
             print(f"ptxas {name}<{loads} loads>: {shapes[None]}")
@@ -1742,8 +1762,8 @@ def path_collect(datasets) -> None:
             want = kept(("written", big, *query), lambda: written_oracle(big, match))
             print(f"{big.name}: {' '.join(query)}, oracle {sum(len(r) for _, r in want)} "
                   f"matching in {len(want)} files")
-            # each transport once, and the index off and read once
-            for n, (pack, use_index) in enumerate([("1", False), ("0", True)]):
+            for n, (pack, use_index) in enumerate([("1", False), ("0", False), ("1", True),
+                                                   ("0", True)]):
                 out_dir = tmp / f"last_{q}_{n}"
                 cli_collect(big, query, pack, use_index, want, out_dir)
                 shutil.rmtree(out_dir)
@@ -2290,10 +2310,6 @@ CONVERT_COLUMNS = ("position", "intensity", "classification", "gps_time", "color
 KERNEL_SYMBOLS = {"bbox_count_multi": "bbox_count_multi_kernel",
                   "bbox_count_packed": "bbox_count_packed_kernel"}
 EXP_POINTS, EXP_FILES = 2_000_000, 4  # the experiments' synthetic datasets: 8 M points each
-# the cold subprocess rows' formats: a cold row is mostly a fresh process's
-# start (8.5-9.8 s on the card's machine for a row of 27,335 hits), so the
-# cold rows of experiment 2 run over the columnar and the compressed format
-EXP_COLD_FORMATS = ("last", "laz")
 MEMCHECK_POINTS = 64_000_000
 PAPERSCALE_FILES, PAPERSCALE_POINTS = 4, 64_000_000  # 256 M points of LAST
 
@@ -2369,16 +2385,6 @@ def drivers_index(big: Path, box: str, tmp: Path) -> None:
         fail(f"index: the box count over {copy.name} pruned no points")
 
 
-def trace_kernels(trace: Path) -> dict:
-    """kernel name -> its events in a Chrome trace (torch.profiler's)."""
-    events = json.loads(trace.read_text())["traceEvents"]
-    names: dict = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            names[e["name"]] = names.get(e["name"], 0) + 1
-    return names
-
-
 def drivers_profile(big: Path, box: str, tmp: Path, smi: str) -> None:
     """--profile DIR over the box count in both transports, index off, in
     this process: the trace parses and holds an event of every kernel the
@@ -2400,7 +2406,7 @@ def drivers_profile(big: Path, box: str, tmp: Path, smi: str) -> None:
                 or f"Found {want} matching points" not in out):
             fail(f"--profile AQPC_PACK={pack}: want the trace line and Found {want}:\n{out}")
         launched = {k: n - before[k] for k, n in P.launches.items() if n > before[k]}
-        ours, others = traced_launches(trace_dir / cli.PROFILE_TRACE, launched)
+        ours, others = traced_launches(trace_dir, launched)
         print(f"  --profile AQPC_PACK={pack} --bounds {box} index off: found {want} in {wall:.3f} s "
               f"(traced, in this process); launches {launched}, the trace's kernel events {ours}, "
               f"other kernel events {others}; {smi}")
@@ -2416,7 +2422,7 @@ def drivers_profile(big: Path, box: str, tmp: Path, smi: str) -> None:
     if proc.returncode != 0 or f"Found {want} matching points" not in proc.stdout:
         fail(f"cli --profile in a fresh process exited {proc.returncode}:\n{proc.stdout}"
              f"{proc.stderr[-4000:]}")
-    ours, others = traced_launches(trace_dir / cli.PROFILE_TRACE, launches["1"])
+    ours, others = traced_launches(trace_dir, launches["1"])
     print(f"  cli --profile AQPC_PACK=1 in a fresh process: {wall:.1f} s with start-up; the trace's "
           f"kernel events {ours}, other kernel events {others}; this process's launches of the "
           f"same query {launches['1']}")
@@ -2424,16 +2430,16 @@ def drivers_profile(big: Path, box: str, tmp: Path, smi: str) -> None:
         fail(f"cli --profile in a fresh process: the trace holds {ours}, want {launches['1']}")
 
 
-def traced_launches(trace: Path, launched: dict) -> tuple[dict, int]:
-    """The kernel events in a Chrome trace of each launched kernel, and the
-    trace's other kernel events."""
-    events = trace_kernels(trace)
+def traced_launches(trace_dir: Path, launched: dict) -> tuple[dict, int]:
+    """The kernel events of each launched kernel in the trace --profile
+    wrote into trace_dir, and the trace's other kernel events."""
+    names = [e["name"] for e in cli.profile_events(trace_dir, "kernel")]
     ours = {}
     for kernel in launched:
         if kernel not in KERNEL_SYMBOLS:
-            fail(f"{trace}: {kernel} launched, its kernel name is unknown")
-        ours[kernel] = sum(n for name, n in events.items() if KERNEL_SYMBOLS[kernel] in name)
-    return ours, sum(events.values()) - sum(ours.values())
+            fail(f"{trace_dir}: {kernel} launched, its kernel name is unknown")
+        ours[kernel] = sum(KERNEL_SYMBOLS[kernel] in name for name in names)
+    return ours, len(names) - sum(ours.values())
 
 
 def drivers_devices(big: Path, box: str) -> None:
@@ -2476,16 +2482,16 @@ def experiment_oracles(root: Path, e: int) -> dict:
 
 def drivers_experiments(tmp: Path, smi: str) -> None:
     """The paper's harness through the CLI: experiment 2 as cold
-    subprocesses, all sizes, full and max-density, over EXP_COLD_FORMATS;
-    experiments 4 and 6 in this process, warm, 3 runs, over all four
-    formats. The harness checks cross-format parity; every row's count must
+    subprocesses, all sizes, full and max-density; experiments 4 and 6 in
+    this process, warm, 3 runs; each over all four formats. The harness checks cross-format parity; every row's count must
     equal the numpy oracle."""
     root = tmp / "experiments"
     synth = ["--synthesize", str(EXP_POINTS), "--synthesize-files", str(EXP_FILES), "--clustered"]
-    runs = [(2, EXP_COLD_FORMATS, ["--runs", "1", *synth]),
-            (4, experiments.FORMATS, ["--in-process", "--warm", "--runs", "3"]),
-            (6, experiments.FORMATS, ["--in-process", "--warm", "--runs", "3", *synth])]
-    for e, formats, extra in runs:
+    formats = experiments.FORMATS
+    runs = [(2, ["--runs", "1", *synth]),
+            (4, ["--in-process", "--warm", "--runs", "3"]),
+            (6, ["--in-process", "--warm", "--runs", "3", *synth])]
+    for e, extra in runs:
         extra = ["--formats", ",".join(formats), *extra]
         t0 = time.perf_counter()
         rc, out = cli_output(["experiments", "-i", str(root), "-e", str(e), "--device", "cuda",

@@ -96,6 +96,9 @@ def test_profile_writes_a_trace_and_the_jax_line(data, capsys, tmp_path):
     assert any(e.get("cat") == "cpu_op" for e in events)
     # the CPU profile records no device activity
     assert not any(e.get("cat") == "kernel" for e in events)
+    for category in ("cpu_op", "kernel"):
+        assert torch_cli.profile_events(trace_dir, category) == [
+            e for e in events if e.get("cat") == category]
 
 
 @pytest.mark.parametrize("extra", [[], ["--class", "6"]])
