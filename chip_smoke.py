@@ -123,10 +123,11 @@ Phases, in order; the first fault raises and the script exits non-zero:
          with the source's columns and its box count the oracle's; index
          over a copy of LAST 64M, then the box count reading the sidecars
          (the oracle's, points pruned); --profile DIR over the box count in
-         both transports in this process, the trace's kernel events of the
-         port's kernels printed beside the launch counters, at least one
-         event a launched kernel, and once through a fresh CLI process,
-         whose trace holds one event a launch; --devices 1 (the oracle's count) and 2 (exit 2); the
+         both transports through cli.main in a fresh process (started as
+         `chip_smoke.py --profile-worker`), the trace's kernel events of
+         the port's kernels printed beside that process's launch counters,
+         at least one event a launched kernel and, in its first trace, one
+         event a launch; --devices 1 (the oracle's count) and 2 (exit 2); the
          experiment harness over its synthetic stand-ins (4 x 2M points a
          format): experiment 2 as cold subprocesses, all sizes, full and
          max-density, and experiments 4 and 6 in process, warm, 3 runs,
@@ -136,7 +137,7 @@ Phases, in order; the first fault raises and the script exits non-zero:
          cell); memcheck at 64M points (every point collected and written,
          STREAMING OK, peak anonymous RSS); paperscale generate, oracle and
          run at 4 x 64M LAST points (all four checks); the kernel check
-         counts the in-process steps only;
+         counts the in-process steps and the --profile worker's launches;
      every kernel of a path must have launched in it (in the distributed
      path, one of each named pair: which one runs depends on the transport)
 
@@ -2385,49 +2386,64 @@ def drivers_index(big: Path, box: str, tmp: Path) -> None:
         fail(f"index: the box count over {copy.name} pruned no points")
 
 
-def drivers_profile(big: Path, box: str, tmp: Path, smi: str) -> None:
-    """--profile DIR over the box count in both transports, index off, in
-    this process: the trace parses and holds an event of every kernel the
-    query launched; its events of the port's kernels beside the launch
-    counters. Then the packed count through a fresh CLI process, as a user
-    runs --profile: its trace must hold one event a launch of this
-    process's run (a long-lived process that profiled before loses the
-    first kernel records of a later trace; PERF.md §7)."""
+def drivers_profile(big: Path, box: str, tmp: Path, smi: str) -> dict:
+    """--profile DIR over the box count in both transports, index off,
+    through cli.main in a fresh process (`chip_smoke.py --profile-worker`,
+    profile_worker): each trace parses and its events of the port's
+    kernels are printed beside that process's launch counters; every
+    launched kernel has an event, and the first trace holds one event a
+    launch. A fresh process, since a torch.profiler session in a
+    long-lived one loses its first kernel records, up to all of them
+    (PERF.md §7). Returns the worker's launches, for the path's kernel
+    check."""
     want = oracle(big, box)
-    query = ["-i", str(big), "--bounds", box, "--device", "cuda", "--no-index"]
-    launches = {}
-    for pack in ("1", "0"):
-        trace_dir = tmp / f"profile_{pack}"
-        before = dict(P.launches)
-        t0 = time.perf_counter()
-        out = run_cli([*query, "--profile", str(trace_dir)], pack)
-        wall = time.perf_counter() - t0
-        if (f"Profiler trace written to {trace_dir}" not in out.splitlines()
-                or f"Found {want} matching points" not in out):
-            fail(f"--profile AQPC_PACK={pack}: want the trace line and Found {want}:\n{out}")
-        launched = {k: n - before[k] for k, n in P.launches.items() if n > before[k]}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--profile-worker",
+                           str(big), box, str(tmp)], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"the --profile worker exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+             f"{proc.stderr[-4000:]}")
+    runs = json.loads(proc.stdout.splitlines()[-1])
+    print(f"  the --profile worker ran in {time.perf_counter() - t0:.1f} s with start-up")
+    total = {}
+    for i, (pack, run) in enumerate(runs.items()):
+        trace_dir, launched = tmp / f"profile_{pack}", run["launches"]
+        if (f"Profiler trace written to {trace_dir}" not in run["out"].splitlines()
+                or f"Found {want} matching points" not in run["out"]):
+            fail(f"--profile AQPC_PACK={pack}: want the trace line and Found {want}:\n{run['out']}")
         ours, others = traced_launches(trace_dir, launched)
-        print(f"  --profile AQPC_PACK={pack} --bounds {box} index off: found {want} in {wall:.3f} s "
-              f"(traced, in this process); launches {launched}, the trace's kernel events {ours}, "
-              f"other kernel events {others}; {smi}")
+        print(f"  --profile AQPC_PACK={pack} --bounds {box} index off: found {want} in "
+              f"{run['seconds']:.3f} s (traced, profile {i + 1} of a fresh process); launches "
+              f"{launched}, the trace's kernel events {ours}, other kernel events {others}; {smi}")
         if not launched or any(ours[k] < 1 for k in launched):
             fail(f"--profile AQPC_PACK={pack}: the trace holds {ours} of the launches {launched}")
-        launches[pack] = launched
-    trace_dir = tmp / "profile_fresh"
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", *query,
-                           "--profile", str(trace_dir)], capture_output=True, text=True,
-                          env=dict(os.environ, AQPC_PACK="1"), timeout=300)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0 or f"Found {want} matching points" not in proc.stdout:
-        fail(f"cli --profile in a fresh process exited {proc.returncode}:\n{proc.stdout}"
-             f"{proc.stderr[-4000:]}")
-    ours, others = traced_launches(trace_dir, launches["1"])
-    print(f"  cli --profile AQPC_PACK=1 in a fresh process: {wall:.1f} s with start-up; the trace's "
-          f"kernel events {ours}, other kernel events {others}; this process's launches of the "
-          f"same query {launches['1']}")
-    if ours != launches["1"]:
-        fail(f"cli --profile in a fresh process: the trace holds {ours}, want {launches['1']}")
+        if i == 0 and ours != launched:
+            fail(f"--profile AQPC_PACK={pack}, a fresh process's first trace: it holds {ours}, "
+                 f"want {launched}")
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def profile_worker(argv: list[str]) -> int:
+    """The --profile step's process: the box count over argv's dataset under
+    cli.main's --profile in both transports, between two checks that it
+    loads no jax. Its last line: per transport, the CLI's output, its wall
+    and the launches it counted."""
+    big, box, tmp = argv
+    check_no_jax("profile worker, start")
+    runs = {}
+    for pack in ("1", "0"):
+        before = dict(P.launches)
+        t0 = time.perf_counter()
+        out = run_cli(["-i", big, "--bounds", box, "--device", "cuda", "--no-index",
+                       "--profile", str(Path(tmp) / f"profile_{pack}")], pack)
+        runs[pack] = {"out": out, "seconds": time.perf_counter() - t0,
+                      "launches": {k: n - before[k] for k, n in P.launches.items()
+                                   if n > before[k]}}
+    check_no_jax("profile worker, end")
+    print(json.dumps(runs))
+    return 0
 
 
 def traced_launches(trace_dir: Path, launched: dict) -> tuple[dict, int]:
@@ -2551,20 +2567,22 @@ def drivers_paperscale(tmp: Path, smi: str) -> None:
     print(f"    {smi}")
 
 
-def path_drivers(datasets) -> None:
+def path_drivers(datasets) -> dict:
     """The JAX CLI's other subcommands and flags, the paper's experiment
     harness and the three tools, each on the card: count-points over LAST
     64M; convert of one LAS file to LAST, LAZER and LAZ; index over a copy
     of LAST 64M; --profile's trace against the launches; --devices; the
-    experiments; soak; memcheck at 64 M points; paperscale at 256 M."""
+    experiments; soak; memcheck at 64 M points; paperscale at 256 M.
+    Returns this process's launches and the --profile worker's together."""
     big, box, _, n_points = datasets[0]
     las = datasets[1][0]
     smi = smi_line()
+    worker = {}  # the --profile worker's launches
     steps = [
         ("count-points", lambda tmp: drivers_count_points(big, n_points)),
         ("convert", lambda tmp: drivers_convert(point_files(las)[0], box, tmp)),
         ("index", lambda tmp: drivers_index(big, box, tmp)),
-        ("profile", lambda tmp: drivers_profile(big, box, tmp, smi)),
+        ("profile", lambda tmp: worker.update(drivers_profile(big, box, tmp, smi))),
         ("devices", lambda tmp: drivers_devices(big, box)),
         ("experiments", lambda tmp: drivers_experiments(tmp, smi)),
         ("soak", lambda tmp: drivers_soak()),
@@ -2576,6 +2594,8 @@ def path_drivers(datasets) -> None:
         with tempfile.TemporaryDirectory(prefix=f"aqpc_{name}_") as tmp:
             step(Path(tmp))
         print(f"  drivers step {name}: {time.perf_counter() - t0:.1f} s")
+    print(f"  launches of the --profile worker: {worker}")
+    return {k: n + worker.get(k, 0) for k, n in P.launches.items() if n + worker.get(k, 0)}
 
 
 # path -> (its function, the kernels it must launch: a tuple is any one of
@@ -2662,4 +2682,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist2-worker"]:
         sys.exit(dist2_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--profile-worker"]:
+        sys.exit(profile_worker(sys.argv[2:]))
     sys.exit(main())
