@@ -3,7 +3,10 @@
 nvcc compiles every csrc/*.cu for sm_90a, one process per source, all
 started together, and links the objects into one shared library with a
 plain C interface, cached as _build/<source hash>/libaqpc_cuda.so next to
-this file; a source edit gives a new hash and so a new build. The library
+this file; a source edit gives a new hash and so a new build. ptxas reports
+each kernel's registers, shared memory and spills (-Xptxas -v); the
+reports of every source are kept beside the library as nvcc.log
+(build_log()). The library
 is loaded with ctypes: every pointer and the CUDA stream is a c_void_p,
 every size a c_int64, and each entry point returns cudaGetLastError().
 Nothing here is imported or run until a kernel is launched on a CUDA tensor,
@@ -23,7 +26,7 @@ _HERE = Path(__file__).parent
 _CSRC = _HERE / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -69,6 +72,12 @@ def library_path() -> Path:
     return _HERE / "_build" / h.hexdigest()[:16] / "libaqpc_cuda.so"
 
 
+def build_log_path(so: Path | None = None) -> Path:
+    """nvcc's output of every source of the library so (default: the
+    current sources' library), ptxas's reports among it."""
+    return (so or library_path()).with_name("nvcc.log")
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -91,9 +100,10 @@ def _build(so: Path) -> None:
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs.append((cmd, obj, proc))
-    failed = []
+    failed, logs = [], []
     for cmd, _, proc in jobs:
         out = proc.communicate()[0]
+        logs.append(f"{' '.join(cmd)}\n{out}")
         if proc.returncode != 0:
             failed.append(f"exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
     objs = [str(obj) for _, obj, _ in jobs]
@@ -108,6 +118,9 @@ def _build(so: Path) -> None:
                 f"nvcc failed to link with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        log = so.with_name(f"nvcc.log.{tag}")
+        log.write_text("\n".join(logs))
+        os.replace(log, build_log_path(so))
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     finally:
         for obj in objs:

@@ -18,7 +18,12 @@ compact_bits with every block skipped (its floor), of two partial blocks
 (of K, the others skipped) at hit shares 0.001, 0.05, 0.5 and 0.95 and at
 chip_smoke.py phase 3's (0.001 and 0.5), and of all K blocks at the
 density path's share (its candidates at the 10 m grid of
-density_bench.py, about one a cell), then the u8, word and dictionary
+density_bench.py, about one a cell), then compact_bits_gather (the
+resident density path's compaction that gathers x, y and z) with every
+block skipped, with all K blocks at hit shares 0.001, 0.05, 0.5 and 1 and
+at chip_smoke.py phase 3's (0, 0.001, 0.5 and 1), after its edges
+(gather_edges) against its plain version, then the u8,
+word and dictionary
 (k = 2) class counts at K = 4 and at a resident dataset's K = 64, each
 with one call split by torch.profiler into the launches that fill an
 output ("fill_ms") and the rest ("kernel_ms"); --only NAMES (kernel
@@ -33,7 +38,8 @@ kernel_timer.KernelTimer (the 50 MB L2 flushed before each run; median and
 least of --runs) in both readings: the call (the host's enqueue inside the
 window: a busy host lifts single runs, the least shows the card's part)
 and the device's work alone. One line per width and kernel: both
-readings, the bytes it must move, and the bound at 3.35 TB/s. The last
+readings, the bytes it must move (for the gather, the 32-byte sectors of
+x, y and z that its hits touch), and the bound at 3.35 TB/s. The last
 line is one JSON object with every number and the card's name and power
 limit.
 
@@ -60,6 +66,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 if __package__:
     from .in_turns import in_turns
     from .kernel_timer import KernelTimer
@@ -82,10 +90,76 @@ DICT_WIDTHS = (0, 1, 2, 4, 8)
 COMPACT_SHARES = (0.001, 0.05, 0.5, 0.95)
 SMOKE_SHARES = (0.0, 0.001, 0.5, 1.0)  # chip_smoke.py phase 3's blocks
 DENSITY_SHARE = 154_350 / B
+# compact_bits_gather's hit shares, of all K blocks
+GATHER_SHARES = (0.001, 0.05, 0.5, 1.0)
+# csrc/compact_bits.cu kDenseHits: a tile's hits, of its 8192 rows, from
+# which it gathers its rows as 16-byte spans
+GATHER_DENSE_HITS = 1024
 # the class counts' K: the main path's step, and a resident dataset's launch
 CLASS_COUNT_KS = (K, 64)
 HBM_BYTES_PER_S = 3.35e12
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def gather_edges(seed: int = 0) -> list:
+    """[(label, (K, B) bool rows, blocks skipped)]: the edges of
+    compact_bits_gather's two paths (csrc/compact_bits.cu), each block given
+    an output offset unless skipped. Block 0's 3 hits put every later
+    block's output off a 16-byte boundary. Block 1's first tile (8192
+    rows, dense) holds, a warp's 1024 rows each: 128 random hits, 127, one
+    hit in each 8-row sector, a full span, an empty one and a full one
+    again, hits at both ends of every word, and 20 hits in each of 6 words;
+    its second tile is full. Block 2 has an empty tile next to a full one.
+    Block 6 has a tile with one hit in each sector (GATHER_DENSE_HITS:
+    dense) next to one with GATHER_DENSE_HITS - 1 random hits (sparse),
+    block 7 a tile of GATHER_DENSE_HITS random hits next to one whose
+    first GATHER_DENSE_HITS - 1 rows are hits. Then a partial last mask
+    word (B % 32 == 8) in a dense tile, at B % 4 == 0 (the 16-byte path)
+    and B % 4 == 1 (the sparse path), with hits in that word."""
+    rng = np.random.default_rng(seed)
+    span, tile = 1024, 8192
+    rows = np.zeros((8, 2 * tile), bool)
+    rows[0, :3] = True
+    b = rows[1]
+    b[rng.choice(span, 128, replace=False)] = True
+    b[span + rng.choice(span, 127, replace=False)] = True
+    b[2 * span + 8 * np.arange(span // 8) + rng.integers(0, 8, span // 8)] = True
+    b[3 * span:4 * span] = True
+    b[5 * span:6 * span] = True
+    b[6 * span + np.arange(span // 32)[:, None] * 32 + np.array([0, 31])] = True
+    for w in (0, 5, 9, 17, 30, 31):  # the word-at-a-time walk
+        b[7 * span + 32 * w + rng.choice(32, 20, replace=False)] = True
+    b[tile:] = True
+    rows[2, tile:] = True
+    rows[3, 5] = True
+    rows[4] = rng.random(2 * tile) < 0.5
+    rows[5, :2] = True
+    rows[6, 8 * np.arange(tile // 8) + rng.integers(0, 8, tile // 8)] = True
+    rows[6, tile + rng.choice(tile, GATHER_DENSE_HITS - 1, replace=False)] = True
+    rows[7, rng.choice(tile, GATHER_DENSE_HITS, replace=False)] = True
+    rows[7, tile:tile + GATHER_DENSE_HITS - 1] = True
+    cases = [("edges", rows, ()), ("edges, blocks 0 and 3 skipped", rows, (0, 3))]
+    for block_size in (2 * tile + 2 * span + 520, 2 * tile + 2 * span + 521):
+        r = np.zeros((3, block_size), bool)
+        r[0, 0] = True
+        r[1] = True
+        r[2] = rng.random(block_size) < 0.5
+        r[2, -3:] = True
+        cases.append((f"partial last word, B % 4 == {block_size % 4}", r, ()))
+    return cases
+
+
+def gather_sector_bytes(rows, skip=()) -> int:
+    """The bytes of x, y and z that compact_bits_gather's hits touch in
+    32-byte sectors (8 rows of a column) of the (K, B) columns, blocks in
+    skip not read; rows: (K, B) bool, on any device."""
+    import torch
+
+    keep = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    if skip:
+        keep[list(skip)] = False
+    k, r = torch.nonzero(rows & keep[:, None], as_tuple=True)
+    return 3 * 32 * int(torch.unique((k * rows.shape[1] + r) // 8).numel())
 
 
 def main(argv=None) -> int:
@@ -188,6 +262,25 @@ def main(argv=None) -> int:
         return [torch.randint(0, 256, (K, packed_row_width(w, B)), dtype=torch.uint8,
                               device=dev, generator=gen) for w in widths]
 
+    def gather_case(hit, skip, label):
+        """compact_bits_gather's operands over the rows hit (blocks in skip
+        given -1) and their output's length, the kernel held to its plain
+        version."""
+        k_rows, block_size = hit.shape
+        mask = P.pack_mask_bits(hit)
+        offsets, total = [], 0
+        for j, c in enumerate(mask.counts.tolist()):
+            offsets.append(-1 if j in skip else total)
+            total += 0 if j in skip else c
+        xyz = [torch.randint(I32_MIN, I32_MAX + 1, (k_rows, block_size), device=dev,
+                             generator=gen).to(torch.int32) for _ in range(3)]
+        ops = (mask.bits, mask.chunks, torch.tensor(offsets, dtype=torch.int64, device=dev),
+               total, block_size, *xyz)
+        got = C.compact_bits_gather(*ops)
+        if not all(torch.equal(g, w) for g, w in zip(got, C.compact_bits_gather_plain(*ops))):
+            raise RuntimeError(f"compact_bits_gather, {label}: not the plain version's output")
+        return ops, total
+
     for widths in WIDTHS if want("bbox_count_packed", "mask_bbox_packed") else ():
         lo, hi = ranges(widths)
         ops = (*planes_of(widths), lo, hi, nv, widths, B)
@@ -282,6 +375,23 @@ def main(argv=None) -> int:
         timed("compact_bits", f"{label}, {total} hits of {len(partial)} blocks",
               lambda: C.compact_bits(mask.bits, mask.chunks, off, total, B),
               len(partial) * B / 8 + 4 * total)
+    if want("compact_bits_gather"):
+        # the edges against the plain version, then every block skipped and
+        # all K blocks at each share, every block given an offset
+        for label, edge, skip in gather_edges(args.seed):
+            hit = torch.from_numpy(edge).to(dev)
+            gather_case(hit, skip, label)
+        for share in (None, *GATHER_SHARES, SMOKE_SHARES):
+            shares = torch.tensor(0.5 if share is None else share, device=dev)
+            hit = torch.rand((K, B), device=dev, generator=gen) < shares.reshape(-1, 1)
+            skip = range(K) if share is None else ()
+            ops, total = gather_case(hit, skip, f"share {share}")
+            label = ("every block skipped" if share is None else "smoke" if share == SMOKE_SHARES
+                     else f"share {share}")
+            mask_bytes = 0 if share is None else K * B / 8
+            timed("compact_bits_gather", f"{label}, {total} hits",
+                  lambda: C.compact_bits_gather(*ops),
+                  mask_bytes + gather_sector_bytes(hit, skip) + 16 * total)
     # the class counts (u8, words, dictionary at k = 2) at the main path's K
     # and at a resident dataset's, a target or code in every block, each
     # with one call split into the profiler's kernels: the output's fill

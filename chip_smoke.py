@@ -12,10 +12,13 @@ Phases, in order; the first fault raises and the script exits non-zero:
      at the end); card name and power limit (nvidia-smi), torch, CUDA and
      nvcc versions; no CUDA device is an error
   2. build: nvcc builds the kernels of adhoc_queries_pointclouds_torch/csrc
-     and g++ the host codec of native/ (no codec is an error), and ptxas
-     reports the registers and spills of the kernels on the persistent tile
-     loop (packed bbox and time pairs, raw time and class masks, raw class
-     count, dictionary mask and count) and of the compaction
+     and g++ the host codec of native/ (no codec is an error), and the
+     build's own ptxas report gives the registers, spills and shared memory
+     of the kernels on the persistent tile loop (packed bbox and time pairs,
+     raw time and class masks, raw class count, dictionary mask and count)
+     and of the compaction; two worker processes write the end-to-end
+     datasets meanwhile (`chip_smoke.py --dataset-worker`), joined before
+     phase 3, so that nothing else runs beside the kernels' timings
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (K=4 blocks of 2^21 points; the probe's 2^24
      points), exact equality; kernel and plain times (tools/kernel_timer.py:
@@ -57,14 +60,22 @@ Phases, in order; the first fault raises and the script exits non-zero:
      grid_case. The compaction that gathers x, y and z
      (compact_bits_gather) runs with every block skipped, blocks of 0
      hits and full blocks given offsets, a partial last mask word at a B
-     no multiple of 8,192 and K > 65,535, and is timed at K=4 x 2^21 at
-     the collect cases' hit densities; the probe variants and the K = 1
+     no multiple of 8,192, K > 65,535 and the edges of its dense and
+     sparse paths (tools/packed_bench.py gather_edges), and is timed at
+     K=4 x 2^21 at the collect cases' hit densities and at a share of 0.01
+     on every block, its bound counting the 32-byte sectors of x, y and z
+     that the hits touch; the probe variants and the K = 1
      launch of bbox_count_multi (bbox_count, the JAX bbox_count_pallas) at
      2^24 points
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
      (2 x 2M), nine paths, each with the launch counters set to 0 just
-     before it and read just after:
+     before it and read just after. Beside them a background worker
+     (`chip_smoke.py --background-worker`, no card) does the host work
+     that no path needs at once, in the order the paths take it: the
+     exact sidecars, the density oracles over LAST, the experiments'
+     stand-ins and oracles, paperscale's dataset and oracle; a path that
+     ran beside it says so in its phase line:
        bbox: counts in both transports with the sidecar index off,
          auto-built and read, each equal to a numpy f64 oracle;
        collect: -o over LAST (the box, class 6 and the time range, both
@@ -130,13 +141,15 @@ Phases, in order; the first fault raises and the script exits non-zero:
          event a launch; --devices 1 (the oracle's count) and 2 (exit 2); the
          experiment harness over its synthetic stand-ins (4 x 2M points a
          format): experiment 2 as cold subprocesses, all sizes, full and
-         max-density, and experiments 4 and 6 in process, warm, 3 runs,
+         max-density, the four formats at once (a harness process each),
+         and experiments 4 and 6 in process, warm, 3 runs,
          each over all four formats,
-         every row's count a numpy f64 oracle's (the harness checks
-         cross-format parity itself); soak at 3 x 300,000 points (every
+         every row's count a numpy f64 oracle's (so the formats agree);
+         soak at 3 x 300,000 points (every
          cell); memcheck at 64M points (every point collected and written,
-         STREAMING OK, peak anonymous RSS); paperscale generate, oracle and
-         run at 4 x 64M LAST points (all four checks); the kernel check
+         STREAMING OK, peak anonymous RSS); paperscale generate and oracle
+         (in the background worker) and run at 4 x 64M LAST points (all
+         four checks); the kernel check
          counts the in-process steps and the --profile worker's launches;
      every kernel of a path must have launched in it (in the distributed
      path, one of each named pair: which one runs depends on the transport)
@@ -149,9 +162,11 @@ from __future__ import annotations
 
 import contextlib
 import filecmp
+import hashlib
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -179,7 +194,7 @@ from adhoc_queries_pointclouds_torch.ops import density as D
 from adhoc_queries_pointclouds_torch.ops import predicate as P
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
 from adhoc_queries_pointclouds_torch.tools import (
-    bboxprobe, density_bench, dist2, memcheck, paperscale, soak,
+    bboxprobe, density_bench, dist2, memcheck, packed_bench, paperscale, soak,
 )
 from adhoc_queries_pointclouds_torch.tools.kernel_timer import KernelTimer
 from adhoc_queries_pointclouds_torch.utils.aabb import AABB, parse_aabb
@@ -290,55 +305,38 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
-    # registers and spills of the tile-loop kernels: the packed bbox pair
-    # (one body a load kind), the packed time pair (a body for each pair of
-    # byte-plane counts and load kind: the e2e widths' body, (20, 32), the
-    # range of registers over all 25 and every body that spills), the raw
-    # time and class masks and the raw class count (one body a load kind)
-    # and the dictionary mask and count (a body for each load kind and
-    # byte-plane count); and the compaction. These nvcc -Xptxas -v jobs,
-    # the kernel library's build and the host codec's (g++) run together.
-    nvcc = _build._nvcc()
-    sources = ("bbox_count_packed.cu", "time_count.cu", "mask_bits.cu", "compact_bits.cu",
-               "class_count.cu", "class_count_dict.cu")
-    with tempfile.TemporaryDirectory(prefix="aqpc_ptxas_") as tmp:
-        jobs = []
-        for src in sources:
-            with open(f"{tmp}/{src}.log", "w") as log:  # nvcc keeps its own descriptor
-                jobs.append(subprocess.Popen(
-                    [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", f"{tmp}/{src}.o",
-                     str(Path(_build.__file__).parent / "csrc" / src)],
-                    stdout=log, stderr=subprocess.STDOUT))
-        codec = {}
+    """The kernel library (nvcc, one process a source, all at once) and the
+    host codec (g++) built together; then ptxas's registers and spills,
+    from the library's own build log, of the tile-loop kernels: the packed
+    bbox pair (one body a load kind), the packed time pair (a body for each
+    pair of byte-plane counts and load kind: the e2e widths' body, (20, 32),
+    the range of registers over all 25 and every body that spills), the raw
+    time and class masks and the raw class count (one body a load kind)
+    and the dictionary mask and count (a body for each load kind and
+    byte-plane count); and the compaction."""
+    codec = {}
 
-        def build_codec():
-            t0 = time.perf_counter()
-            codec["lib"], codec["s"] = native.load(), time.perf_counter() - t0
+    def build_codec():
+        t0 = time.perf_counter()
+        codec["lib"], codec["s"] = native.load(), time.perf_counter() - t0
 
-        codec_thread = threading.Thread(target=build_codec)
-        codec_thread.start()
-        try:
-            t0 = time.perf_counter()
-            _build.library()
-            print(f"built {_build.library_path()} in {time.perf_counter() - t0:.3f} s")
-            codec_thread.join()
-            # the host codec (g++): the card's machine must not decode in Python
-            if codec.get("lib") is None:
-                fail("the port's native codec did not build or load (g++): formats would "
-                     "decode in Python")
-            print(f"built {codec['lib']._name} in {codec['s']:.3f} s")
-            bodies = {}
-            for src, job in zip(sources, jobs):
-                job.wait()
-                text = Path(f"{tmp}/{src}.log").read_text()
-                if job.returncode != 0:
-                    fail(f"nvcc -Xptxas -v failed:\n{text}")
-                bodies.update(ptxas_bodies(text))
-        finally:
-            for job in jobs:
-                if job.poll() is None:
-                    job.kill()
-                    job.wait()
+    codec_thread = threading.Thread(target=build_codec)
+    codec_thread.start()
+    try:
+        t0 = time.perf_counter()
+        _build.library()
+        print(f"built {_build.library_path()} in {time.perf_counter() - t0:.3f} s")
+    finally:
+        codec_thread.join()
+    # the host codec (g++): the card's machine must not decode in Python
+    if codec.get("lib") is None:
+        fail("the port's native codec did not build or load (g++): formats would "
+             "decode in Python")
+    print(f"built {codec['lib']._name} in {codec['s']:.3f} s")
+    log = _build.build_log_path()
+    if not log.exists():
+        fail(f"no nvcc log beside the kernel library ({log}): no ptxas report")
+    bodies = ptxas_bodies(log.read_text())
     for (name, loads), shapes in sorted(bodies.items()):
         if None in shapes:
             print(f"ptxas {name}<{loads} loads>: {shapes[None]}")
@@ -362,7 +360,7 @@ TILES_KERNELS = {"BoxTiles": "mask_bbox_packed", "TimeTiles": "mask_time_packed"
 def ptxas_bodies(text: str) -> dict:
     """{(kernel, loads): {byte planes ((lo, hi) for the packed time pair),
     or None: facts}} of the tile-loop kernels and the compaction (loads
-    "any") in one file's `nvcc -Xptxas -v` output."""
+    "any") in `nvcc -Xptxas -v` output."""
     entry = re.compile(r"(bbox_count_packed_kernel|time_count_packed_kernel|mask_packed_kernel"
                        r"|class_count_kernel|class_count_dict_kernel)I"
                        r"(?:N(?:4aqpc|S_)\d+(\w+?Tiles)I)?Lb([01])E((?:Li\d+E)*)"
@@ -380,11 +378,13 @@ def ptxas_bodies(text: str) -> dict:
         facts = " ".join(lines[n + 1:n + 4])
         regs = re.search(r"Used (\d+) registers", facts)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", facts)
+        smem = re.search(r"(\d+) bytes smem", facts)
         shape = tuple(int(v) for v in re.findall(r"Li(\d+)E", planes or "")) or None
         loads = "any" if compact else "wide" if wide == "1" else "narrow"
         out.setdefault((name, loads), {})[shape] = {
             "registers": int(regs.group(1)) if regs else None,
-            "spills": int(spills.group(1)) + int(spills.group(2)) if spills else None}
+            "spills": int(spills.group(1)) + int(spills.group(2)) if spills else None,
+            "smem": int(smem.group(1)) if smem else 0}
     return out
 
 
@@ -1398,9 +1398,15 @@ def kernels_gather(dev, gen, timer, out) -> None:
     the edges of the resident density path's gather: every block skipped,
     blocks with 0 hits given an offset, full blocks (the density path gives
     them offsets), skipped blocks, a partial last mask word at a B that is
-    no multiple of 8,192, K > 65,535; then at the path's shape, K blocks of
-    2^21 rows at the hit shares DENSITIES, every block given an offset,
-    timed (no PyTorch call computes the function: no library time)."""
+    no multiple of 8,192, K > 65,535, and the edges of its dense and sparse
+    paths (tools/packed_bench.py gather_edges, as the card test holds
+    them); then at the path's shape, K blocks of 2^21 rows at the hit
+    shares DENSITIES, and at a share of 0.01 on every block (sparse), every
+    block given an offset, timed (no PyTorch call computes the function: no
+    library time). The bound counts the mask's bit a row, 16 bytes written
+    a hit and the 32-byte sectors of x, y and z that the hits touch (the
+    card reads a sector whole); the count of PRs 12-14, 12 bytes read a
+    hit, is printed beside it."""
     errs: list[int] = []
     print("compact_bits_gather:")
 
@@ -1437,12 +1443,23 @@ def kernels_gather(dev, gen, timer, out) -> None:
     case("0 hits, 0.1 %, 1/2 and full blocks, all with offsets", rows)
     case("block 2 skipped", rows, skip=(2,))
     case("K > 65,535", shares(65548, 128, (0.0, 0.001, 0.3, 0.5, 0.9, 1.0, 0.05)))
-    args, total = case("the path's shape", hit_rows(gen, dev, B))
-    t = timed(timer, lambda: C.compact_bits_gather(*args),
-              lambda: C.compact_bits_gather_plain(*args),
-              K * B / 8 + 12 * total + 16 * total, K * B / 32 * 8 + 4 * total,
-              what=f"{total} rows of {K} blocks")
-    out["compact_bits_gather"] = dict(max_abs_err=max(errs), **t)
+    for label, edge, skip in packed_bench.gather_edges(SEED):
+        case(label, torch.from_numpy(edge).to(dev), skip)
+    timed_cases = [("the path's shape", hit_rows(gen, dev, B)),
+                   ("sparse, a share of 0.01 on every block", shares(K, B, (0.01,)))]
+    times = []
+    for label, hit in timed_cases:
+        args, total = case(label, hit)
+        sectors = packed_bench.gather_sector_bytes(hit)
+        hit_bound = bound_of(K * B / 8 + 12 * total + 16 * total, 0)[0]
+        print(f"  bound by hits (PRs 12-14: 12 B read a hit) {hit_bound:.4f} ms; by sectors "
+              f"{sectors / 1e6:.2f} MB of x, y, z read")
+        t = timed(timer, lambda: C.compact_bits_gather(*args),
+                  lambda: C.compact_bits_gather_plain(*args),
+                  K * B / 8 + sectors + 16 * total, K * B / 32 * 8 + 4 * total,
+                  what=f"{label}: {total} rows of {K} blocks")
+        times.append(t)
+    out["compact_bits_gather"] = dict(max_abs_err=max(errs), **times[0])  # the path's shape
 
 
 def kernels_probe(dev, gen, timer, out) -> None:
@@ -1494,12 +1511,117 @@ def kernels_probe(dev, gen, timer, out) -> None:
 
 # oracles a later path reads again, computed once a run: key -> value
 _ORACLES: dict = {}
+_BACKGROUND: dict = {}  # "worker": the run's Background, while it runs
+
+
+def background_tasks(root: Path) -> list:
+    """[(key, make)]: the host work of the run that no path needs at once,
+    in the order the paths need it, for the background worker: the exact
+    sidecars of every dataset (the collect path), the numpy oracles of the
+    LAST density queries (the density path), the experiments' synthetic
+    stand-ins (doc for experiments 2 and 4, navvis3t for 6, as the CLI's
+    --synthesize writes them) and their oracles, and paperscale's dataset
+    and oracle (the drivers path). key is what kept() asks for."""
+    big = root / "big" / "last"
+    exp = root / "experiments"
+    tasks = [(("index", d), lambda d=d: exact_index(d))
+             for d in (root / "big" / "last", root / "big" / "las", root / "small" / "lazer",
+                       root / "small" / "laz")]
+    for query, match, bounds, cell, scope, _ in density_last_runs():
+        tasks.append((("density", big, *query, cell, scope),
+                      lambda m=match, c=cell, sc=scope, b=bounds:
+                      density_oracle(big, m, c, sc, b)))
+    for e in (2, 6):
+        dataset = experiments.EXPERIMENT_DATASETS[e]
+        tasks.append((("synthesize", exp, dataset), lambda d=dataset: experiments.synthesize_dataset(
+            exp, d, EXP_FILES, EXP_POINTS, clustered=True)))
+    for e in (2, 4, 6):
+        tasks.append((("experiment", exp, e), lambda e=e: experiment_oracles(exp, e)))
+    ps = paperscale_args(root)
+    tasks.append((("paperscale", root / "paperscale"), lambda: [
+        paperscale.main(["generate", *ps]), paperscale.main(["oracle", *ps])]))
+    return tasks
+
+
+def task_file(key) -> str:
+    return hashlib.sha1(repr(key).encode()).hexdigest()[:16] + ".pkl"
+
+
+def task_label(key) -> str:
+    return " ".join(v.name if isinstance(v, Path) else str(v) for v in key)
+
+
+class Background:
+    """The background worker: background_tasks(root) in order in one process
+    of its own (`chip_smoke.py --background-worker ROOT`), beside the paths,
+    each result pickled under root/background. take(key) waits for one."""
+
+    def __init__(self, root: Path):
+        self.dir = root / "background"
+        self.dir.mkdir()
+        self.keys = {key for key, _ in background_tasks(root)}
+        self.log = self.dir / "worker.log"
+        with open(self.log, "w") as log:  # the worker keeps its own descriptor
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--background-worker", str(root)],
+                stdout=log, stderr=subprocess.STDOUT)
+
+    def has(self, key) -> bool:
+        return key in self.keys
+
+    def running(self) -> bool:
+        return self.proc.poll() is None
+
+    def take(self, key):
+        path = self.dir / task_file(key)
+        t0 = time.perf_counter()
+        while not path.exists():
+            if not self.running() and not path.exists():
+                fail(f"the background worker exited {self.proc.returncode} before {key}:\n"
+                     f"{self.log.read_text()[-4000:]}")
+            time.sleep(0.1)
+        with open(path, "rb") as f:
+            seconds, result = pickle.load(f)
+        path.unlink()
+        print(f"  background {task_label(key)}: {seconds:.1f} s in the worker, waited "
+              f"{time.perf_counter() - t0:.1f} s for it")
+        return result
+
+    def close(self) -> None:
+        """Stops the worker if it still runs; its log's tail."""
+        if self.running():
+            self.proc.kill()
+        self.proc.wait()
+        print(f"background worker, exit {self.proc.returncode}; its log's end:")
+        for line in self.log.read_text().strip().splitlines()[-12:]:
+            print(f"  {line}")
+
+
+def background_worker(argv: list[str]) -> int:
+    """`chip_smoke.py --background-worker ROOT`: every background task, in
+    order, each result pickled (atomically) for Background.take. It loads
+    no jax and touches no card."""
+    root = Path(argv[0])
+    check_no_jax("background worker, start")
+    for key, make in background_tasks(root):
+        t0 = time.perf_counter()
+        result = make()
+        seconds = time.perf_counter() - t0
+        path = root / "background" / task_file(key)
+        with open(path.with_suffix(".tmp"), "wb") as f:
+            pickle.dump((seconds, result), f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(path.with_suffix(".tmp"), path)
+        print(f"{task_label(key)}: {seconds:.1f} s", flush=True)
+    check_no_jax("background worker, end")
+    return 0
 
 
 def kept(key, make):
-    """make(), computed once a run for key."""
+    """make(), computed once a run for key: by the background worker where
+    key is one of its tasks, else here."""
     if key not in _ORACLES:
-        _ORACLES[key] = make()
+        bg = _BACKGROUND.get("worker")
+        _ORACLES[key] = bg.take(key) if bg and bg.has(key) else make()
     return _ORACLES[key]
 
 
@@ -1521,6 +1643,15 @@ def oracle(data_dir: Path, box: str) -> int:
     aabb = parse_aabb(box)
     return kept(("count", data_dir, box), lambda: column_oracle(
         data_dir, lambda r: aabb.contains_points(r.positions_world())))
+
+
+def class_oracle(data_dir: Path, target: int) -> int:
+    return kept(("class", data_dir, target), lambda: column_oracle(
+        data_dir, lambda r: r.column("classification") == target))
+
+
+def time_oracle(data_dir: Path, t0: float, t1: float) -> int:
+    return kept(("time", data_dir, t0, t1), lambda: column_oracle(data_dir, in_time(t0, t1)))
 
 
 def cli_output(args: list[str]) -> tuple[int, str]:
@@ -1564,18 +1695,59 @@ def pruned_points(out: str) -> int:
     return int(m.group(1)) if m else 0
 
 
-def make_datasets(root: Path) -> list[tuple]:
+def write_datasets(root: Path, part: str) -> None:
+    """The end-to-end datasets: "big" 8 files x 8M points of LAS and LAST,
+    "small" 2 x 2M of LAZER and LAZ."""
+    if part == "big":
+        synth.write_dataset(root / "big", n_files=8, points_per_file=8_000_000, seed=SEED,
+                            formats=("las", "last"), clustered=True, point_format=3)
+    else:
+        synth.write_dataset(root / "small", n_files=2, points_per_file=2_000_000, seed=SEED,
+                            formats=("lazer", "laz"), clustered=True, point_format=3)
+
+
+def dataset_worker(argv: list[str]) -> int:
+    """`chip_smoke.py --dataset-worker ROOT PART`: write_datasets in a
+    process of its own, beside the build."""
+    root, part = argv
     t0 = time.perf_counter()
-    synth.write_dataset(root / "big", n_files=8, points_per_file=8_000_000, seed=SEED,
-                        formats=("las", "last"), clustered=True, point_format=3)
-    synth.write_dataset(root / "small", n_files=2, points_per_file=2_000_000, seed=SEED,
-                        formats=("lazer", "laz"), clustered=True, point_format=3)
-    print(f"datasets written in {time.perf_counter() - t0:.1f} s")
+    write_datasets(Path(root), part)
+    print(f"{part}: written in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def start_dataset_writers(root: Path) -> list:
+    """Both parts of the datasets, each written by a worker process."""
+    return [(part, subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                     "--dataset-worker", str(root), part],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True))
+            for part in ("big", "small")]
+
+
+def join_dataset_writers(root: Path, writers: list) -> list[tuple]:
+    """Waits for the writers; the datasets as the paths take them."""
+    for part, proc in writers:
+        out = proc.communicate(timeout=1200)[0]
+        if proc.returncode != 0:
+            fail(f"the {part} dataset writer exited {proc.returncode}:\n{out[-4000:]}")
+        print(f"datasets {out.strip()} (a worker process, beside the build)")
     datasets = [(root / "big" / f, E2E_BOX_LARGE, E2E_TIME_LARGE, 64_000_000)
                 for f in ("last", "las")]
     datasets += [(root / "small" / f, E2E_BOX_SMALL, E2E_TIME_SMALL, 4_000_000)
                  for f in ("lazer", "laz")]
     return datasets
+
+
+def exact_index(data_dir: Path) -> list:
+    """[(file, min/max, class bitmap, GPS ranges, points)]: each file's exact
+    sidecar, as the index command builds it."""
+    out = []
+    for f in point_files(data_dir):
+        r = open_point_cloud(f)
+        out.append((f, *index.build_index(r), r.point_count))
+        r.close()
+    return out
 
 
 def build_exact_indexes(datasets) -> None:
@@ -1584,12 +1756,10 @@ def build_exact_indexes(datasets) -> None:
     which prune nothing for class and time plans."""
     for data_dir, *_ in datasets:
         t0 = time.perf_counter()
-        for f in point_files(data_dir):
-            r = open_point_cloud(f)
-            mm, bitmap, gps = index.build_index(r)
-            index.save_index(f, mm, bitmap, gps, n_points=r.point_count)
-            r.close()
-        print(f"{data_dir.name}: exact index built in {time.perf_counter() - t0:.1f} s")
+        for f, mm, bitmap, gps, n_points in kept(("index", data_dir),
+                                                 lambda: exact_index(data_dir)):
+            index.save_index(f, mm, bitmap, gps, n_points=n_points)
+        print(f"{data_dir.name}: exact index built and saved in {time.perf_counter() - t0:.1f} s")
 
 
 def path_bbox(datasets) -> None:
@@ -1605,7 +1775,7 @@ def path_class(datasets) -> None:
     runs = [("1", False), ("0", False), ("1", True), ("0", True)]
     for data_dir, _, _, n_points in datasets:
         for target in (6, 4):
-            want = column_oracle(data_dir, lambda r: r.column("classification") == target)
+            want = class_oracle(data_dir, target)
             print(f"{data_dir.name}: {n_points} points, class {target} oracle {want} matching")
             for pack, use_index in runs:
                 out = cli_count(data_dir, ["--class", str(target)], pack, use_index, want)
@@ -1619,11 +1789,7 @@ def path_class(datasets) -> None:
 def path_time(datasets) -> None:
     runs = [("1", False), ("0", False), ("1", True), ("0", True)]
     for data_dir, _, (t0, t1), n_points in datasets:
-        def match(r):
-            g = r.column("gps_time")
-            return (g >= t0) & (g < t1)
-
-        want = column_oracle(data_dir, match)
+        want = time_oracle(data_dir, t0, t1)
         print(f"{data_dir.name}: {n_points} points, time [{t0}, {t1}) oracle {want} matching")
         for pack, use_index in runs:
             out = cli_count(data_dir, ["--time-range", f"{t0};{t1}"], pack, use_index, want)
@@ -1864,29 +2030,31 @@ def density_oracle(data_dir: Path, match, cell: float, scope: str, bounds=None) 
     return sum(len(p) for p in pidx), want
 
 
-def path_density(datasets) -> None:
-    """--density with -o over LAST 64M and LAZER 4M, and one --print-points
-    run; the exact sidecars of the collect path are in place."""
-    big, small = datasets[0][0], datasets[2][0]
+def density_last_runs() -> list:
+    """The density path's queries over LAST 64M: (query, match, grid bounds,
+    cell, scope, [(AQPC_PACK, index read)]). A 0.5 m cell keeps most of the
+    small box's hits, a 25 m one under 1 %."""
     box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
-
-    def is_class(r):
-        return r.column("classification") == 6
-
-    # (query, match, grid bounds, cell, scope, [(AQPC_PACK, index read)]): a
-    # 0.5 m cell keeps most of the small box's hits, a 25 m one under 1 %
-    last_runs = [
+    return [
         (["--bounds", E2E_BOX_SMALL], in_box(box_s), (box_s.min, box_s.max), 0.5, "global",
          [("1", False), ("0", False)]),
         (["--bounds", E2E_BOX_SMALL], in_box(box_s), (box_s.min, box_s.max), 25.0, "file",
          [("1", True), ("0", True)]),
         (["--bounds", E2E_BOX_LARGE], in_box(box_l), (box_l.min, box_l.max), 25.0, "global",
          [("1", False), ("0", True)]),
-        (["--class", "6"], is_class, None, 5.0, "global", [("1", True), ("0", True)]),
+        (["--class", "6"], lambda r: r.column("classification") == 6, None, 5.0, "global",
+         [("1", True), ("0", True)]),
     ]
+
+
+def path_density(datasets) -> None:
+    """--density with -o over LAST 64M and LAZER 4M, and one --print-points
+    run; the exact sidecars of the collect path are in place."""
+    big, small = datasets[0][0], datasets[2][0]
+    box_s = parse_aabb(E2E_BOX_SMALL)
     with tempfile.TemporaryDirectory(prefix="aqpc_density_") as tmp:
         tmp = Path(tmp)
-        for q, (query, match, bounds, cell, scope, runs) in enumerate(last_runs):
+        for q, (query, match, bounds, cell, scope, runs) in enumerate(density_last_runs()):
             t0 = time.perf_counter()
             hits, want = kept(("density", big, *query, cell, scope),
                               lambda: density_oracle(big, match, cell, scope, bounds))
@@ -2056,9 +2224,9 @@ def path_resident(datasets) -> None:
     t0, t1 = E2E_TIME_LARGE
     wants = {
         "box": oracle(big, E2E_BOX_LARGE),
-        "class 6": column_oracle(big, lambda r: r.column("classification") == 6),
-        "class 4": column_oracle(big, lambda r: r.column("classification") == 4),
-        "time": column_oracle(big, in_time(t0, t1)),
+        "class 6": class_oracle(big, 6),
+        "class 4": class_oracle(big, 4),
+        "time": time_oracle(big, t0, t1),
         "small box": oracle(big, E2E_BOX_PRINT),
         "points": sum(open_point_cloud(f).point_count for f in point_files(big)),
     }
@@ -2234,9 +2402,9 @@ def path_distributed(datasets) -> dict:
     t0, t1 = E2E_TIME_LARGE
     wants = {
         "box": oracle(big, E2E_BOX_LARGE),
-        "class 6": column_oracle(big, lambda r: r.column("classification") == 6),
-        "class 4": column_oracle(big, lambda r: r.column("classification") == 4),
-        "time": column_oracle(big, in_time(t0, t1)),
+        "class 6": class_oracle(big, 6),
+        "class 4": class_oracle(big, 4),
+        "time": time_oracle(big, t0, t1),
     }
     written = kept(("written", big, "--bounds", E2E_BOX_LARGE),
                    lambda: written_oracle(big, in_box(box_l)))
@@ -2496,29 +2664,55 @@ def experiment_oracles(root: Path, e: int) -> dict:
     return want
 
 
-def drivers_experiments(tmp: Path, smi: str) -> None:
-    """The paper's harness through the CLI: experiment 2 as cold
-    subprocesses, all sizes, full and max-density; experiments 4 and 6 in
-    this process, warm, 3 runs; each over all four formats. The harness checks cross-format parity; every row's count must
-    equal the numpy oracle."""
-    root = tmp / "experiments"
-    synth = ["--synthesize", str(EXP_POINTS), "--synthesize-files", str(EXP_FILES), "--clustered"]
+def drivers_experiments(exp: Path, smi: str) -> None:
+    """The paper's harness through the CLI over its synthetic stand-ins
+    (written by the background worker, as --synthesize writes them):
+    experiment 2 as cold subprocesses, all sizes, full and max-density, its
+    four formats at once, a harness process each; experiments 4 and 6 in
+    this process, warm, 3 runs, over all four formats. Every row's count
+    must equal the numpy oracle, so the formats agree (the harness checks
+    cross-format parity itself within one process)."""
+    for e in (2, 6):
+        kept(("synthesize", exp, experiments.EXPERIMENT_DATASETS[e]), lambda: fail("no stand-in"))
     formats = experiments.FORMATS
-    runs = [(2, ["--runs", "1", *synth]),
-            (4, ["--in-process", "--warm", "--runs", "3"]),
-            (6, ["--in-process", "--warm", "--runs", "3", *synth])]
-    for e, extra in runs:
-        extra = ["--formats", ",".join(formats), *extra]
+    harness = [sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", "experiments",
+               "-i", str(exp), "--device", "cuda"]
+    t0 = time.perf_counter()
+    procs = []
+    for fmt in formats:  # one harness a format, at once; each row is its own cold CLI process
+        with open(exp / f"e2_{fmt}.out", "w") as out, open(exp / f"e2_{fmt}.err", "w") as err:
+            procs.append(subprocess.Popen([*harness, "-e", "2", "--formats", fmt, "--runs", "1"],
+                                          stdout=out, stderr=err,
+                                          cwd=Path(__file__).resolve().parent))
+    try:
+        rcs = [proc.wait(timeout=900) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    outs = [(exp / f"e2_{fmt}.out").read_text() for fmt in formats]
+    for fmt, rc, out in zip(formats, rcs, outs):
+        if rc != 0:
+            err = (exp / f"e2_{fmt}.err").read_text()
+            fail(f"experiments -e 2 --formats {fmt} exited {rc}:\n{out[-2000:]}{err[-4000:]}")
+    runs = [(2, "--runs 1, cold, a harness process a format, the four at once",
+             "\n".join(outs), wall)]
+    for e, extra in ((4, ["--in-process", "--warm", "--runs", "3"]),
+                     (6, ["--in-process", "--warm", "--runs", "3"])):
         t0 = time.perf_counter()
-        rc, out = cli_output(["experiments", "-i", str(root), "-e", str(e), "--device", "cuda",
-                              *extra])
-        wall = time.perf_counter() - t0
+        rc, out = cli_output(["experiments", "-i", str(exp), "-e", str(e), "--device", "cuda",
+                              "--formats", ",".join(formats), *extra])
         if rc != 0:
             fail(f"experiments -e {e} exited {rc}:\n{out}")
-        want = experiment_oracles(root, e)
+        runs.append((e, " ".join(extra), out, time.perf_counter() - t0))
+    for e, how, out, wall in runs:
+        want = kept(("experiment", exp, e), lambda e=e: experiment_oracles(exp, e))
         rows = [line.split(";") for line in out.splitlines() if ";" in line]
         n_cells = len(want) * len(formats)
-        print(f"  experiments -e {e} {' '.join(extra)}: {len(rows)} rows in {wall:.1f} s; {smi}")
+        print(f"  experiments -e {e} over {', '.join(formats)} ({how}): {len(rows)} rows in "
+              f"{wall:.1f} s; {smi}")
         for row in rows:
             print(f"    {';'.join(row)}")
         got = {}
@@ -2550,16 +2744,23 @@ def drivers_memcheck() -> None:
         print(f"    {line}")
 
 
-def drivers_paperscale(tmp: Path, smi: str) -> None:
+def paperscale_args(root: Path) -> list[str]:
+    return ["--root", str(root / "paperscale"), "--files", str(PAPERSCALE_FILES),
+            "--pts-per-file", str(PAPERSCALE_POINTS)]
+
+
+def drivers_paperscale(root: Path, smi: str) -> None:
+    """paperscale at 4 x 64M LAST: generate and oracle by the background
+    worker (the tool's own steps), then run here, all four checks."""
     os.environ["AQPC_PACK"] = "1"
-    root = tmp / "paperscale"
-    scale = ["--root", str(root), "--files", str(PAPERSCALE_FILES),
-             "--pts-per-file", str(PAPERSCALE_POINTS)]
-    tool_output("paperscale generate", paperscale.main, ["generate", *scale])
-    tool_output("paperscale oracle", paperscale.main, ["oracle", *scale])
+    scale = paperscale_args(root)
+    rcs = kept(("paperscale", root / "paperscale"), lambda: fail("no paperscale dataset"))
+    if rcs != [0, 0]:
+        fail(f"paperscale generate and oracle exited {rcs}")
+    report_json = root / "paperscale" / "report.json"
     out = tool_output("paperscale run --device cuda", paperscale.main,
-                      ["run", *scale, "--device", "cuda", "--json", str(root / "report.json")])
-    report = json.loads((root / "report.json").read_text())
+                      ["run", *scale, "--device", "cuda", "--json", str(report_json)])
+    report = json.loads(report_json.read_text())
     if not report["pass"] or report["oracle"]["points"] != PAPERSCALE_FILES * PAPERSCALE_POINTS:
         fail(f"paperscale: {out}")
     for line in out.strip().splitlines()[1:]:
@@ -2576,6 +2777,7 @@ def path_drivers(datasets) -> dict:
     Returns this process's launches and the --profile worker's together."""
     big, box, _, n_points = datasets[0]
     las = datasets[1][0]
+    root = big.parents[1]  # the run's directory: the background worker's stand-ins
     smi = smi_line()
     worker = {}  # the --profile worker's launches
     steps = [
@@ -2584,10 +2786,10 @@ def path_drivers(datasets) -> dict:
         ("index", lambda tmp: drivers_index(big, box, tmp)),
         ("profile", lambda tmp: worker.update(drivers_profile(big, box, tmp, smi))),
         ("devices", lambda tmp: drivers_devices(big, box)),
-        ("experiments", lambda tmp: drivers_experiments(tmp, smi)),
+        ("experiments", lambda tmp: drivers_experiments(root / "experiments", smi)),
         ("soak", lambda tmp: drivers_soak()),
         ("memcheck", lambda tmp: drivers_memcheck()),
-        ("paperscale", lambda tmp: drivers_paperscale(tmp, smi)),
+        ("paperscale", lambda tmp: drivers_paperscale(root, smi)),
     ]
     for name, step in steps:
         t0 = time.perf_counter()
@@ -2628,6 +2830,13 @@ PATHS = {
 }
 
 
+def stop_processes(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
 def main() -> int:
     seconds = {}
     t = time.perf_counter()
@@ -2635,24 +2844,33 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     seconds["environment"] = time.perf_counter() - t
 
-    t = time.perf_counter()
-    phase_build()
-    seconds["build"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    kernels = phase_kernels(dev)
-    seconds["kernels"] = time.perf_counter() - t
-
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="aqpc_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="aqpc_smoke_") as tmp, \
+            contextlib.ExitStack() as stack:
+        root = Path(tmp)
+        # the datasets are written by two worker processes while the build runs
+        writers = start_dataset_writers(root)
+        stack.callback(stop_processes, [proc for _, proc in writers])
         t = time.perf_counter()
-        datasets = make_datasets(Path(tmp))
-        seconds["datasets"] = time.perf_counter() - t
+        phase_build()
+        seconds["build (beside the dataset writers)"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        datasets = join_dataset_writers(root, writers)
+        seconds["datasets (the writers' rest, after the build)"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        kernels = phase_kernels(dev)  # nothing else runs beside the timings
+        seconds["kernels"] = time.perf_counter() - t
+
+        _BACKGROUND["worker"] = background = Background(root)
+        stack.callback(background.close)
         for name, (drive, path_kernels) in PATHS.items():
+            beside = " (beside the background worker)" if background.running() else ""
             t = time.perf_counter()
             P.reset_launches()
             got = drive(datasets) or dict(P.launches)
-            seconds[f"end to end, {name}"] = time.perf_counter() - t
+            seconds[f"end to end, {name}{beside}"] = time.perf_counter() - t
             print(f"kernel launches in the {name} path: {got}")
             for names in path_kernels:
                 names = names if isinstance(names, tuple) else (names,)
@@ -2660,6 +2878,8 @@ def main() -> int:
                     fail(f"the {name} path never launched {' or '.join(names)}")
                 for kernel in names:  # a shared kernel: its first path's
                     launches.setdefault(kernel, got.get(kernel, 0))
+        if background.proc.wait(timeout=120) != 0:
+            fail(f"the background worker exited {background.proc.returncode}")
     for name, s in seconds.items():
         print(f"phase {name}: {s:.1f} s")
     check_no_jax("at the end of the run")
@@ -2684,4 +2904,8 @@ if __name__ == "__main__":
         sys.exit(dist2_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--profile-worker"]:
         sys.exit(profile_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dataset-worker"]:
+        sys.exit(dataset_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--background-worker"]:
+        sys.exit(background_worker(sys.argv[2:]))
     sys.exit(main())

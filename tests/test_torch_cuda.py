@@ -16,6 +16,7 @@ from adhoc_queries_pointclouds_torch import engine, host
 from adhoc_queries_pointclouds_torch.ops import compact as TC
 from adhoc_queries_pointclouds_torch.ops import density as TD
 from adhoc_queries_pointclouds_torch.ops import predicate as TP
+from adhoc_queries_pointclouds_torch.tools import packed_bench
 from adhoc_queries_pointclouds_torch import index as index_mod
 from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.models.query import (
@@ -1190,26 +1191,40 @@ def test_density_engine_matches_cpu(dev, tmp_path, monkeypatch, scope, spec, pac
         assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("K, B", [(7, 4096), (7, 4099), (5, 8192 * 3 + 40), (6, 99),
-                                  (65548, 128)],
-                         ids=["aligned", "partial_last_word", "chunks", "short", "over_grid_y"])
-def test_compact_bits_gather_matches_plain(dev, K, B):
+GATHER_SHAPES = {"aligned": (7, 4096), "partial_last_word": (7, 4099),
+                 "chunks": (5, 8192 * 3 + 40), "short": (6, 99), "over_grid_y": (65548, 128)}
+GATHER_EDGES = {label: (rows, skip) for label, rows, skip in packed_bench.gather_edges()}
+
+
+@pytest.mark.parametrize("case", [*GATHER_SHAPES, *GATHER_EDGES])
+def test_compact_bits_gather_matches_plain(dev, case):
     """The compaction that gathers x, y and z against its plain version:
     blocks with no hits, a few, half, all (full blocks keep their offset
     here, as the resident density path gives them), skipped blocks, and
-    every block skipped."""
-    rng = np.random.default_rng(K + B)
-    shares = np.resize([0.0, 0.001, 0.5, 1.0, 0.3, 0.05, 0.9], K)
-    rows = torch.from_numpy(rng.random((K, B)) < shares[:, None])
-    mask = TP.pack_mask_bits(rows)
+    every block skipped; then the edges of its dense (16-byte) and sparse
+    paths (tools/packed_bench.py gather_edges: a warp at the density
+    threshold and one below it, one hit a sector, full spans and chunks
+    next to empty ones, outputs off 16-byte boundaries, hits in a partial
+    last word at B % 4 == 0 and 1)."""
+    if case in GATHER_SHAPES:
+        K, B = GATHER_SHAPES[case]
+        rng = np.random.default_rng(K + B)
+        shares = np.resize([0.0, 0.001, 0.5, 1.0, 0.3, 0.05, 0.9], K)
+        rows = rng.random((K, B)) < shares[:, None]
+        skip = [j for j in range(K) if j % 3 == 2]  # every third block skipped
+    else:
+        rows, skip = GATHER_EDGES[case]
+        K, B = rows.shape
+        rng = np.random.default_rng(K + B)
+    mask = TP.pack_mask_bits(torch.from_numpy(rows))
     xyz = [torch.from_numpy(rng.integers(I32.min, I32.max, (K, B), endpoint=True)
                             .astype(np.int32)) for _ in range(3)]
     counts = mask.counts.numpy()
-    for skip in (3, 1):  # every third block skipped; every block skipped
+    for skipped in (skip, range(K)):  # the case's blocks skipped; every block skipped
         offsets = np.full(K, -1, np.int64)
         total = 0
         for j in range(K):
-            if j % 3 != 2 and skip == 3:
+            if j not in skipped:
                 offsets[j], total = total, total + int(counts[j])
         off = torch.from_numpy(offsets)
         before = TP.launches["compact_bits_gather"]
@@ -1220,7 +1235,7 @@ def test_compact_bits_gather_matches_plain(dev, K, B):
         want = TC.compact_bits_gather_plain(mask.bits, mask.chunks, off, total, B, *xyz)
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
         assert torch.equal(want[0], TC.compact_bits(mask.bits, mask.chunks, off, total, B))
-        assert (total > 0) == (skip == 3)
+        assert (total > 0) == (skipped is skip)
 
 
 @pytest.mark.parametrize("B", [128, 99], ids=["words", "u8_rows"])
