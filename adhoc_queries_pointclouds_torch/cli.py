@@ -1,13 +1,14 @@
 """Command line of the port: bbox, class and GPS-time counts and collects,
 max-density grid sampling, device-resident datasets, the JSON query
-service, multi-process queries, and the JAX CLI's other subcommands, on one
-device a process.
+service, multi-process queries, and the JAX CLI's other subcommands, on
+the local devices of a process.
 
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds "x0;y0;z0;x1;y1;z1"
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --class 6 -o OUT_DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --time-range "start;end" --print-points
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --density 100 -o OUT_DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --resident --repeat 20
+    python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --devices 2
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --profile TRACE_DIR
     python -m adhoc_queries_pointclouds_torch.cli serve -i DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --distributed \
@@ -24,7 +25,7 @@ convert, count-points and index, with experiments, postgis and serve handed
 their own argument lists (main, cli.py:331-403). A query prints
 "Searching N files...", one "Wrote OUT_DIR/matching_points_{i}.las" per
 input file with hits under -o, "Found N matching points", the closing
-throughput line, and --stats; --print-points streams each hit as a "Found
+throughput line (with the devices the query ran on after it), and --stats; --print-points streams each hit as a "Found
 point: ..." line. --density X keeps at most one point per X^3 m^3 grid
 cell, per input file (--density-scope file) or over the whole query
 (global, the default: one output file). --resident loads the dataset into
@@ -33,10 +34,14 @@ answers JSON requests against a resident dataset (serve.py).
 --distributed runs the query in each of N processes over its share of the
 files (parallel/distributed.py); with --device cuda process I runs on card
 I % the card count. --profile DIR records the query with torch.profiler
-(CPU activity, and the card's under --device cuda) and writes its trace
-into DIR. A process drives one device: --devices 1 is the default, and
-more is --distributed's job. --device (default cuda) names the device;
-cuda without a card is an error, never a silent run on the CPU. convert,
+(CPU activity, and the cards' under --device cuda) and writes its trace
+into DIR. --devices N shards each step, and a resident dataset, over the
+first N devices of --device (parallel/mesh.py), as the JAX CLI's mesh
+does; without it, --device cuda takes every local card and cpu one
+shard. N of 0, or more than the cards, exits 2, and so does --distributed
+with N other than 1 (one device a process). --device (default cuda) names
+the device; cuda without a card is an error, never a silent run on the
+CPU. convert,
 index and count-points run on the host alone and write the JAX CLI's
 files byte for byte.
 """
@@ -49,6 +54,7 @@ import sys
 from pathlib import Path
 
 from .engine import run_query
+from .parallel.mesh import local_devices
 from .models.query import BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery
 from .utils.aabb import parse_aabb
 from .utils.timing import throughput_line
@@ -82,8 +88,8 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--block-size", type=int, default=None, help="Points per device block")
     parser.add_argument(
         "--devices", type=int, default=None,
-        help="Devices this process drives: 1 (a process drives one device; "
-             "--distributed runs one process per card)",
+        help="Devices this process shards each step over: the first N of --device's "
+             "(default: every local card; cpu: one shard). --distributed drives one a process",
     )
     parser.add_argument("--workers", type=int, default=8, help="Host decode threads")
     parser.add_argument("--stats", action="store_true", help="Print per-stage timings")
@@ -124,9 +130,12 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
 
 
 def cmd_query(args: argparse.Namespace) -> int:
-    if args.devices not in (None, 1):
-        print(f"--devices {args.devices}: a process drives one device; run one process per "
-              f"card with --distributed", file=sys.stderr)
+    if args.distributed and args.devices not in (None, 1):
+        print(f"--devices {args.devices}: --distributed drives one device a process (process "
+              f"I on card I % the card count)", file=sys.stderr)
+        return 2
+    if args.devices is not None and args.devices < 1:
+        print(f"--devices {args.devices}: a query needs at least one device", file=sys.stderr)
         return 2
     maybe_bounds = parse_aabb(args.bounds) if args.bounds else None
     maybe_class = args.classification
@@ -155,10 +164,15 @@ def cmd_query(args: argparse.Namespace) -> int:
         print_points=args.print_points,
         parity_quirk=args.parity_quirk,
     )
-    if args.resident:
-        return _run_resident(args, plan)
     if args.distributed:
         return _run_distributed(args, plan)
+    try:
+        devices = local_devices(args.device, args.devices)
+    except ValueError as e:  # more devices than the machine has
+        print(e, file=sys.stderr)
+        return 2
+    if args.resident:
+        return _run_resident(args, plan, devices)
     kwargs = {}
     if args.block_size:
         kwargs["block_size"] = args.block_size
@@ -168,6 +182,7 @@ def cmd_query(args: argparse.Namespace) -> int:
             args.input,
             plan,
             device=args.device,
+            devices=devices,
             workers=args.workers,
             keep_going=args.keep_going,
             use_index=not args.no_index,
@@ -178,7 +193,7 @@ def cmd_query(args: argparse.Namespace) -> int:
         )
 
     if args.profile:
-        result = profiled(execute, args.device, Path(args.profile))
+        result = profiled(execute, devices, Path(args.profile))
         print(f"Profiler trace written to {args.profile}")
     else:
         result = execute()
@@ -193,32 +208,41 @@ def cmd_query(args: argparse.Namespace) -> int:
             f"  scanned {result.points_scanned} points "
             f"({result.mpts_per_s:.1f} Mpts/s)"
         )
-    print(throughput_line(result.total_file_bytes, result.elapsed_seconds))
+    print(throughput_line(result.total_file_bytes, result.elapsed_seconds)
+          + f" on {devices_line(devices)}")
     return 0
+
+
+def devices_line(devices) -> str:
+    """The devices a query ran on, one a shard: "cuda:0, cuda:1"."""
+    return ", ".join(str(d) for d in devices)
 
 
 PROFILE_TRACE = "trace.json"  # the file --profile writes into its DIR
 
 
-def profiled(execute, device, trace_dir: Path):
-    """execute() under torch.profiler: CPU activity, and the card's under a
-    CUDA device (which is checked to exist first, so a run asked for on
-    the card never profiles one on the CPU). The card is synchronized
-    before the profiler stops, so every kernel the query launched has
-    ended inside the window; the trace goes to trace_dir/PROFILE_TRACE
-    (Chrome trace JSON: one "kernel" event a kernel the trace holds)."""
+def profiled(execute, devices, trace_dir: Path):
+    """execute() under torch.profiler: CPU activity, and the cards' under
+    CUDA devices (a device or a list of them, each checked to exist first,
+    so a run asked for on a card never profiles one on the CPU). Every card
+    is synchronized before the profiler stops, so every kernel the query
+    launched has ended inside the window; the trace goes to
+    trace_dir/PROFILE_TRACE (Chrome trace JSON: one "kernel" event a kernel
+    the trace holds)."""
     import torch
 
     from .parallel.comm import require_device
 
-    dev = require_device(device)
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    cards = [d for d in dict.fromkeys(require_device(d) for d in devices) if d.type == "cuda"]
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
+    if cards:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     trace_dir.mkdir(parents=True, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
         result = execute()
-        if dev.type == "cuda":
+        for dev in cards:
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(str(trace_dir / PROFILE_TRACE))
     return result
@@ -271,10 +295,12 @@ def _run_distributed(args: argparse.Namespace, plan: QueryPlan) -> int:
     return 0
 
 
-def _run_resident(args: argparse.Namespace, plan: QueryPlan) -> int:
-    """The query against the dataset loaded into device memory: a collect
-    once, or a count warmed once and then timed over --repeat runs, each
-    ending at its read-back (JAX cli.py:231-280, its output lines)."""
+def _run_resident(args: argparse.Namespace, plan: QueryPlan, devices: list) -> int:
+    """The query against the dataset loaded into the devices' memory, one
+    shard a device: a collect once, or a count warmed once and then timed
+    over --repeat runs, each ending at its read-back (JAX cli.py:231-280,
+    its output lines; over several shards, a line of their sizes after the
+    first)."""
     import time
 
     from .parallel.resident import ResidentDataset
@@ -289,7 +315,7 @@ def _run_resident(args: argparse.Namespace, plan: QueryPlan) -> int:
     t0 = time.perf_counter()
     ds = ResidentDataset.load(
         args.input,
-        device=args.device,
+        devices=devices,
         attrs=tuple(attrs),
         block_size=args.block_size or (1 << 21),
         workers=args.workers,
@@ -299,6 +325,9 @@ def _run_resident(args: argparse.Namespace, plan: QueryPlan) -> int:
         f"Resident: {ds.total_points} points, "
         f"{ds.resident_bytes / 1048576.0:.1f} MiB in HBM, loaded in {load_s:.2f}s"
     )
+    if len(ds.devices) > 1:
+        print("Resident shards: " + ", ".join(
+            f"{d} {b / 1048576.0:.1f} MiB" for d, b in zip(ds.devices, ds.per_device_bytes)))
     if plan.collects_points:
         # the collect against the resident columns: one predicate launch and
         # one compaction, attributes gathered from the files for hit rows only

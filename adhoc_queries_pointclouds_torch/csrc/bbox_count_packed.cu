@@ -44,7 +44,8 @@ bbox_count_packed_kernel(aqpc::BoxTiles<Wide> f, int32_t* __restrict__ out, int6
 template <bool Wide>
 int launch(const Planes& ax, const Planes& ay, const Planes& az, const void* bounds,
            const void* nvs, void* out, int64_t k_blocks, int64_t block_size, void* stream) {
-  static const int64_t resident = aqpc::resident_ctas(bbox_count_packed_kernel<Wide>);
+  static aqpc::ResidentCtas resident_of;
+  const int64_t resident = resident_of(bbox_count_packed_kernel<Wide>);
   const int64_t n_chunks = aqpc::mask_chunks(block_size);
   const int64_t n_tiles = k_blocks * n_chunks;
   const aqpc::BoxTiles<Wide> f{ax, ay, az, static_cast<const int32_t*>(bounds),

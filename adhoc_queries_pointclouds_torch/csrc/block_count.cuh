@@ -6,6 +6,7 @@
 // which CTAs finish.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -62,6 +63,30 @@ inline int64_t resident_ctas(Kernel kernel) {
   const int64_t n = static_cast<int64_t>(sms) * per_sm;
   return n < 1 ? 1 : n;
 }
+
+// resident_ctas(kernel) of the current device, worked out once a device: the
+// cards of one host may differ in SM count, so a launch on another card must
+// not take the first card's grid. One instance a launch site, held in a
+// function-local static (zeroed before first use), so each kernel keeps its own.
+class ResidentCtas {
+ public:
+  template <class Kernel>
+  int64_t operator()(Kernel kernel) {
+    int device = 0;
+    cudaGetDevice(&device);
+    if (device < 0 || device >= kMaxDevices) return resident_ctas(kernel);
+    int64_t n = n_[device].load(std::memory_order_relaxed);
+    if (n == 0) {
+      n = resident_ctas(kernel);
+      n_[device].store(n, std::memory_order_relaxed);
+    }
+    return n;
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::atomic<int64_t> n_[kMaxDevices];
+};
 
 // Number of CTAs along one block's row so that each thread handles about
 // `items_per_thread` work items of `n_items`.

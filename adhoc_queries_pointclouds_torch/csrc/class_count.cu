@@ -59,7 +59,8 @@ class_count_kernel(ClassRawTiles<Wide> f, int32_t* __restrict__ out,
 template <bool Wide>
 int launch(const ClassRawTiles<Wide>& f, void* out, void* work, int64_t k_blocks,
            void* stream) {
-  static const int64_t resident = aqpc::resident_ctas(class_count_kernel<Wide>);
+  static aqpc::ResidentCtas resident_of;
+  const int64_t resident = resident_of(class_count_kernel<Wide>);
   const int64_t row_tiles = aqpc::count_row_tiles(f.block_size, kCountChunks);
   const int64_t n_tiles = k_blocks * row_tiles;
   class_count_kernel<Wide><<<aqpc::tile_grid(n_tiles, resident), kThreads, 0,

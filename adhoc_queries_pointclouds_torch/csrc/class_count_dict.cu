@@ -55,7 +55,8 @@ class_count_dict_kernel(DictTiles<Wide, NB, MB> f, int32_t* __restrict__ out,
 template <bool Wide, int NB, int MB>
 int launch(const DictTiles<Wide, NB, MB>& f, void* out, void* work, int64_t k_blocks,
            void* stream) {
-  static const int64_t resident = aqpc::resident_ctas(class_count_dict_kernel<Wide, NB, MB>);
+  static aqpc::ResidentCtas resident_of;
+  const int64_t resident = resident_of(class_count_dict_kernel<Wide, NB, MB>);
   const int64_t row_tiles = aqpc::count_row_tiles(f.block_size, kCountChunks<NB, MB>);
   const int64_t n_tiles = k_blocks * row_tiles;
   class_count_dict_kernel<Wide, NB, MB><<<aqpc::tile_grid(n_tiles, resident), kThreads, 0,

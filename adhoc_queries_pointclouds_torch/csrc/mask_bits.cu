@@ -218,7 +218,8 @@ int refused() { return static_cast<int>(cudaErrorInvalidValue); }
 // than there are tiles.
 template <class Tiles>
 int launch_packed(const Tiles& f, const MaskOut& o, int64_t k_blocks, void* stream) {
-  static const int64_t resident = aqpc::resident_ctas(mask_packed_kernel<Tiles>);
+  static aqpc::ResidentCtas resident_of;
+  const int64_t resident = resident_of(mask_packed_kernel<Tiles>);
   mask_packed_kernel<<<aqpc::tile_grid(o.n_chunks * k_blocks, resident), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(f, o, k_blocks);
   return done();

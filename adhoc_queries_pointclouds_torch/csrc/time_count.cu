@@ -130,8 +130,8 @@ extern "C" int aqpc_time_count_packed(const void* thp, const void* tlp, const vo
   return aqpc::with_time_shape(
       aqpc::make_planes(thp, k_hi, block_size), aqpc::make_planes(tlp, k_lo, block_size), qs,
       nvs, block_size, [&](auto tiles) {
-        static const int64_t resident =
-            aqpc::resident_ctas(time_count_packed_kernel<decltype(tiles)>);
+        static aqpc::ResidentCtas resident_of;
+        const int64_t resident = resident_of(time_count_packed_kernel<decltype(tiles)>);
         time_count_packed_kernel<<<aqpc::tile_grid(n_tiles, resident), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
             tiles, static_cast<int32_t*>(out), n_chunks, n_tiles);

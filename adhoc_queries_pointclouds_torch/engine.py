@@ -5,13 +5,18 @@ The counterpart of adhoc_queries_pointclouds_tpu/engine.py run_query,
 _run_count (engine.py:395-924), _run_collect and _run_collect_mesh
 (engine.py:932-1439) and _run_density (engine.py:1441-1849):
 
-  host decode-ahead feeder -> K blocks per step -> H2D copy -> one kernel
-  launch per step -> int32 step totals, read back a few steps behind the
-  dispatch -> a Python-int total (count); or -> a bit mask and per-block
-  counts, read back a few steps behind the dispatch -> one compaction
-  launch for the blocks with some but not all points matching -> hit
-  indices -> hits gathered from the files and emitted in file order
-  (collect: -o LAS write-back, --print-points, keep_hits)
+  host decode-ahead feeder -> d x K blocks per step -> K blocks a device,
+  H2D copy -> one kernel launch a device per step -> int32 totals, read
+  back a few steps behind the dispatch -> a Python-int total (count); or
+  -> a bit mask and per-block counts a device, read back a few steps
+  behind the dispatch -> one compaction launch a device for its blocks
+  with some but not all points matching -> hit indices, in device order
+  -> hits gathered from the files and emitted in file order (collect: -o
+  LAS write-back, --print-points, keep_hits)
+
+The d devices are parallel/mesh.py's (run_query's devices; one by
+default): a step's rows are split into d contiguous groups as JAX's
+shard_map splits them, and no answer depends on d.
 
 Each predicate has two transports. AQPC_PACK=1, the default, ships bbox
 coordinates and the (hi, lo) int32 encoding of GPS times as bit-planar
@@ -52,6 +57,7 @@ from .formats import is_valid_file, open_point_cloud
 from .formats.las import has_gps_time
 from .parallel import step
 from .parallel.comm import LocalStepComm
+from .parallel.mesh import step_rows
 from .parallel.pipeline import BlockFeeder, BlockTask, task_gidx
 from .sinks import FileHits, HitEmitter, concat_hits, empty_hits, gather_hits
 from .utils.aabb import AABB, clamp_bounds_to_i32, local_query_bounds
@@ -145,6 +151,7 @@ def run_query(
     plan,
     *,
     device,
+    devices=None,
     block_size: int = DEFAULT_BLOCK_SIZE,
     workers: int = 8,
     prefetch: int = 12,
@@ -164,6 +171,9 @@ def run_query(
     device: the torch.device (or its name) every step runs on. "cuda" runs
     the hand-written kernels and raises when CUDA is absent; "cpu" runs
     their plain PyTorch versions.
+    devices: the devices of a step's shards instead, one a shard
+    (parallel/mesh.py local_devices; a device may repeat): each step's
+    rows are split over them as JAX's mesh of n_devices splits them.
     keep_hits: also return every hit's attributes, per file (forces the
     collect path; for tests and small queries: it holds all hits in RAM).
     force_collect: run the collect path with no consumer (count only).
@@ -178,12 +188,12 @@ def run_query(
     density_state_out: a dict that receives the winners (WINNER_DTYPE rows)
     of a density plan: under "global", or under "file" a dict by file index.
     comm: the step-communication strategy (parallel/comm.py); default
-    LocalStepComm(device), one process. An empty file list raises only for a
+    LocalStepComm(devices or device), one process. An empty file list raises only for a
     lone participant (comm.is_local): a process of a multi-process run whose
     share of the files is empty still joins the final reductions
     (parallel/distributed.py).
     """
-    comm = comm or LocalStepComm(device)
+    comm = comm or LocalStepComm(devices or device)
     if print_stream is None and plan.print_points:
         print_stream = sys.stdout
     timer = StageTimer()
@@ -461,11 +471,19 @@ def _packed_bounds(task) -> tuple[np.ndarray, np.ndarray]:
     return lo.astype(np.int32), hi.astype(np.int32)
 
 
+def _padded(parts, rows: int, fill) -> np.ndarray:
+    """np.stack(parts) and rows - len(parts) rows of fill after them: the
+    padding rows of a step (n_valid 0) that its shards divide."""
+    return np.stack(list(parts) + [np.asarray(fill, parts[0].dtype)] * (rows - len(parts)))
+
+
 def _step_operands(plan, *, block_size, pack):
-    """The function batch -> (kind, arrays, plane_stacks, extra) that stacks
-    one step's blocks, one row each, into the numpy operands of its step kind
-    (parallel/step.py). plane_stacks are the point payload among arrays (the
-    h2d bytes); extra holds the packed kinds' widths and block size."""
+    """The function (batch, rows) -> (kind, arrays, plane_stacks, extra) that
+    stacks one step's blocks, one row each, into the numpy operands of its
+    step kind (parallel/step.py), padded to rows with rows of n_valid 0
+    (JAX's engine.py:803-848; rows is a multiple of the shard count).
+    plane_stacks are the point payload among arrays (the h2d bytes); extra
+    holds the packed kinds' widths and block size."""
     is_bounds = plan.bounds is not None
     is_time = plan.time_range is not None
     if is_time:
@@ -478,29 +496,30 @@ def _step_operands(plan, *, block_size, pack):
     def widths(batch) -> tuple:
         return tuple(int(k) for k in np.maximum.reduce([t.columns["w"] for t in batch]))
 
-    def operands(batch):
-        rows = len(batch)
-        nvs = np.asarray([t.n_valid for t in batch], np.int32)
+    def operands(batch, rows=None):
+        rows = rows or len(batch)
+        nvs = _padded([np.int32(t.n_valid) for t in batch], rows, 0)
         if is_bounds and pack:
             kxyz = widths(batch)
             pbounds = [_packed_bounds(t) for t in batch]
             stacks = [host._stack_planes(batch, key, a, rows, kxyz[a], block_size)
                       for a, key in enumerate(("xp", "yp", "zp"))]
-            los = np.stack([b[0] for b in pbounds])
-            his = np.stack([b[1] for b in pbounds])
+            los = _padded([b[0] for b in pbounds], rows, (0, 0, 0))
+            his = _padded([b[1] for b in pbounds], rows, (-1, -1, -1))
             return "bbox_packed", (*stacks, los, his, nvs), stacks, (kxyz, block_size)
         if is_bounds:
             stacks = [host._stack_rows(batch, key, rows, block_size, np.int32)
                       for key in ("x", "y", "z")]
-            los = np.stack([t.lo for t in batch])
-            his = np.stack([t.hi for t in batch])
+            los = _padded([t.lo for t in batch], rows, (0, 0, 0))
+            his = _padded([t.hi for t in batch], rows, (-1, -1, -1))
             return "bbox", (*stacks, los, his, nvs), stacks, ()
         if is_time and pack:
             khl = widths(batch)
             q_rows = [host._packed_time_query(q_enc, t.columns["base"]) for t in batch]
             stacks = [host._stack_planes(batch, key, a, rows, khl[a], block_size)
                       for a, key in enumerate(("thp", "tlp"))]
-            return "time_packed", (*stacks, np.stack(q_rows), nvs), stacks, (khl, block_size)
+            return ("time_packed", (*stacks, _padded(q_rows, rows, (0, 0, 0, 0)), nvs), stacks,
+                    (khl, block_size))
         if is_time:
             stacks = [host._stack_rows(batch, key, rows, block_size, np.int32)
                       for key in ("th", "tl")]
@@ -508,7 +527,7 @@ def _step_operands(plan, *, block_size, pack):
         if pack:
             (k,) = widths(batch)
             stacks = [host._stack_planes(batch, "clsp", 0, rows, k, block_size)]
-            codes = np.asarray([int(t.columns["t"][0]) for t in batch], np.int32)
+            codes = _padded([np.int32(t.columns["t"][0]) for t in batch], rows, 0)
             return "class_dict", (*stacks, codes, nvs), stacks, (k, block_size)
         stacks = [host._stack_rows(batch, "cls", rows, block_size, np.uint8)]
         targets = np.full(rows, plan.classification.classification, np.int32)
@@ -517,7 +536,7 @@ def _step_operands(plan, *, block_size, pack):
     return operands
 
 
-def _put(comm, timer, arrays, plane_stacks) -> tuple:
+def _put(comm, timer, arrays, plane_stacks) -> list[tuple]:
     with timer.stage("h2d", sum(a.nbytes for a in plane_stacks)):
         return comm.put(arrays)
 
@@ -526,9 +545,11 @@ def _run_count(
     plan, readers, active, file_bounds, *, block_size, workers, prefetch, timer,
     block_index, index_collectors, comm,
 ) -> int:
-    # K blocks per step amortize the per-step launch and copy overhead
+    # K blocks a device per step amortize the per-step launch and copy
+    # overhead; a step is d x K blocks (JAX engine.py:651-656)
     blocks_per_step = int(os.environ.get("AQPC_BLOCKS_PER_STEP", "4"))
-    rows_per_step = max(1, blocks_per_step)
+    d = len(comm.devices())
+    rows_per_step = d * max(1, blocks_per_step)
     tasks, indexed_total, _ = _plan_tasks(
         plan, readers, active, file_bounds, block_index, block_size, timer, ordered=False)
     pack = host._pack_transport_enabled()
@@ -536,7 +557,7 @@ def _run_count(
                      block_size=block_size, pack=pack, workers=workers, prefetch=prefetch)
     operands = _step_operands(plan, block_size=block_size, pack=pack)
 
-    pending: list = []  # 0-d int32 device totals of steps not yet read back
+    pending: list = []  # a list of 0-d int32 shard totals a step not yet read back
     device_total = 0
     # blocks resolved with no device work: index-contained ones and the
     # class dictionary's absent-target and single-class blocks
@@ -545,14 +566,14 @@ def _run_count(
     def drain(limit: int):
         nonlocal device_total
         while len(pending) > limit:
-            device_total += int(pending.pop(0))
+            device_total += sum(int(t) for t in pending.pop(0))
 
     def flush(batch):
-        kind, arrays, stacks, extra = operands(batch)
+        kind, arrays, stacks, extra = operands(batch, step_rows(len(batch), d))
         if kind == "class" and block_size % 4 == 0:
             # words (4 points each) when the rows split into them, else u8
             arrays = (host.pack_class_words(arrays[0]), *arrays[1:])
-        pending.append(step.count(kind, _put(comm, timer, arrays, stacks), extra))
+        pending.append(step.counts(kind, _put(comm, timer, arrays, stacks), extra))
         drain(comm.inflight() - 1)
 
     # the dictionary's host fast paths resolve some blocks with no step; in a
@@ -641,7 +662,8 @@ def _collect_steps(
     resolves them for free (miss code / all-match).
     """
     blocks_per_step = int(os.environ.get("AQPC_BLOCKS_PER_STEP", "4"))
-    rows_per_step = max(1, blocks_per_step)
+    d = len(comm.devices())
+    rows_per_step = d * max(1, blocks_per_step)
     tasks, _, emit_queue = _plan_tasks(
         plan, readers, active, file_bounds, block_index, block_size, timer, ordered=True)
     pack = host._pack_transport_enabled()
@@ -685,12 +707,12 @@ def _collect_steps(
         elif local_idx is not None and len(local_idx):
             emitter.emit_indices(i, task_gidx(task, local_idx))
 
-    pending: deque = deque()  # (batch, BitMask) of steps not yet read back
+    pending: deque = deque()  # (batch, a BitMask a shard) of steps not yet read back
 
     def flush(batch):
-        kind, arrays, stacks, extra = operands(batch)
-        mask = step.collect_mask(kind, _put(comm, timer, arrays, stacks), extra)
-        pending.append((batch, mask))
+        kind, arrays, stacks, extra = operands(batch, step_rows(len(batch), d))
+        masks = step.collect_masks(kind, _put(comm, timer, arrays, stacks), extra)
+        pending.append((batch, masks))
         drain(comm.inflight() - 1)
 
     # Emission (disk gather of hit attributes, LAS encode, printing) runs on
@@ -721,23 +743,11 @@ def _collect_steps(
             raise emit_error[0]
         emit_q.put(fn)
 
-    def process(batch, mask):
-        with timer.stage("d2h", mask.counts.nbytes):
-            counts = comm.fetch(mask.counts)
-        # offsets for PARTIAL blocks only: empty ones emit nothing and full
-        # ones emit their rows as ranges
-        offsets = np.full(len(counts), -1, np.int64)
-        total = 0
-        for j, task in enumerate(batch):
-            c = int(counts[j])
-            if 0 < c < task.n_valid:
-                offsets[j] = total
-                total += c
-        if total:
-            (offsets_dev,) = comm.put((offsets,))
-            idx_dev = step.collect_indices(mask, offsets_dev, total, block_size)
-            with timer.stage("d2h", 4 * total):
-                idx_np = comm.fetch(idx_dev)
+    def process(batch, masks):
+        # offsets for PARTIAL blocks only: empty ones (padding rows among
+        # them) emit nothing and full ones emit their rows as ranges
+        counts, offsets, idx_np = step.read_hits(
+            masks, lambda j, c: 0 < c < batch[j].n_valid, block_size, comm.fetch, timer)
         for j, task in enumerate(batch):
             c = int(counts[j])
             if c == 0:
@@ -841,8 +851,9 @@ def _density_feeder(plan, readers, tasks, file_bounds, *, block_size, pack, work
 
 
 def _density_operands(plan, *, block_size, pack):
-    """The function batch -> (kind, n_pred, arrays, extra, xyz_at,
-    widths, stacks) of one density step. arrays[:n_pred] are the predicate's
+    """The function (batch, rows) -> (kind, n_pred, arrays, extra, xyz_at,
+    widths, stacks) of one density step, padded to rows as _step_operands
+    pads. arrays[:n_pred] are the predicate's
     operands as _step_operands stacks them (the bbox predicate in the step's
     transport, class and time raw); arrays[xyz_at:xyz_at + 3] are the x/y/z
     the candidate selection reads: the bbox predicate's own rows or planes,
@@ -854,9 +865,9 @@ def _density_operands(plan, *, block_size, pack):
     predicate_operands = _step_operands(plan, block_size=block_size,
                                         pack=pack and is_bounds)
 
-    def operands(batch):
-        rows = len(batch)
-        kind, arrays, stacks, extra = predicate_operands(batch)
+    def operands(batch, rows=None):
+        rows = rows or len(batch)
+        kind, arrays, stacks, extra = predicate_operands(batch, rows)
         n_pred = len(arrays)
         widths = None
         if is_bounds:
@@ -876,7 +887,7 @@ def _density_operands(plan, *, block_size, pack):
             arrays = (*arrays, *xyz)
             stacks = [*stacks, *xyz]
         if pack:
-            bases = np.stack([t.columns["base"].astype(np.int32) for t in batch])
+            bases = _padded([t.columns["base"].astype(np.int32) for t in batch], rows, (0, 0, 0))
             arrays = (*arrays, bases)
         return kind, n_pred, arrays, extra, xyz_at, widths, stacks
 
@@ -936,7 +947,9 @@ def _run_density(
     is_time = plan.time_range is not None
     scope = plan.density.scope
     blocks_per_step = int(os.environ.get("AQPC_BLOCKS_PER_STEP", "4"))
-    rows_per_step = max(1, blocks_per_step)
+    devices = comm.devices()
+    d = len(devices)
+    rows_per_step = d * max(1, blocks_per_step)
     pack = host._pack_transport_enabled()
     # packed loads keep the raw absolute columns under xp/yp/zp (the planes
     # are cut at stack time), so the host reads them directly either way
@@ -959,8 +972,11 @@ def _run_density(
             r = readers[file_idx]
             n = r.point_count
             scale, offset = r.header.scale, r.header.offset
-            tables_dev = density_ops.tables_to_device(
-                grid.file_tables(scale, offset), comm.device())
+            # the file's tables on every device (JAX replicates them, P())
+            tables_np = grid.file_tables(scale, offset)
+            tables_on = {dev: density_ops.tables_to_device(tables_np, dev)
+                         for dev in dict.fromkeys(devices)}
+            tables_dev = tables_on[devices[0]]
             cells = density_ops.grid_cells(tables_dev)  # sizes the leaders table with the hits
             acc = density_ops.WinnerAccum() if scope == "file" else global_acc
 
@@ -991,23 +1007,14 @@ def _run_density(
                 with timer.stage("merge"):
                     acc.add(winners, file_seq)
 
-            pending: deque = deque()  # (batch, BitMask, B) of steps not yet read back
+            # (batch, a BitMask a shard, B) of steps not yet read back
+            pending: deque = deque()
 
-            def process(batch, mask, step_block):
-                with timer.stage("d2h", mask.counts.nbytes):
-                    counts = comm.fetch(mask.counts)
-                offsets = np.full(len(counts), -1, np.int64)
-                total = 0
-                for j in range(len(batch)):
-                    if counts[j]:
-                        offsets[j] = total
-                        total += int(counts[j])
-                if not total:
+            def process(batch, masks, step_block):
+                counts, offsets, idx_np = step.read_hits(masks, lambda j, c: c > 0, step_block,
+                                                         comm.fetch, timer)
+                if idx_np is None:
                     return
-                (offsets_dev,) = comm.put((offsets,))
-                idx_dev = step.collect_indices(mask, offsets_dev, total, step_block)
-                with timer.stage("d2h", 4 * total):
-                    idx_np = comm.fetch(idx_dev)
                 for j, task in enumerate(batch):
                     if counts[j]:
                         merge_candidates(task, idx_np[offsets[j] : offsets[j] + int(counts[j])])
@@ -1021,13 +1028,13 @@ def _run_density(
 
             def flush():
                 nonlocal batch, batch_hits
-                kind, n_pred, arrays, extra, xyz_at, widths, stacks = operands(batch)
-                dev = _put(comm, timer, arrays, stacks)
-                mask = step.density_mask(
-                    kind, dev[:n_pred], extra, dev[xyz_at : xyz_at + 3], tables_dev, block_size,
-                    bases=dev[-1] if pack else None, widths=widths,
+                kind, n_pred, arrays, extra, xyz_at, widths, stacks = operands(
+                    batch, step_rows(len(batch), d))
+                masks = step.density_masks(
+                    kind, _put(comm, timer, arrays, stacks), extra, n_pred, xyz_at, tables_on,
+                    block_size, packed=pack, widths=widths,
                     slots=density_ops.table_slots(max(batch_hits), cells))
-                pending.append((batch, mask, block_size))
+                pending.append((batch, masks, block_size))
                 batch, batch_hits = [], []
                 drain(comm.inflight() - 1)
 
@@ -1044,11 +1051,13 @@ def _run_density(
                                  gidx_map=np.concatenate(sparse_gidx))
                 sparse_cols, sparse_gidx, sparse_total = [], [], 0
                 arrays = (*(c[None] for c in cols), np.asarray([task.n_valid], np.int32))
-                *xyz_dev, nvs_dev = _put(comm, timer, arrays, arrays[:3])
+                # one row, on the first device (JAX runs it unsharded too)
+                with timer.stage("h2d", sum(a.nbytes for a in arrays[:3])):
+                    *xyz_dev, nvs_dev = comm.put_one(arrays)
                 mask = step.density_mask_gathered(
                     tuple(xyz_dev), nvs_dev, tables_dev, task.n_valid,
                     slots=density_ops.table_slots(task.n_valid, cells))
-                pending.append(([task], mask, task.n_valid))
+                pending.append(([task], [mask], task.n_valid))
                 drain(comm.inflight() - 1)
 
             for task in feeder:

@@ -8,8 +8,9 @@ argument layout. The wrappers dispatch on the tensors' device:
   - CUDA tensors go to the hand-written kernel in csrc/, or raise.
 
 Nothing falls back from the kernel to the plain version. A wrapper counts
-its kernel launches in ``launches`` (CPU calls do not count), so a run can
-show that the main path went through the kernels.
+its kernel launches in ``launches`` (CPU calls do not count), and by card
+in ``device_launches``, so a run can show that the main path went through
+the kernels, and on which cards.
 
 The predicates are the reference hot loops' (query/src/search/las.rs:101-146,
 last.rs:253-291): int32 compares of raw local coordinates against per-block
@@ -59,9 +60,15 @@ launches = {
 }
 
 
+# (kernel name, card index) -> launches on that card since the last
+# reset_launches()
+device_launches: dict = {}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    device_launches.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -324,14 +331,19 @@ def _rows(t: torch.Tensor, name: str) -> tuple[int, int]:
 
 def run(name: str, tensors: tuple, sizes: tuple) -> None:
     """Run entry point aqpc_<name>(tensor pointers..., sizes..., stream) on
-    the current stream of the tensors' device; raise on a CUDA error, else
-    count the launch."""
+    the current stream of the tensors' device, with that device current, so
+    that the stream, cudaGetDevice and the occupancy queries that size the
+    persistent grids (csrc/block_count.cuh) all name the tensors' card;
+    raise on a CUDA error, else count the launch, by name and by card."""
     dev = tensors[0].device
     fn = getattr(_build.library(), f"aqpc_{name}")
-    err = fn(*(t.data_ptr() for t in tensors), *sizes,
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in tensors), *sizes,
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"aqpc_{name}")
     launches[name] += 1
+    key = (name, dev.index)
+    device_launches[key] = device_launches.get(key, 0) + 1
 
 
 def _launch(name: str, tensors: tuple, sizes: tuple) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Step-communication strategy of the port: one engine loop, one device.
+"""Step-communication strategy of the port: one engine loop over the
+devices of one process.
 
 The counterpart of adhoc_queries_pointclouds_tpu/parallel/comm.py
 LocalStepComm (comm.py:40-82), with the method names the count and collect
@@ -6,10 +7,14 @@ paths use; parallel/distributed.py DistStepComm is the multi-process
 strategy with the same contract:
 
   is_local            True: a single participant (an empty file list is an error)
-  device()            the torch.device every step runs on (make_mesh there)
-  inflight()          device steps in flight before the host waits
-  put(arrays)         numpy step operands -> tensors on the device
-  fetch(t)            a step output -> numpy on the host
+  devices()           the shards' torch.devices, in order (make_mesh)
+  device()            the first of them
+  inflight()          device steps in flight before the host waits (a step
+                      is every shard's launches)
+  put(arrays)         a step's numpy operands, rows a multiple of the shard
+                      count -> one tuple of tensors a shard, on its device
+  put_one(arrays)     numpy operands -> tensors on the first device
+  fetch(t)            a shard's output -> numpy on the host
   finish_total(d, h)  final count from device-step total + host-side total
   reduce_sum(v)       sum a host-local value across participants
 
@@ -18,7 +23,7 @@ agree_steps, agree_widths, agree_cap) are gone: every host of a JAX run
 dispatches the same SPMD program, but here each process launches its own
 steps, and the collect path has no cap.
 
-With one device there is no mesh: the K blocks of a step ride one launch.
+Each shard's K blocks ride one launch on its device (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -41,23 +46,48 @@ def require_device(device) -> torch.device:
     return device
 
 
+def indexed(device: torch.device) -> torch.device:
+    """A CUDA device with no index -> the current card's, which is the
+    device of the tensors made on it."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class LocalStepComm:
-    """Single-process strategy: everything is identity on one device."""
+    """Single-process strategy over devices: a torch.device, its name, or a
+    list of them, one a shard (parallel/mesh.py local_devices)."""
 
     # a lone participant: an empty file list is an error (run_query)
     is_local = True
 
-    def __init__(self, device):
-        self._device = require_device(device)
+    def __init__(self, devices):
+        if isinstance(devices, (list, tuple)):
+            if not devices:
+                raise ValueError("a query needs at least one device")
+            self._devices = [indexed(require_device(d)) for d in devices]
+        else:
+            self._devices = [indexed(require_device(devices))]
+
+    def devices(self) -> list[torch.device]:
+        return list(self._devices)
 
     def device(self) -> torch.device:
-        return self._device
+        return self._devices[0]
 
     def inflight(self) -> int:
         return int(os.environ.get("AQPC_INFLIGHT") or 3)
 
-    def put(self, arrays: tuple) -> tuple:
-        return tuple(torch.from_numpy(a).to(self._device) for a in arrays)
+    def put(self, arrays: tuple) -> list[tuple]:
+        from .mesh import split_rows
+
+        return [tuple(torch.from_numpy(a).to(dev) for a in group)
+                for dev, group in zip(self._devices, split_rows(arrays, len(self._devices)))]
+
+    def put_one(self, arrays: tuple) -> tuple:
+        """numpy operands -> tensors on the first device alone (a step of
+        one row: the density path's host-gathered hits)."""
+        return tuple(torch.from_numpy(a).to(self._devices[0]) for a in arrays)
 
     def fetch(self, t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()

@@ -2,24 +2,27 @@
 decode and no transfer of points.
 
 The counterpart of adhoc_queries_pointclouds_tpu/parallel/resident.py
-ResidentDataset. The file's columns are loaded once into device memory as
-(n_blocks, B) tensors, blocks of every file stacked in file order; a count
-is then one launch of the predicate's count entry (ops/predicate.py) over
-every block and one read-back of the (n_blocks,) int32 per-block counts,
-summed on the host in Python ints, so a dataset of more than 2^31 matches
-never overflows. Only the query's per-block bounds or time range cross to
-the device; n_valid stays resident.
+ResidentDataset. The files' columns are loaded once into device memory as
+(rows, B) tensors, blocks of every file stacked in file order, and sharded
+over the dataset's devices as JAX shards them over its mesh (resident.py:
+41-42, 82-99): n_blocks is the (file, block) tasks padded to a multiple of
+the device count with blocks of file_idx -1 and n_valid 0, and device j
+holds the j-th contiguous group of blocks (a ResidentShard). A count is one
+launch of the predicate's count entry (ops/predicate.py) a shard and one
+read-back of each shard's (rows,) int32 per-block counts, summed on the
+host in Python ints, so a dataset of more than 2^31 matches never
+overflows. Only the query's per-block bounds or time range cross to the
+devices; n_valid stays resident.
 
-One device, so there is no mesh and no padding: n_blocks is the number of
-(file, block) tasks and every row belongs to a file. Collect and density
-run the same bit-mask and compaction entries as the streamed engine
-(parallel/step.py), with no cap: the host reads each block's true count
-first. Density gathers its candidates' x, y and z on the device with the
-compaction itself (ops/compact.py compact_bits_gather).
+Collect and density run the same bit-mask and compaction entries as the
+streamed engine (parallel/step.py), shard by shard in block order, with no
+cap: the host reads each block's true count first. Density gathers its
+candidates' x, y and z on the device with the compaction itself
+(ops/compact.py compact_bits_gather).
 
 Sizes: x, y and z take 12 B a point, the class 1 B, the GPS time's (hi, lo)
-int32 encoding 8 B; 21 B a point with all three, about 3.8 G points in an
-H100's 80 GB.
+int32 encoding 8 B; 21 B a point with all three, about 3.8 G points in one
+H100's 80 GB, and d times that over d cards.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from ..models.query import QueryPlan
 from ..ops import compact, density as density_ops, predicate
 from ..utils.aabb import AABB, clamp_bounds_to_i32, local_query_bounds
 from . import step
-from .comm import require_device
+from .comm import indexed, require_device
+from .mesh import shard_ranges, step_rows
 
 # predicate kind -> count entry over the kind's raw operands
 _COUNTS = {
@@ -47,26 +51,43 @@ _COUNTS = {
     "time": predicate.time_count_multi_kernel,
 }
 
+COLUMNS = ("xs", "ys", "zs", "cls", "ths", "tls")
+
 
 @dataclasses.dataclass
-class ResidentDataset:
+class ResidentShard:
+    """The blocks [lo, hi) of a resident dataset, on one device."""
+
     device: torch.device
-    block_size: int
-    n_blocks: int  # the (file, block) tasks, in file order
-    headers: list
-    files: list[Path]
-    file_idx: np.ndarray  # (n_blocks,) int32, non-decreasing
-    nvs: np.ndarray  # (n_blocks,) int32 valid points per block
-    block_start: np.ndarray  # (n_blocks,) int64 file-local start
-    nvs_dev: torch.Tensor  # nvs on the device
-    xs: torch.Tensor | None = None  # (n_blocks, B) int32
+    lo: int
+    hi: int
+    nvs: torch.Tensor  # (hi - lo,) int32 valid points a block
+    xs: torch.Tensor | None = None  # (hi - lo, B) int32
     ys: torch.Tensor | None = None
     zs: torch.Tensor | None = None
-    cls: torch.Tensor | None = None  # (n_blocks, B) uint8
+    cls: torch.Tensor | None = None  # (hi - lo, B) uint8
     # GPS times as the order-preserving (hi, lo) int32 encoding
     # (host.encode_f64_sortable): exact f64 range tests in int32 compares
     ths: torch.Tensor | None = None
     tls: torch.Tensor | None = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   (getattr(self, name) for name in COLUMNS) if t is not None)
+
+
+@dataclasses.dataclass
+class ResidentDataset:
+    devices: list[torch.device]  # one a shard; a device may repeat
+    block_size: int
+    n_blocks: int  # the (file, block) tasks in file order, padded to a multiple of the shards
+    headers: list
+    files: list[Path]
+    file_idx: np.ndarray  # (n_blocks,) int32, non-decreasing, then -1 for padding blocks
+    nvs: np.ndarray  # (n_blocks,) int32 valid points per block
+    block_start: np.ndarray  # (n_blocks,) int64 file-local start
+    shards: list[ResidentShard]
     total_points: int = 0
 
     # ------------------------------------------------------------------
@@ -75,15 +96,24 @@ class ResidentDataset:
     def load(
         input_path,
         *,
-        device,
+        device=None,
+        devices=None,
         attrs: tuple[str, ...] = ("position", "classification"),
         block_size: int = 1 << 21,
         workers: int = 8,
     ) -> "ResidentDataset":
         """Load the files of input_path (a file or a flat directory) into
         device memory: attrs among position, classification and gps_time.
-        device: a torch.device or its name; "cuda" without CUDA raises."""
-        device = require_device(device)
+        device: a torch.device or its name; "cuda" without CUDA raises.
+        devices: the shards' devices instead (parallel/mesh.py
+        local_devices; a device may repeat)."""
+        if devices is None:
+            if device is None:
+                raise ValueError("ResidentDataset.load needs a device or devices")
+            devices = [device]
+        devices = [indexed(require_device(d)) for d in devices]
+        if not devices:
+            raise ValueError("ResidentDataset.load needs at least one device")
         files = discover_files(input_path)
         if not files:
             raise FileNotFoundError(f"No supported point-cloud files under {input_path}")
@@ -100,11 +130,13 @@ class ResidentDataset:
                 for b in range((n + block_size - 1) // block_size):
                     start = b * block_size
                     tasks.append((i, start, min(start + block_size, n)))
-            n_blocks = len(tasks)
+            n_blocks = step_rows(len(tasks), len(devices))
 
-            file_idx = np.asarray([t[0] for t in tasks], np.int32)
-            nvs = np.asarray([t[2] - t[1] for t in tasks], np.int32)
-            block_start = np.asarray([t[1] for t in tasks], np.int64)
+            file_idx = np.full(n_blocks, -1, np.int32)
+            nvs = np.zeros(n_blocks, np.int32)
+            block_start = np.zeros(n_blocks, np.int64)
+            for j, (i, start, stop) in enumerate(tasks):
+                file_idx[j], nvs[j], block_start[j] = i, stop - start, start
             want_pos = "position" in attrs
             want_cls = "classification" in attrs
             want_gps = "gps_time" in attrs
@@ -135,17 +167,20 @@ class ResidentDataset:
                     cols["tls"][j, :n] = tl
 
             with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
-                list(pool.map(fill, range(n_blocks)))
+                list(pool.map(fill, range(len(tasks))))
             headers = [r.header for r in readers]
         finally:
             for r in readers:
                 r.close()
 
-        def put(a):
-            return torch.from_numpy(a).to(device)
-
+        shards = [
+            ResidentShard(
+                device=dev, lo=lo, hi=hi, nvs=torch.from_numpy(nvs[lo:hi]).to(dev),
+                **{name: torch.from_numpy(a[lo:hi]).to(dev) for name, a in cols.items()})
+            for dev, (lo, hi) in zip(devices, shard_ranges(n_blocks, len(devices)))
+        ]
         return ResidentDataset(
-            device=device,
+            devices=devices,
             block_size=block_size,
             n_blocks=n_blocks,
             headers=headers,
@@ -153,27 +188,43 @@ class ResidentDataset:
             file_idx=file_idx,
             nvs=nvs,
             block_start=block_start,
-            nvs_dev=put(nvs),
+            shards=shards,
             total_points=int(nvs.sum()),
-            **{name: put(a) for name, a in cols.items()},
         )
 
     @property
+    def device(self) -> torch.device:
+        """The first shard's device."""
+        return self.devices[0]
+
+    @property
     def resident_bytes(self) -> int:
-        total = 0
-        for t in (self.xs, self.ys, self.zs, self.cls, self.ths, self.tls):
-            if t is not None:
-                total += t.numel() * t.element_size()
-        return total
+        """The columns' bytes on every device together."""
+        return sum(self.per_device_bytes)
+
+    @property
+    def per_device_bytes(self) -> list[int]:
+        """The columns' bytes of each shard, in shard order."""
+        return [s.nbytes for s in self.shards]
+
+    def _has(self, name: str) -> bool:
+        return getattr(self.shards[0], name) is not None
 
     # ------------------------------------------------------------------
 
     def _ranges(self) -> dict[int, tuple[int, int]]:
         """File -> its contiguous row range [lo, hi), for every file with
-        blocks (file_idx is non-decreasing)."""
-        cuts = np.searchsorted(self.file_idx, np.arange(len(self.files) + 1))
+        blocks (file_idx is non-decreasing up to the padding blocks)."""
+        real = self.file_idx[self.file_idx >= 0]
+        cuts = np.searchsorted(real, np.arange(len(self.files) + 1))
         return {i: (int(cuts[i]), int(cuts[i + 1])) for i in range(len(self.files))
                 if cuts[i] < cuts[i + 1]}
+
+    def _pieces(self, lo: int, hi: int) -> list[tuple[ResidentShard, int, int]]:
+        """The rows [lo, hi) cut at the shards' edges: (shard, lo, hi) of
+        each shard they reach, in row order."""
+        return [(s, max(lo, s.lo), min(hi, s.hi)) for s in self.shards
+                if max(lo, s.lo) < min(hi, s.hi)]
 
     def _file_bounds(self, plan: QueryPlan) -> dict:
         """Per-file integer query bounds after the header prefilter: files
@@ -188,42 +239,43 @@ class ResidentDataset:
             out[i] = clamp_bounds_to_i32(lo64, hi64)
         return out
 
-    def _operands(self, plan: QueryPlan, lo: int, hi: int) -> tuple[str, tuple]:
-        """(kind, operands) of plan's predicate over resident rows [lo, hi),
-        in the raw layout of parallel/step.py: bbox (xs, ys, zs, los, his,
-        nvs), class (cls, targets, nvs), time (ths, tls, qs, nvs). A file
-        the header prefilter drops gets the empty box (0, -1)."""
+    def _operands(self, plan: QueryPlan, shard: ResidentShard, lo: int,
+                  hi: int) -> tuple[str, tuple]:
+        """(kind, operands) of plan's predicate over the resident rows [lo,
+        hi) of shard, on its device, in the raw layout of parallel/step.py:
+        bbox (xs, ys, zs, los, his, nvs), class (cls, targets, nvs), time
+        (ths, tls, qs, nvs). A file the header prefilter drops, and a
+        padding block, get the empty box (0, -1)."""
         rows = hi - lo
-        nvs = self.nvs_dev[lo:hi]
+        at = slice(lo - shard.lo, hi - shard.lo)
+        nvs = shard.nvs[at]
         if plan.bounds is not None:
-            if self.xs is None:
+            if shard.xs is None:
                 raise ValueError("dataset loaded without position columns")
             bounds = np.zeros((2, rows, 3), np.int32)  # (los, his): one copy to the device
             bounds[1] = -1
-            ranges = self._ranges()
+            files = self.file_idx[lo:hi]
             for i, (blo, bhi) in self._file_bounds(plan).items():
-                flo, fhi = ranges.get(i, (0, 0))
-                flo, fhi = max(flo, lo) - lo, min(fhi, hi) - lo
-                if flo < fhi:
-                    bounds[0, flo:fhi] = blo
-                    bounds[1, flo:fhi] = bhi
-            b = torch.from_numpy(bounds).to(self.device)
-            return "bbox", (self.xs[lo:hi], self.ys[lo:hi], self.zs[lo:hi], b[0], b[1], nvs)
+                sel = files == i
+                bounds[0, sel] = blo
+                bounds[1, sel] = bhi
+            b = torch.from_numpy(bounds).to(shard.device)
+            return "bbox", (shard.xs[at], shard.ys[at], shard.zs[at], b[0], b[1], nvs)
         if plan.time_range is not None:
-            if self.ths is None:
+            if shard.ths is None:
                 raise ValueError("dataset loaded without gps_time columns")
             q = np.asarray(
                 host.encode_f64_scalar(plan.time_range.start)
                 + host.encode_f64_scalar(plan.time_range.end),
                 np.int32,
             )
-            qs = torch.from_numpy(np.tile(q, (rows, 1))).to(self.device)
-            return "time", (self.ths[lo:hi], self.tls[lo:hi], qs, nvs)
-        if self.cls is None:
+            qs = torch.from_numpy(np.tile(q, (rows, 1))).to(shard.device)
+            return "time", (shard.ths[at], shard.tls[at], qs, nvs)
+        if shard.cls is None:
             raise ValueError("dataset loaded without classification column")
         targets = torch.full((rows,), plan.classification.classification, dtype=torch.int32,
-                             device=self.device)
-        return "class", (self.cls[lo:hi], targets, nvs)
+                             device=shard.device)
+        return "class", (shard.cls[at], targets, nvs)
 
     def collect(
         self,
@@ -233,11 +285,12 @@ class ResidentDataset:
         print_stream=None,
         keep_hits: bool = False,
     ):
-        """Collect matching points: one predicate launch over every resident
-        block into a bit mask, one read of the per-block counts, one
-        compaction of the partial blocks' hits into an exact-size buffer;
-        hit attributes are gathered from the source files for hit rows
-        only, in block (so file) order. Returns (count, HitEmitter)."""
+        """Collect matching points: one predicate launch a shard over its
+        resident blocks into a bit mask, one read of each shard's per-block
+        counts, one compaction a shard of its partial blocks' hits into an
+        exact-size buffer; hit attributes are gathered from the source
+        files for hit rows only, in block (so file) order. Returns (count,
+        HitEmitter)."""
         from ..sinks import HitEmitter
 
         if plan.density is not None:
@@ -245,20 +298,10 @@ class ResidentDataset:
                 plan, output_dir=output_dir, print_stream=print_stream,
                 keep_hits=keep_hits,
             )
-        kind, arrays = self._operands(plan, 0, self.n_blocks)
-        mask = step.collect_mask(kind, arrays)
-        counts = mask.counts.cpu().numpy()
+        masks = [step.collect_mask(*self._operands(plan, s, s.lo, s.hi)) for s in self.shards]
         # full blocks are emitted as ranges; partial ones get an offset
-        offsets = np.full(self.n_blocks, -1, np.int64)
-        total = 0
-        for b in range(self.n_blocks):
-            if 0 < counts[b] < self.nvs[b]:
-                offsets[b] = total
-                total += int(counts[b])
-        idx_np = None
-        if total:
-            offsets_dev = torch.from_numpy(offsets).to(self.device)
-            idx_np = step.collect_indices(mask, offsets_dev, total, self.block_size).cpu().numpy()
+        counts, offsets, idx_np = step.read_hits(
+            masks, lambda b, c: 0 < c < self.nvs[b], self.block_size)
 
         readers = [open_point_cloud(f) for f in self.files]
         emitter = HitEmitter(
@@ -288,16 +331,17 @@ class ResidentDataset:
         """Run the density query against the resident blocks; returns
         (per-file states dict, global state): exactly one is populated.
 
-        Per file, over its contiguous rows: the predicate's bit mask, one
-        read of its counts (they size the leaders table), the candidates
-        (ops/density.py), one read of their counts, then one compaction that
-        also gathers the candidates' x, y and z; the host resolves them
-        exactly in f64 (GridSpec3D, WinnerAccum)."""
+        Per file, over its contiguous rows on each shard they reach, in
+        block order: the predicate's bit mask, one read of its counts (they
+        size the leaders table), the candidates (ops/density.py), one read
+        of their counts, then one compaction that also gathers the
+        candidates' x, y and z; the host resolves them exactly in f64
+        (GridSpec3D, WinnerAccum)."""
         if plan.density is None:
             raise ValueError("density_states needs a density plan")
-        if plan.time_range is not None and self.ths is None:
+        if plan.time_range is not None and not self._has("ths"):
             raise ValueError("dataset loaded without gps_time columns")
-        if self.xs is None:
+        if not self._has("xs"):
             raise ValueError("dataset loaded without position columns")
         if plan.bounds is not None:
             grid_bounds = plan.bounds.bounds
@@ -316,45 +360,54 @@ class ResidentDataset:
         for file_seq, (i, (blo, bhi)) in enumerate(sorted(self._ranges().items())):
             if file_bounds is not None and i not in file_bounds:
                 continue
-            kind, arrays = self._operands(plan, blo, bhi)
-            mask = step.collect_mask(kind, arrays)
-            most = int(mask.counts.max())
-            if not most:
-                continue
             h = self.headers[i]
-            tables = density_ops.tables_to_device(grid.file_tables(h.scale, h.offset),
-                                                  self.device)
-            xyz = (self.xs[blo:bhi], self.ys[blo:bhi], self.zs[blo:bhi])
-            cands = density_ops.density_candidates_bits(
-                xyz, mask, arrays[-1], tables, self.block_size,
-                slots=density_ops.table_slots(most, density_ops.grid_cells(tables)))
-            counts = cands.counts.cpu().numpy()
-            offsets = np.full(bhi - blo, -1, np.int64)
-            total = 0
-            for j in range(bhi - blo):
-                if counts[j]:
-                    offsets[j] = total
-                    total += int(counts[j])
-            if not total:
-                continue
-            offsets_dev = torch.from_numpy(offsets).to(self.device)
-            idx, gx, gy, gz = (t.cpu().numpy() for t in compact.compact_bits_gather(
-                cands.bits, cands.chunks, offsets_dev, total, self.block_size, *xyz))
-            acc = accs.setdefault(i, density_ops.WinnerAccum()) if per_file_scope else global_acc
-            for j in range(bhi - blo):
-                c = int(counts[j])
-                if c == 0:
-                    continue
-                at = slice(offsets[j], offsets[j] + c)
-                winners = grid.make_winners_raw(
-                    gx[at], gy[at], gz[at], h.scale, h.offset,
-                    idx[at].astype(np.int64) + int(self.block_start[blo + j]), i,
-                )
-                acc.add(winners, file_seq)
+            tables_np = grid.file_tables(h.scale, h.offset)
+            for shard, plo, phi in self._pieces(blo, bhi):
+                self._density_piece(plan, grid, shard, plo, phi, tables_np, h, i, file_seq,
+                                    accs.setdefault(i, density_ops.WinnerAccum())
+                                    if per_file_scope else global_acc)
         return (
             {i: a.result() for i, a in accs.items()},
             global_acc.result() if not per_file_scope else None,
         )
+
+    def _density_piece(self, plan, grid, shard, lo, hi, tables_np, header, i, file_seq,
+                       acc) -> None:
+        """The density candidates of file i's rows [lo, hi) on one shard,
+        resolved and merged into acc (density_states)."""
+        kind, arrays = self._operands(plan, shard, lo, hi)
+        mask = step.collect_mask(kind, arrays)
+        most = int(mask.counts.max())
+        if not most:
+            return
+        tables = density_ops.tables_to_device(tables_np, shard.device)
+        at = slice(lo - shard.lo, hi - shard.lo)
+        xyz = (shard.xs[at], shard.ys[at], shard.zs[at])
+        cands = density_ops.density_candidates_bits(
+            xyz, mask, arrays[-1], tables, self.block_size,
+            slots=density_ops.table_slots(most, density_ops.grid_cells(tables)))
+        counts = cands.counts.cpu().numpy()
+        offsets = np.full(hi - lo, -1, np.int64)
+        total = 0
+        for j in range(hi - lo):
+            if counts[j]:
+                offsets[j] = total
+                total += int(counts[j])
+        if not total:
+            return
+        offsets_dev = torch.from_numpy(offsets).to(shard.device)
+        idx, gx, gy, gz = (t.cpu().numpy() for t in compact.compact_bits_gather(
+            cands.bits, cands.chunks, offsets_dev, total, self.block_size, *xyz))
+        for j in range(hi - lo):
+            c = int(counts[j])
+            if c == 0:
+                continue
+            at = slice(offsets[j], offsets[j] + c)
+            winners = grid.make_winners_raw(
+                gx[at], gy[at], gz[at], header.scale, header.offset,
+                idx[at].astype(np.int64) + int(self.block_start[lo + j]), i,
+            )
+            acc.add(winners, file_seq)
 
     def density_count(self, plan: QueryPlan) -> int:
         """Max-density sampled count against the resident blocks."""
@@ -403,18 +456,22 @@ class ResidentDataset:
 
     def count(self, plan: QueryPlan) -> int:
         """One resident ad-hoc count: one launch of the predicate's count
-        entry over every block, one read-back of the per-block counts,
-        summed in Python ints (density plans: per file, as density_states)."""
+        entry a shard over its blocks, then one read-back of each shard's
+        per-block counts, summed in Python ints (density plans: per file,
+        as density_states)."""
         if plan.density is not None:
             return self.density_count(plan)
         if plan.collects_points:
             raise NotImplementedError(
                 "use ResidentDataset.collect() for point materialization"
             )
-        kind, arrays = self._operands(plan, 0, self.n_blocks)
-        if kind == "class" and self.block_size % 4 == 0:
-            # the u8 column viewed as int32 words, 4 points a word
-            counts = predicate.class_count_words_kernel(arrays[0].view(torch.int32), *arrays[1:])
-        else:
-            counts = _COUNTS[kind](*arrays)
-        return int(counts.cpu().numpy().sum(dtype=np.int64))
+        per_shard = []
+        for s in self.shards:
+            kind, arrays = self._operands(plan, s, s.lo, s.hi)
+            if kind == "class" and self.block_size % 4 == 0:
+                # the u8 column viewed as int32 words, 4 points a word
+                per_shard.append(predicate.class_count_words_kernel(
+                    arrays[0].view(torch.int32), *arrays[1:]))
+            else:
+                per_shard.append(_COUNTS[kind](*arrays))
+        return sum(int(c.cpu().numpy().sum(dtype=np.int64)) for c in per_shard)

@@ -1,15 +1,17 @@
 """One device step: K stacked blocks -> one int32 total (count path), or a
-bit mask and its hit indices (collect path).
+bit mask and its hit indices (collect path); and a step over several
+shards, one launch a shard (counts, collect_masks, density_masks).
 
 The counterparts of adhoc_queries_pointclouds_tpu/parallel/mesh.py
 sharded_bbox_count (mesh.py:416-423), sharded_bbox_count_packed
 (mesh.py:113-121), sharded_class_count (mesh.py:426-451),
 sharded_class_count_dict (mesh.py:193-216), sharded_time_count
 (mesh.py:143-162) and sharded_time_count_packed (mesh.py:165-190). They take
-the same (rows, B) operands; with one device there is no shard_map or psum,
-so the K blocks ride one kernel launch and the per-block counts are summed
-on the device. The result is a 0-d int32 tensor, read by the engine only
-when it drains old steps.
+the same (rows, B) operands of one shard (parallel/mesh.py): its K blocks
+ride one kernel launch on its device and the per-block counts are summed
+there. The result is a 0-d int32 tensor, read by the engine only when it
+drains old steps; counts() gives one a shard, and the host sums them in
+Python ints where JAX's psum summed them on the devices.
 
 The collect step is the counterpart of mesh._collect_fn / sharded_collect
 (mesh.py:229-302), split in two around the host's read of the counts:
@@ -27,6 +29,9 @@ collect_indices finishes it.
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 from ..ops import compact, density, predicate
@@ -106,10 +111,21 @@ def count(kind: str, arrays: tuple, extra: tuple = ()) -> torch.Tensor:
     return _COUNTS[kind](*arrays, *extra)
 
 
+def counts(kind: str, shards: list[tuple], extra: tuple = ()) -> list[torch.Tensor]:
+    """count() of each shard's operands, on its device: one launch a shard.
+    A step's packed widths (extra) are one set for every shard."""
+    return [count(kind, arrays, extra) for arrays in shards]
+
+
 def collect_mask(kind: str, arrays: tuple, extra: tuple = ()) -> predicate.BitMask:
     """The predicate of one collect step over its (rows, ...) operands, as
     sharded_collect takes them: kind and extra as in _MASKS."""
     return _MASKS[kind](*arrays, *extra)
+
+
+def collect_masks(kind: str, shards: list[tuple], extra: tuple = ()) -> list[predicate.BitMask]:
+    """collect_mask() of each shard's operands, on its device."""
+    return [collect_mask(kind, arrays, extra) for arrays in shards]
 
 
 def density_mask(kind: str, arrays: tuple, extra: tuple, xyz: tuple, tables: dict,
@@ -125,6 +141,19 @@ def density_mask(kind: str, arrays: tuple, extra: tuple, xyz: tuple, tables: dic
     mask = _MASKS[kind](*arrays, *extra)
     return density.density_candidates_bits(xyz, mask, arrays[-1], tables, block_size,
                                            bases=bases, widths=widths, slots=slots)
+
+
+def density_masks(kind: str, shards: list[tuple], extra: tuple, n_pred: int, xyz_at: int,
+                  tables: dict, block_size: int, *, packed: bool, widths=None,
+                  slots: int | None = None) -> list[predicate.BitMask]:
+    """density_mask() of each shard's operands, on its device: a shard's
+    arrays[:n_pred] are the predicate's, arrays[xyz_at:xyz_at + 3] the
+    x/y/z, and (packed) its last array the bases. tables: the file's
+    tables by device (density.tables_to_device on each)."""
+    return [density_mask(kind, arrays[:n_pred], extra, arrays[xyz_at:xyz_at + 3],
+                         tables[arrays[0].device], block_size,
+                         bases=arrays[-1] if packed else None, widths=widths, slots=slots)
+            for arrays in shards]
 
 
 def density_mask_gathered(xyz: tuple, nvs, tables: dict, n: int, *,
@@ -143,3 +172,45 @@ def collect_indices(mask: predicate.BitMask, offsets, total: int,
     """(total,) int32 ascending local hit rows of the blocks with an offset
     ((rows,) int64, -1 to skip a block), each at its offset."""
     return compact.compact_bits(mask.bits, mask.chunks, offsets, total, block_size)
+
+
+def read_hits(masks: list, picked, block_size: int, fetch=None, timer=None):
+    """The hits of one step's shards, one BitMask a shard (each a contiguous
+    group of the step's rows, in order): the per-block counts of every
+    shard, read first; then on each shard one compaction launch for the
+    blocks picked(row, count) takes, each at its offset in that shard's
+    exact-size buffer. fetch reads a tensor to numpy (the comm's), timer
+    takes the reads as "d2h" stages. Returns the counts over the step's
+    rows, each row's offset into the indices (-1: not picked) and the
+    indices of the picked blocks in row order (None when there are none)."""
+    fetch = fetch or (lambda t: t.cpu().numpy())
+
+    def d2h(nbytes):
+        return timer.stage("d2h", nbytes) if timer is not None else contextlib.nullcontext()
+
+    counts = []
+    for mask in masks:
+        with d2h(mask.counts.nbytes):
+            counts.append(fetch(mask.counts))
+    counts = np.concatenate(counts)
+    offsets = np.full(len(counts), -1, np.int64)
+    parts = []
+    base = 0
+    r = len(counts) // len(masks)
+    for s, mask in enumerate(masks):
+        local = np.full(r, -1, np.int64)  # this shard's offsets into its own buffer
+        total = 0
+        for j in range(r):
+            c = int(counts[s * r + j])
+            if picked(s * r + j, c):
+                local[j] = total
+                offsets[s * r + j] = base + total
+                total += c
+        if not total:
+            continue
+        idx = collect_indices(mask, torch.from_numpy(local).to(mask.counts.device), total,
+                              block_size)
+        with d2h(4 * total):
+            parts.append(fetch(idx))
+        base += total
+    return counts, offsets, (np.concatenate(parts) if parts else None)

@@ -3,9 +3,11 @@ protocol.
 
 The counterpart of adhoc_queries_pointclouds_tpu/serve.py, with the same
 protocol. `serve -i DATASET` loads the dataset's columns into device memory
-once (parallel/resident.py) and then answers ad-hoc queries from stdin, one
-JSON object per line, one JSON reply per line; each count is one kernel
-launch over the resident blocks and one read-back.
+once (parallel/resident.py), sharded over the devices of --device and
+--devices as the CLI's queries are (every local card by default), and then
+answers ad-hoc queries from stdin, one JSON object per line, one JSON reply
+per line; each count is one kernel launch a device over its resident
+blocks and one read-back.
 
 Request lines:
   {"bounds": [minx, miny, minz, maxx, maxy, maxz]}
@@ -39,6 +41,7 @@ from .models.query import (
     QueryPlan,
     TimeRangeQuery,
 )
+from .parallel.mesh import local_devices
 from .parallel.resident import ResidentDataset
 from .utils.aabb import AABB
 
@@ -50,7 +53,7 @@ def handle_request(ds: ResidentDataset, req: dict, input_path: str) -> dict:
             "points": ds.total_points,
             "resident_mib": round(ds.resident_bytes / 1048576.0, 1),
             "blocks": ds.n_blocks,
-            "devices": 1,
+            "devices": len(ds.devices),
         }
     try:
         density = DensityConfig(float(req["density"])) if "density" in req else None
@@ -109,7 +112,7 @@ def handle_request(ds: ResidentDataset, req: dict, input_path: str) -> dict:
     except NotImplementedError:
         from .engine import run_query
 
-        res = run_query(input_path, plan, device=ds.device)
+        res = run_query(input_path, plan, device=ds.device, devices=ds.devices)
         return {
             "count": res.match_count,
             "ms": round((time.perf_counter() - t0) * 1e3, 2),
@@ -126,9 +129,17 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("-i", "--input", required=True)
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on: cuda (default) or cpu")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="Devices to shard the dataset over: the first N of --device's "
+                             "(default: every local card; cpu: one)")
     parser.add_argument("--block-size", type=int, default=1 << 21)
     parser.add_argument("--workers", type=int, default=8)
     args = parser.parse_args(argv)
+    try:
+        devices = local_devices(args.device, args.devices)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
 
     t0 = time.perf_counter()
     attrs = ["position", "classification"]
@@ -144,7 +155,7 @@ def main(argv: list[str] | None = None) -> int:
         attrs.append("gps_time")
     ds = ResidentDataset.load(
         args.input,
-        device=args.device,
+        devices=devices,
         attrs=tuple(attrs),
         block_size=args.block_size,
         workers=args.workers,

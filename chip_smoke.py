@@ -69,7 +69,7 @@ Phases, in order; the first fault raises and the script exits non-zero:
      2^24 points
   4. end to end, through the port's CLI over generated point-format-3 LAS
      and LAST datasets (8 files x 8M points) and LAZER and LAZ ones
-     (2 x 2M), nine paths, each with the launch counters set to 0 just
+     (2 x 2M), ten paths, each with the launch counters set to 0 just
      before it and read just after. Beside them a background worker
      (`chip_smoke.py --background-worker`, no card) does the host work
      that no path needs at once, in the order the paths take it: the
@@ -112,6 +112,18 @@ Phases, in order; the first fault raises and the script exits non-zero:
          as a subprocess (info, the three counts, a collect with limit 3
          and an output dir, a line that is not JSON, quit), each reply
          the oracle's;
+       devices: several devices in one process over LAST 64M, two shards
+         on card 0 (run_query(devices=[cuda:0, cuda:0]) and a resident
+         dataset over the same two): the box counts in both transports,
+         class 6 and the time range, -o of the small box and density of
+         the large box (25 m, global), the resident counts, -o of a second
+         of GPS time and density of class 6 (5 m), each also at one shard;
+         every answer the oracle's and the one shard's, every written file
+         the oracle's; the launches on card 0 at two shards against one
+         shard's (a resident count: exactly twice; a streamed step: 2 x
+         ceil(n / 2)); both walls; with two cards or more, the box through
+         the CLI's --devices over every card (each launches) and a kernel
+         on cuda:1 while cuda:0 is current, against its plain version;
        distributed: the LAST 64M dataset queried through
          parallel/distributed.py by tools/dist2.py workers (gloo over
          tcp://127.0.0.1, each started as `chip_smoke.py --dist2-worker`,
@@ -138,7 +150,8 @@ Phases, in order; the first fault raises and the script exits non-zero:
          `chip_smoke.py --profile-worker`), the trace's kernel events of
          the port's kernels printed beside that process's launch counters,
          at least one event a launched kernel and, in its first trace, one
-         event a launch; --devices 1 (the oracle's count) and 2 (exit 2); the
+         event a launch; --devices 1 (the oracle's count), and one more
+         than the cards and 0 (exit 2); the
          experiment harness over its synthetic stand-ins (4 x 2M points a
          format): experiment 2 as cold subprocesses, all sizes, full and
          max-density, the four formats at once (a harness process each),
@@ -161,6 +174,7 @@ lines before the last, and {"ok": true, "device": {...}} as the last line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import filecmp
 import hashlib
 import io
@@ -187,7 +201,7 @@ from adhoc_queries_pointclouds_torch.formats.las import (
 )
 from adhoc_queries_pointclouds_torch.host import packed_row_width
 from adhoc_queries_pointclouds_torch.models.query import (
-    BoundsQuery, ClassQuery, QueryPlan, TimeRangeQuery,
+    BoundsQuery, ClassQuery, DensityConfig, QueryPlan, TimeRangeQuery,
 )
 from adhoc_queries_pointclouds_torch.ops import compact as C
 from adhoc_queries_pointclouds_torch.ops import density as D
@@ -1531,6 +1545,9 @@ def background_tasks(root: Path) -> list:
         tasks.append((("density", big, *query, cell, scope),
                       lambda m=match, c=cell, sc=scope, b=bounds:
                       density_oracle(big, m, c, sc, b)))
+    box_s = parse_aabb(E2E_BOX_SMALL)
+    tasks.append((("written", big, "--bounds", E2E_BOX_SMALL),
+                  lambda: written_oracle(big, in_box(box_s))))
     for e in (2, 6):
         dataset = experiments.EXPERIMENT_DATASETS[e]
         tasks.append((("synthesize", exp, dataset), lambda d=dataset: experiments.synthesize_dataset(
@@ -2193,8 +2210,8 @@ def serve_run(data_dir: Path, tmp: Path, wants: dict) -> None:
     n = wants["points"]
     if not ready.get("ready") or ready["points"] != n or info["points"] != n:
         fail(f"serve: ready {ready}, info {info}, {n} points")
-    if info["devices"] != 1:
-        fail(f"serve: info {info}")
+    if info["devices"] != torch.cuda.device_count():
+        fail(f"serve: info {info}, {torch.cuda.device_count()} cards")
     for label, reply, want in (("box", box, wants["box"]), ("class 6", cls6, wants["class 6"]),
                                ("time", tr, wants["time"]),
                                ("collect", pts, wants["small box"]),
@@ -2252,7 +2269,7 @@ def path_resident(datasets) -> None:
               f"{found}, oracle {wants[label]}; {lines[0]}; {lines[-1]}; launches {launched}")
         if found != wants[label]:
             fail(f"{big.name} --resident {' '.join(query)}: found {found}, oracle {wants[label]}")
-        if launched != {kernel: RESIDENT_REPEAT + 1}:
+        if launched != {kernel: (RESIDENT_REPEAT + 1) * torch.cuda.device_count()}:
             fail(f"{big.name} --resident {' '.join(query)}: launched {launched}, not {kernel} "
                  f"once a query")
 
@@ -2263,7 +2280,8 @@ def path_resident(datasets) -> None:
                               lambda: written_oracle(big, in_box(box_l))), tmp / "box")
         lo, hi = E2E_TIME_COLLECT
         resident_collect(big, ["--time-range", f"{lo};{hi}"],
-                         written_oracle(big, in_time(lo, hi)), tmp / "time")
+                         kept(("written", big, "--time-range", lo, hi),
+                              lambda: written_oracle(big, in_time(lo, hi))), tmp / "time")
         for query, match, bounds, cell, scope in (
                 (["--bounds", E2E_BOX_SMALL], in_box(box_s), (box_s.min, box_s.max), 25.0, "file"),
                 (["--class", "6"], lambda r: r.column("classification") == 6, None, 5.0,
@@ -2287,7 +2305,7 @@ def path_resident(datasets) -> None:
                 fail(f"resident count {label}: not the oracle's {wants[label]}")
             # the count entry's call alone on the query's operands: its
             # device work (the kernel and its fills), L2 flushed
-            _, operands = ds._operands(plan, 0, ds.n_blocks)
+            _, operands = ds._operands(plan, ds.shards[0], 0, ds.n_blocks)
             if kernel == "class_count_words":
                 operands = (operands[0].view(torch.int32), *operands[1:])
             entry = getattr(P, f"{kernel}_kernel")
@@ -2308,9 +2326,207 @@ def path_resident(datasets) -> None:
                   f"{bound_ms:.4f} ms; {smi}")
             print(f"    one query (torch.profiler, 20 queries): "
                   f"{resident_split(lambda: ds.count(plan), wall)}")
-        del ds
-        torch.cuda.empty_cache()
+        _RESIDENT["one shard"] = ds  # the devices path's one-shard dataset
         serve_run(big, tmp, wants)
+
+
+# ---------------------------------------------------------------- devices
+
+
+_RESIDENT: dict = {}  # the resident path's one-shard dataset, for the devices path
+
+
+def card_launches() -> dict:
+    """(kernel, card) -> launches so far (predicate.device_launches)."""
+    return dict(P.device_launches)
+
+
+def launched_since(before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in P.device_launches.items()
+            if n != before.get(k, 0)}
+
+
+def check_shard_launches(label: str, one: dict, two: dict, rule: str) -> None:
+    """one, two: the (kernel, card) launches of a query at one shard and at
+    two shards on card 0. Every kernel of the one-shard run launches on
+    card 0 at two shards, and nowhere else. rule "twice": exactly twice as
+    often (a launch a shard); "steps": 2 x ceil(n / 2) (a streamed step of
+    2 x K blocks is two launches of K, where one shard's steps are one
+    launch of K each); "some": at least once (the compaction, which only a
+    shard with partial blocks launches, and density's per-file flushes)."""
+    if {card for _, card in one} != {0} or {card for _, card in two} != {0}:
+        fail(f"{label}: launched on {sorted(one)} and {sorted(two)}, not on card 0 alone")
+    for (kernel, _), n in one.items():
+        m = two.get((kernel, 0), 0)
+        want = {"twice": 2 * n, "steps": 2 * -(-n // 2)}.get(rule)
+        if (want is not None and m != want) or m < 1:
+            fail(f"{label}: {kernel} launched {n} times at one shard, {m} at two; rule {rule}")
+    if {k for k, _ in two} != {k for k, _ in one}:
+        fail(f"{label}: kernels {sorted(two)} at two shards, {sorted(one)} at one")
+
+
+def shard_runs(label: str, run, check, rule: str, smi: str) -> None:
+    """run(devices) at one shard and at two shards on card 0, each checked
+    (check(result)); the launch rule of check_shard_launches and both walls
+    with the card's name and power limit."""
+    results, walls, launches = [], [], []
+    for devices in ([torch.device("cuda", 0)], [torch.device("cuda", 0)] * 2):
+        before = card_launches()
+        t0 = time.perf_counter()
+        results.append(run(devices))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(launched_since(before))
+        check(results[-1])
+    check_shard_launches(label, *launches, rule)
+    print(f"  {label}: {results[1]}; {walls[0] * 1e3:.3f} ms at one shard, "
+          f"{walls[1] * 1e3:.3f} ms at two on cuda:0; launches at two "
+          f"{ {k: n for (k, _), n in launches[1].items()} }; {smi}")
+
+
+def path_devices(datasets) -> None:
+    """Several devices in one process (parallel/mesh.py) over LAST 64M,
+    with no new data: two shards on card 0 through run_query(devices=
+    [cuda:0, cuda:0]) and a resident dataset over the same two shards,
+    each query also at one shard. The box counts in both transports, class
+    6 and the time range, index off; -o of the small box, every written
+    file the oracle's; density of the large box at 25 m, global scope, the
+    oracle's winners; the resident counts, -o of one second of GPS time and
+    density of class 6 at 5 m against the resident path's one-shard
+    dataset. Every answer is the oracle's and the one shard's; the launches
+    at two shards follow check_shard_launches' rules; walls at one shard
+    and at two. With more than one card: the box through the CLI's
+    --devices over every card (each launches), and one kernel launched on
+    cuda:1 while cuda:0 is current, against its plain version."""
+    big = datasets[0][0]
+    box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
+    t0, t1 = E2E_TIME_LARGE
+    smi = smi_line()
+    counts = [
+        ("box AQPC_PACK=1", "1", QueryPlan(bounds=BoundsQuery(box_l)), oracle(big, E2E_BOX_LARGE)),
+        ("box AQPC_PACK=0", "0", QueryPlan(bounds=BoundsQuery(box_l)), oracle(big, E2E_BOX_LARGE)),
+        ("class 6", "1", QueryPlan(classification=ClassQuery(6)), class_oracle(big, 6)),
+        ("time", "1", QueryPlan(time_range=TimeRangeQuery(t0, t1)), time_oracle(big, t0, t1)),
+    ]
+
+    def expect(label, want):
+        def check(got):
+            if got != want:
+                fail(f"devices {label}: {got}, the oracle's {want}")
+        return check
+
+    for label, pack, plan, want in counts:
+        os.environ["AQPC_PACK"] = pack
+        shard_runs(f"{label} count", lambda devs, plan=plan: engine.run_query(
+            big, plan, device="cuda", devices=devs, use_index=False).match_count,
+            expect(label, want), "steps", smi)
+
+    written = kept(("written", big, "--bounds", E2E_BOX_SMALL),
+                   lambda: written_oracle(big, in_box(box_s)))
+    hits_l, density_l = kept(("density", big, "--bounds", E2E_BOX_LARGE, 25.0, "global"),
+                             lambda: density_oracle(big, in_box(box_l), 25.0, "global",
+                                                    (box_l.min, box_l.max)))
+    os.environ["AQPC_PACK"] = "1"
+    with tempfile.TemporaryDirectory(prefix="aqpc_devices_") as tmp:
+        tmp = Path(tmp)
+
+        def written_run(plan, want, name):
+            def run(devices):
+                out_dir = tmp / f"{name}_{len(devices)}"
+                out_dir.mkdir()
+                res = engine.run_query(big, dataclasses.replace(plan, output_dir=out_dir),
+                                       device="cuda", devices=devices, use_index=False)
+                check_files(res.output_files, want, f"devices {name} at {len(devices)} shards")
+                shutil.rmtree(out_dir)
+                return res.match_count
+            return run
+
+        shard_runs("-o small box", written_run(QueryPlan(bounds=BoundsQuery(box_s)), written,
+                                               "box"),
+                   expect("-o small box", sum(len(r) for _, r in written)), "some", smi)
+        plan = QueryPlan(bounds=BoundsQuery(box_l), density=DensityConfig(25.0, "global"))
+        shard_runs("--density 25 global, large box", written_run(plan, density_l, "density"),
+                   expect("density", sum(len(r) for _, r in density_l)), "some", smi)
+
+        one = _RESIDENT.pop("one shard")
+        t = time.perf_counter()
+        two = ResidentDataset.load(big, devices=[torch.device("cuda", 0)] * 2,
+                                   attrs=("position", "classification", "gps_time"))
+        print(f"  resident over two shards on cuda:0: {two.n_blocks} blocks (one shard: "
+              f"{one.n_blocks}), {[b / 2**20 for b in two.per_device_bytes]} MiB a shard, "
+              f"loaded in {time.perf_counter() - t:.2f} s")
+        if two.n_blocks % 2 or [s.device.index for s in two.shards] != [0, 0]:
+            fail(f"resident over two shards: {two.n_blocks} blocks on "
+                 f"{[str(s.device) for s in two.shards]}")
+        by_shards = {1: one, 2: two}
+        for label, _, plan, want in counts[::2] + counts[3:]:
+            shard_runs(f"resident {label} count",
+                       lambda devs, plan=plan: by_shards[len(devs)].count(plan),
+                       expect(f"resident {label}", want), "twice", smi)
+        lo, hi = E2E_TIME_COLLECT
+        time_written = kept(("written", big, "--time-range", lo, hi),
+                            lambda: written_oracle(big, in_time(lo, hi)))
+
+        def resident_written(devices):
+            out_dir = tmp / f"resident_{len(devices)}"
+            out_dir.mkdir()
+            count, emitter = by_shards[len(devices)].collect(
+                QueryPlan(time_range=TimeRangeQuery(lo, hi)), output_dir=out_dir)
+            check_files(emitter.output_files, time_written,
+                        f"devices resident -o at {len(devices)} shards")
+            shutil.rmtree(out_dir)
+            return count
+
+        shard_runs("resident -o time range", resident_written,
+                   expect("resident -o", sum(len(r) for _, r in time_written)), "some", smi)
+        _, density_c = kept(("density", big, "--class", "6", 5.0, "global"),
+                            lambda: density_oracle(big, lambda r: r.column("classification") == 6,
+                                                   5.0, "global"))
+        plan = QueryPlan(classification=ClassQuery(6), density=DensityConfig(5.0, "global"))
+        winners = []
+
+        def resident_density(devices):
+            _, state = by_shards[len(devices)].density_states(plan)
+            winners.append(state)
+            return len(state)
+
+        shard_runs("resident density class 6 5 m global", resident_density,
+                   expect("resident density", sum(len(r) for _, r in density_c)), "some", smi)
+        if not all(np.array_equal(winners[0][f], winners[1][f])
+                   for f in ("key", "d2", "file_idx", "gidx")):
+            fail("resident density: the two shards' winners differ from the one shard's")
+        del one, two, by_shards
+        torch.cuda.empty_cache()
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"  one card: the CLI's --devices over every card and the launch on cuda:1 "
+              f"need two")
+        return
+    before = card_launches()
+    out = run_cli(["-i", str(big), "--bounds", E2E_BOX_LARGE, "--device", "cuda", "--devices",
+                   str(cards), "--no-index"], "1")
+    on = {card for _, card in launched_since(before)}
+    if f"Found {counts[0][3]} matching points" not in out or on != set(range(cards)):
+        fail(f"--devices {cards}: launched on cards {sorted(on)}:\n{out}")
+    print(f"  --devices {cards}: found {counts[0][3]}, launches on cards {sorted(on)}; "
+          f"{out.strip().splitlines()[-1]}")
+    gen = torch.Generator().manual_seed(SEED)
+    second = torch.device("cuda", 1)
+    args = [torch.randint(-5000, 5000, (4, 1 << 21), dtype=torch.int32, generator=gen)
+            for _ in range(3)]
+    args += [torch.full((4, 3), -2500, dtype=torch.int32), torch.full((4, 3), 2500,
+                                                                       dtype=torch.int32),
+             torch.full((4,), 1 << 21, dtype=torch.int32)]
+    before = card_launches()
+    with torch.cuda.device(0):
+        got = P.bbox_count_multi_kernel(*(a.to(second) for a in args)).cpu()
+    want = P.bbox_count_multi(*args)
+    if not torch.equal(got, want) or launched_since(before) != {("bbox_count_multi", 1): 1}:
+        fail(f"bbox_count_multi on cuda:1 with cuda:0 current: {got} against the plain "
+             f"{want}; launches {launched_since(before)}")
+    print(f"  bbox_count_multi on cuda:1 with cuda:0 current: {got.tolist()}, the plain "
+          f"version's")
 
 
 DIST_PROCS = 2  # processes of the distributed path, all on card 0
@@ -2627,16 +2843,22 @@ def traced_launches(trace_dir: Path, launched: dict) -> tuple[dict, int]:
 
 
 def drivers_devices(big: Path, box: str) -> None:
+    """--devices 1 counts the oracle's matches on card 0; --devices of one
+    more than the cards, and 0, exit 2 with a message."""
     want = oracle(big, box)
     out = run_cli(["-i", str(big), "--bounds", box, "--device", "cuda", "--devices", "1"], "1")
-    if f"Found {want} matching points" not in out:
-        fail(f"--devices 1: want Found {want}:\n{out}")
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rc, _ = cli_output(["-i", str(big), "--bounds", box, "--device", "cuda", "--devices", "2"])
-    if rc != 2 or "--distributed" not in err.getvalue():
-        fail(f"--devices 2: exit {rc}, {err.getvalue()!r}; want 2 and a word of --distributed")
-    print(f"  --devices 1: found {want}; --devices 2: exit 2, {err.getvalue().strip()}")
+    if f"Found {want} matching points" not in out or not out.rstrip().endswith(" on cuda:0"):
+        fail(f"--devices 1: want Found {want} on cuda:0:\n{out}")
+    said = []
+    for n in (torch.cuda.device_count() + 1, 0):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, out = cli_output(["-i", str(big), "--bounds", box, "--device", "cuda",
+                                  "--devices", str(n)])
+        if rc != 2 or out or not err.getvalue().startswith(f"--devices {n}: "):
+            fail(f"--devices {n}: exit {rc}, {out!r}, {err.getvalue()!r}; want 2 and a message")
+        said.append(f"--devices {n}: exit 2, {err.getvalue().strip()}")
+    print(f"  --devices 1: found {want}; {'; '.join(said)}")
 
 
 def experiment_oracles(root: Path, e: int) -> dict:
@@ -2815,6 +3037,11 @@ PATHS = {
     "resident": (path_resident, ("bbox_count_multi", "class_count_words", "time_count_multi",
                                  "mask_bbox", "mask_class", "mask_time", "compact_bits",
                                  "density_leaders", "density_candidates", "compact_bits_gather")),
+    "devices": (path_devices, (
+        "bbox_count_multi", "bbox_count_packed", "class_count_dict", "time_count_packed",
+        "mask_bbox_packed", "compact_bits", "density_leaders_packed",
+        "density_candidates_packed", "class_count_words", "time_count_multi", "mask_time",
+        "density_leaders", "density_candidates", "compact_bits_gather")),
     "distributed": (path_distributed, (
         "bbox_count_multi", "bbox_count_packed",
         ("class_count_multi", "class_count_words", "class_count_dict"),

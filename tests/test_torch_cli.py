@@ -87,6 +87,11 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, monkeypatch, flag
         # ported: torch.profiler's trace in DIR, then the JAX CLI's lines
         _same_profile_output(data, capsys, tmp_path)
         return
+    if flag[0] == "--devices":
+        # ported: each step over 2 shards (CPU ones here), the JAX CLI's
+        # lines at --devices 2 but the timing line
+        _same_devices_output(data, capsys)
+        return
     args = ["-i", str(data), "--bounds", BOXES[0], "--device", "cpu", *flag]
     assert torch_cli.main(args) != 0
     err = capsys.readouterr().err
@@ -95,12 +100,21 @@ def test_flags_not_ported_exit_nonzero(data, capsys, tmp_path, monkeypatch, flag
         # CLI refuses with exit 1 and its own message
         assert jax_cli.main(["-i", str(data), "--bounds", BOXES[0], *flag]) == 1
         assert err == capsys.readouterr().err != ""
-    else:
-        # ported: a process drives one device; more is --distributed's
-        assert flag == ["--devices", "2"]
-        assert torch_cli.main(args) == 2
-        assert err == capsys.readouterr().err
-        assert "--distributed" in err
+
+
+def _same_devices_output(data, capsys):
+    """--devices 2 over a count, a collect and density, each printing its
+    points: the JAX CLI's lines but the timing line, which ends with the
+    two devices."""
+    for extra in ([], ["--print-points"], ["--density", "25", "--print-points"]):
+        args = ["-i", str(data), "--bounds", BOXES[0], "--block-size", "16384", "--devices", "2",
+                *extra]
+        assert jax_cli.main(args) == 0
+        ref = capsys.readouterr().out.splitlines()
+        assert torch_cli.main([*args, "--device", "cpu"]) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert out[:-1] == ref[:-1] and _found("\n".join(out)) > 0
+        assert out[-1].startswith("Searched ") and out[-1].endswith(" on cpu, cpu")
 
 
 def _same_profile_output(data, capsys, tmp_path):

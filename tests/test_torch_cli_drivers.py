@@ -110,14 +110,40 @@ def test_devices_1_is_the_default(data, capsys, extra):
     assert one[:-1] == plain[:-1]
 
 
-@pytest.mark.parametrize("n", ["2", "8", "0"])
-def test_devices_other_than_1_exits_2(data, capsys, n):
-    args = ["-i", str(data / "last"), "--bounds", BOX, "--device", "cpu", "--devices", n]
-    assert torch_cli.main(args) == 2
+# --devices cases: N CPU shards print the JAX CLI's --devices N lines; 0,
+# more than the machine's cards and --distributed with 2 exit 2
+DEVICES_EXIT_2 = {
+    "0": (["--device", "cpu", "--devices", "0"],
+          "--devices 0: a query needs at least one device"),
+    "more_than_cards": (["--device", "cuda", "--devices", "2"],
+                        "--devices 2: this machine has 1 CUDA device(s)"),
+    "distributed": (["--device", "cpu", "--distributed", "--devices", "2"],
+                    "--devices 2: --distributed drives one device a process (process I on "
+                    "card I % the card count)"),
+}
+
+
+@pytest.mark.parametrize("n", ["2", "8", *DEVICES_EXIT_2])
+def test_devices_other_than_1_exits_2(data, capsys, monkeypatch, n):
+    """--devices N other than 1: N CPU shards (--device cpu) print the JAX
+    CLI's lines at --devices N but the timing line, whose end names the N
+    devices; N of 0, more than the cards and --distributed exit 2 with a
+    message and no output."""
+    query = ["-i", str(data / "last"), "--bounds", BOX]
+    if n not in DEVICES_EXIT_2:
+        ref = _run(jax_cli, [*query, "--devices", n], capsys)
+        got = _run(torch_cli, [*query, "--device", "cpu", "--devices", n], capsys)
+        assert got[:-1] == ref[:-1] and got[-1].startswith("Searched ")
+        assert got[-1].endswith(" on " + ", ".join(["cpu"] * int(n)))
+        return
+    flags, message = DEVICES_EXIT_2[n]
+    # a machine with one card, as far as the CLI asks
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert torch_cli.main([*query, *flags]) == 2
     captured = capsys.readouterr()
     assert captured.out == ""
-    assert captured.err == (f"--devices {n}: a process drives one device; run one process "
-                            f"per card with --distributed\n")
+    assert captured.err == message + "\n"
 
 
 @pytest.mark.parametrize("command", ["experiments", "postgis"])

@@ -1238,12 +1238,59 @@ def test_compact_bits_gather_matches_plain(dev, case):
         assert (total > 0) == (skipped is skip)
 
 
+def test_launch_on_a_second_card_matches_plain(dev):
+    """A kernel launched on cuda:1 while cuda:0 is current runs on cuda:1
+    (its stream, its grid) and gives the plain version's counts."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    second = torch.device("cuda", 1)
+    args = _raw(np.random.default_rng(16), 7, 1 << 16)
+    TP.reset_launches()
+    with torch.cuda.device(dev):
+        got, want = _both(TP.bbox_count_multi_kernel, args, second)
+    assert torch.equal(got, want)
+    assert TP.device_launches == {("bbox_count_multi", 1): 1}
+
+
+def test_two_shards_on_one_card_match_the_cpu(dev, tmp_path):
+    """run_query over devices [cuda:0, cuda:0] (every step split in two
+    shards, both on the card) and a resident dataset over the same two
+    shards: counts, collected hits and density winners equal the one-shard
+    CPU run's, and every launch is counted on card 0."""
+    from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
+
+    synth.write_dataset(tmp_path, n_files=3, points_per_file=40_000, seed=16,
+                        formats=("last",), clustered=True, point_format=3)
+    data = tmp_path / "last"
+    box = parse_aabb("100200;200300;10;102500;200800;60")
+    plans = [QueryPlan(bounds=BoundsQuery(box)), QueryPlan(classification=ClassQuery(6)),
+             QueryPlan(time_range=TimeRangeQuery(0.1, 0.6)),
+             QueryPlan(bounds=BoundsQuery(box), density=DensityConfig(9.0))]
+    shards = [dev, dev]
+    TP.reset_launches()
+    for plan in plans:
+        kw = dict(block_size=1 << 13, use_index=False, keep_hits=True)
+        want = engine.run_query(data, plan, device="cpu", **kw)
+        got = engine.run_query(data, plan, device="cuda", devices=shards, **kw)
+        assert got.match_count == want.match_count > 0
+        for a, b in zip(want.hits, got.hits):
+            assert np.array_equal(a.position_world, b.position_world)
+    cpu = ResidentDataset.load(data, device="cpu", block_size=1 << 13,
+                               attrs=("position", "classification", "gps_time"))
+    card = ResidentDataset.load(data, devices=shards, block_size=1 << 13,
+                                attrs=("position", "classification", "gps_time"))
+    assert [s.device for s in card.shards] == shards and card.n_blocks % 2 == 0
+    for plan in plans:
+        assert card.count(plan) == cpu.count(plan) > 0
+    assert TP.device_launches and {card for _, card in TP.device_launches} == {0}
+
+
 @pytest.mark.parametrize("B", [128, 99], ids=["words", "u8_rows"])
 def test_resident_count_over_more_blocks_than_grid_y(dev, tmp_path, B):
     """A resident count is one launch of its predicate's count entry over
     every block, summed in int64: over 65,548 blocks of one file, the bbox,
     class and GPS-time counts equal a numpy oracle of the same columns."""
-    from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
+    from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset, ResidentShard
     from adhoc_queries_pointclouds_torch.utils.aabb import clamp_bounds_to_i32, local_query_bounds
 
     synth.write_dataset(tmp_path, n_files=1, points_per_file=1000, seed=4, formats=("last",))
@@ -1266,12 +1313,13 @@ def test_resident_count_over_more_blocks_than_grid_y(dev, tmp_path, B):
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    shard = ResidentShard(
+        device=dev, lo=0, hi=rows, nvs=put(nvs), xs=put(xyz[0]), ys=put(xyz[1]),
+        zs=put(xyz[2]), cls=put(cls), ths=put(th.reshape(rows, B)), tls=put(tl.reshape(rows, B)))
     ds = ResidentDataset(
-        device=dev, block_size=B, n_blocks=rows, headers=[h], files=[f],
+        devices=[dev], block_size=B, n_blocks=rows, headers=[h], files=[f],
         file_idx=np.zeros(rows, np.int32), nvs=nvs, block_start=np.arange(rows) * B,
-        nvs_dev=put(nvs), xs=put(xyz[0]), ys=put(xyz[1]), zs=put(xyz[2]), cls=put(cls),
-        ths=put(th.reshape(rows, B)), tls=put(tl.reshape(rows, B)),
-        total_points=int(nvs.sum()),
+        shards=[shard], total_points=int(nvs.sum()),
     )
     inside = valid.copy()
     for a in range(3):

@@ -180,3 +180,57 @@ def test_unsupported_device_raises():
     nv = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="meta"):
         TP.bbox_count_multi_kernel(x, x, x, lo, lo, nv)
+
+
+class _CardTensor:
+    """Stands in for a CUDA tensor: predicate.run reads only .device and
+    .data_ptr()."""
+
+    def __init__(self, device: str, ptr: int):
+        self.device = torch.device(device)
+        self._ptr = ptr
+
+    def data_ptr(self) -> int:
+        return self._ptr
+
+
+def test_run_launches_with_the_tensors_card_current(monkeypatch):
+    """predicate.run calls the entry point while the tensors' card is the
+    current device (so cudaGetDevice and the grid's occupancy query name
+    it), on that card's stream, restores the current device after, and
+    counts the launch by name and by card."""
+    current = ["cuda:0"]
+    calls = []
+
+    class FakeDevice:
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], str(self.dev)
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    class FakeStream:
+        def __init__(self, dev):
+            self.cuda_stream = 1000 + torch.device(dev).index
+
+    class FakeLibrary:
+        def aqpc_mask_bbox(self, *args):
+            calls.append((current[0], args))
+            return 0
+
+    monkeypatch.setattr(TP._build, "library", FakeLibrary)
+    monkeypatch.setattr(torch.cuda, "device", FakeDevice)
+    monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+    TP.reset_launches()
+    for card in (1, 0, 1):
+        tensors = (_CardTensor(f"cuda:{card}", 11), _CardTensor(f"cuda:{card}", 12))
+        TP.run("mask_bbox", tensors, (4, 8192))
+        assert calls[-1] == (f"cuda:{card}", (11, 12, 4, 8192, 1000 + card))
+        assert current == ["cuda:0"]
+    assert TP.launches["mask_bbox"] == 3
+    assert TP.device_launches == {("mask_bbox", 1): 2, ("mask_bbox", 0): 1}
+    TP.reset_launches()
+    assert TP.device_launches == {} and TP.launches["mask_bbox"] == 0

@@ -76,19 +76,21 @@ def plans(density=None, scope="global", **fields):
 def test_layout_has_no_padding(data, both):
     """One device: a block for each (file, block) task, every row a file's."""
     ref, got = both
-    assert got.device == torch.device("cpu")
+    assert got.device == torch.device("cpu") and got.devices == [got.device]
     assert got.n_blocks == 6 and ref.n_blocks == 8  # JAX pads to the 8-device mesh
     assert got.file_idx.tolist() == [0, 0, 1, 1, 2, 2]
     assert got.nvs.tolist() == [BLOCK, 25_000 - BLOCK] * 3
     assert got.block_start.tolist() == [0, BLOCK] * 3
-    assert torch.equal(got.nvs_dev, torch.from_numpy(got.nvs))
+    (shard,) = got.shards
+    assert (shard.lo, shard.hi) == (0, 6)
+    assert torch.equal(shard.nvs, torch.from_numpy(got.nvs))
     assert got.total_points == ref.total_points == 75_000
-    assert got.resident_bytes == 6 * BLOCK * 21
+    assert got.resident_bytes == 6 * BLOCK * 21 == got.per_device_bytes[0]
     for name in ("xs", "ys", "zs", "cls", "ths", "tls"):
-        t = getattr(got, name)
+        t = getattr(shard, name)
         assert t.is_contiguous() and t.shape == (6, BLOCK)
         assert np.array_equal(t.numpy(), np.asarray(getattr(ref, name))[ref.file_idx >= 0])
-    assert got.cls.dtype == torch.uint8
+    assert shard.cls.dtype == torch.uint8
 
 
 @pytest.mark.parametrize("name", sorted(QUERIES))
