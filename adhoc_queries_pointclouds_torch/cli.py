@@ -12,7 +12,7 @@ the local devices of a process.
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --profile TRACE_DIR
     python -m adhoc_queries_pointclouds_torch.cli serve -i DIR
     python -m adhoc_queries_pointclouds_torch.cli -i DIR --bounds B --distributed \
-        --coordinator HOST:PORT --num-processes N --process-id I
+        --coordinator HOST:PORT --num-processes N --process-id I [--devices n]
     python -m adhoc_queries_pointclouds_torch.cli convert -i IN.las -o OUT.{last,lazer,laz}
     python -m adhoc_queries_pointclouds_torch.cli index -i DIR
     python -m adhoc_queries_pointclouds_torch.cli count-points -i DIR
@@ -31,15 +31,18 @@ cell, per input file (--density-scope file) or over the whole query
 (global, the default: one output file). --resident loads the dataset into
 device memory once and runs the query there, --repeat times; `serve`
 answers JSON requests against a resident dataset (serve.py).
---distributed runs the query in each of N processes over its share of the
-files (parallel/distributed.py); with --device cuda process I runs on card
-I % the card count. --profile DIR records the query with torch.profiler
-(CPU activity, and the cards' under --device cuda) and writes its trace
-into DIR. --devices N shards each step, and a resident dataset, over the
-first N devices of --device (parallel/mesh.py), as the JAX CLI's mesh
-does; without it, --device cuda takes every local card and cpu one
-shard. N of 0, or more than the cards, exits 2, and so does --distributed
-with N other than 1 (one device a process). --device (default cuda) names
+--distributed runs the query in each of P processes over its share of the
+files (parallel/distributed.py), each over its own shards: with --device
+cuda and --devices n, process I's n shards are the cards (I * n + j) % the
+card count, j < n; without --devices, one shard, card I % the card count
+(JAX's process takes every local device; here several processes may share
+a host's cards), and the last line counts every process's shards.
+--profile DIR records the query with torch.profiler (CPU activity, and the
+cards' under --device cuda) and writes its trace into DIR. --devices N
+shards each step, and a resident dataset, over the first N devices of
+--device (parallel/mesh.py), as the JAX CLI's mesh does; without it,
+--device cuda takes every local card and cpu one shard. N of 0, or more
+than the cards (in one process), exits 2. --device (default cuda) names
 the device; cuda without a card is an error, never a silent run on the
 CPU. convert,
 index and count-points run on the host alone and write the JAX CLI's
@@ -89,7 +92,10 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--devices", type=int, default=None,
         help="Devices this process shards each step over: the first N of --device's "
-             "(default: every local card; cpu: one shard). --distributed drives one a process",
+             "(default: every local card; cpu: one shard). Under --distributed, process I's "
+             "N shards are cards (I*N + j) %% the card count; the default there is one "
+             "shard a process, card I %% the card count, since several processes may share "
+             "a host's cards (JAX's process takes every local device)",
     )
     parser.add_argument("--workers", type=int, default=8, help="Host decode threads")
     parser.add_argument("--stats", action="store_true", help="Print per-stage timings")
@@ -130,10 +136,6 @@ def build_query_parser(parser: argparse.ArgumentParser) -> None:
 
 
 def cmd_query(args: argparse.Namespace) -> int:
-    if args.distributed and args.devices not in (None, 1):
-        print(f"--devices {args.devices}: --distributed drives one device a process (process "
-              f"I on card I % the card count)", file=sys.stderr)
-        return 2
     if args.devices is not None and args.devices < 1:
         print(f"--devices {args.devices}: a query needs at least one device", file=sys.stderr)
         return 2
@@ -258,8 +260,9 @@ def profile_events(trace_dir: Path, category: str) -> list[dict]:
 
 def _run_distributed(args: argparse.Namespace, plan: QueryPlan) -> int:
     """The query across processes (parallel/distributed.py), with the JAX CLI's
-    output lines (cli.py:196-228). Each process drives one device, so the
-    last line's device count is the process count."""
+    output lines (cli.py:196-228). Each process drives the shards of
+    process_devices(--device, --devices), and the last line's device count
+    is the group's shard total (JAX's len(jax.devices()))."""
     import time
 
     from .parallel import distributed
@@ -267,32 +270,40 @@ def _run_distributed(args: argparse.Namespace, plan: QueryPlan) -> int:
 
     require_device(args.device)  # cuda without a card raises before the group forms
     distributed.initialize(args.coordinator, args.num_processes, args.process_id)
-    device = distributed.process_device(args.device)
-    kwargs = {}
-    if args.block_size:
-        kwargs["block_size"] = args.block_size
-    t0 = time.perf_counter()
-    if plan.density is not None:
-        count = distributed.distributed_density(args.input, plan, device=device, **kwargs)
-    elif plan.collects_points:
-        count, emitter = distributed.distributed_collect(
-            args.input, plan, device=device,
-            output_dir=plan.output_dir,
-            print_stream=sys.stdout if args.print_points else None,
-            parity_quirk=plan.parity_quirk, **kwargs,
+    try:
+        try:
+            devices = distributed.process_devices(args.device, args.devices)
+        except ValueError as e:  # several shards on a device that names one card
+            print(e, file=sys.stderr)
+            return 2
+        kwargs = {}
+        if args.block_size:
+            kwargs["block_size"] = args.block_size
+        t0 = time.perf_counter()
+        if plan.density is not None:
+            count = distributed.distributed_density(args.input, plan, devices=devices, **kwargs)
+        elif plan.collects_points:
+            count, emitter = distributed.distributed_collect(
+                args.input, plan, devices=devices,
+                output_dir=plan.output_dir,
+                print_stream=sys.stdout if args.print_points else None,
+                parity_quirk=plan.parity_quirk, **kwargs,
+            )
+            for f in emitter.output_files:
+                print(f"Wrote {f}")
+        else:
+            count = distributed.distributed_count(
+                args.input, plan, devices=devices, parity_quirk=plan.parity_quirk, **kwargs
+            )
+        n_devices = distributed.global_device_count(devices)
+        print(
+            f"Found {count} matching points "
+            f"({distributed.process_count()} process(es), {n_devices} devices, "
+            f"{time.perf_counter() - t0:.2f}s)"
         )
-        for f in emitter.output_files:
-            print(f"Wrote {f}")
-    else:
-        count = distributed.distributed_count(
-            args.input, plan, device=device, parity_quirk=plan.parity_quirk, **kwargs
-        )
-    n = distributed.process_count()
-    print(
-        f"Found {count} matching points "
-        f"({n} process(es), {n} devices, {time.perf_counter() - t0:.2f}s)"
-    )
-    return 0
+        return 0
+    finally:
+        distributed.shutdown()
 
 
 def _run_resident(args: argparse.Namespace, plan: QueryPlan, devices: list) -> int:

@@ -1,13 +1,25 @@
 """Multi-process queries of the port: every process reads its share of the
-file manifest, runs the one-device engine on it, and the processes join
-their counts and density winners over torch.distributed.
+file manifest, runs the engine on it over its own shards, and the
+processes join their counts and density winners over torch.distributed.
 
 The counterpart of adhoc_queries_pointclouds_tpu/parallel/distributed.py,
 with its function names. The reference's only parallelism is a per-file
-fan-out on threads (main.rs:146-183); here each process takes every n-th
+fan-out on threads (main.rs:146-183); here each process takes every P-th
 file (shard_manifest) and `engine.run_query` runs unchanged on it with
 DistStepComm, so the decode-ahead feeder, both transports and sidecar-index
 pruning run as they do in one process.
+
+Each process drives the shards of process_devices(device, n), the port's
+counterpart of jax.local_devices() under JAX's global_mesh(): each step's
+rows split over them as parallel/mesh.py splits them in one process, a
+process's shard counts are summed in Python ints, and its hits and density
+candidates are taken in shard order, which is file order. With --device
+cuda, process I's n shards are the cards (I * n + j) % the card count, for
+j < n: with n = 1, card I % the card count; with P * n cards or more, the
+processes' cards are disjoint; past that, cards repeat across and within
+processes (a card may hold several shards, parallel/mesh.py).
+global_device_count() is the group's shard total, the counterpart of
+global_mesh().devices.size.
 
 Two things differ from the JAX module:
 
@@ -17,22 +29,20 @@ Two things differ from the JAX module:
   card, which is how several processes share one GPU.
 - There is no lockstep. JAX agrees on the block size, the step count, the
   packed widths and a fixed step shape because every host compiles and
-  dispatches the same SPMD program. Here each process launches its own
-  kernels on its own stream, and no collective sits inside a step: a
-  process with an empty shard runs no step, and the processes meet only in
-  the final reductions. So each process's device total is its own, and
-  finish_total reduces it with the host total.
+  dispatches the same SPMD program over the global mesh. Here each process
+  launches its own kernels on its own shards, and no collective sits
+  inside a step: a process with an empty shard runs no step, and the
+  processes meet only in the final reductions. So each process's device
+  total is its own, and finish_total reduces it with the host total.
 
-JAX's global_mesh has no counterpart: each process drives one device
-(process_device), and there is no mesh. Hit payloads never cross
-processes: a collect's LAS dumps land under host{i}/ of the output
-directory, and a global-scope density query gathers 28-byte wire rows of
-its winners, never their points.
+Hit payloads never cross processes: a collect's LAS dumps land under
+host{i}/ of the output directory, and a global-scope density query gathers
+28-byte wire rows of its winners, never their points.
 
 Bring a group up with initialize(coordinator, num_processes, process_id)
 in every process (the CLI's --distributed --coordinator HOST:PORT
---num-processes N --process-id I); without one, every call here is the
-one-process engine.
+--num-processes N --process-id I [--devices n]); without one, every call
+here is the one-process engine over its shards.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from ..sinks import HitEmitter, concat_hits, gather_hits
 from ..utils.aabb import AABB
 from ..utils.timing import StageTimer
 from .comm import LocalStepComm, require_device
+from .mesh import local_devices
 
 # a collective that waits longer than this for a peer fails the run
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
@@ -76,6 +87,15 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     )
 
 
+def shutdown() -> None:
+    """Leave the process group (no-op without one), so that its threads
+    end before the interpreter does: a process that exits with the group
+    up can abort at exit ("terminate called without an active
+    exception") after its last collective."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
@@ -84,14 +104,48 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def process_device(device) -> torch.device:
-    """This process's device: a CUDA device with no index is card
-    process_index() % device_count, so that processes beyond the card count
-    share the cards; cuda without CUDA raises, the CPU stays the CPU."""
+def card_layout(pid: int, cards: int, n: int) -> list[int]:
+    """The card indices of process pid's n shards on a host of `cards`
+    cards: (pid * n + j) % cards for j < n."""
+    return [(pid * n + j) % cards for j in range(n)]
+
+
+def process_devices(device, n: int | None = None) -> list[torch.device]:
+    """This process's shards, one torch.device each (the counterpart of
+    jax.local_devices() under global_mesh()).
+
+    "cuda": the cards card_layout(process_index(), device_count, n or 1).
+    "cpu" (n CPU shards, one without n) and "cuda:I" (that card alone, n 1
+    or None) are local_devices'. "cuda" without CUDA raises, and so does n
+    below 1."""
     device = require_device(device)
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", process_index() % torch.cuda.device_count())
-    return device
+    if device.type == "cpu" or device.index is not None or (n is not None and n < 1):
+        return local_devices(device, n)
+    return [torch.device("cuda", i)
+            for i in card_layout(process_index(), torch.cuda.device_count(), n or 1)]
+
+
+def process_device(device) -> torch.device:
+    """This process's one device (process_devices at n = 1): a CUDA device
+    with no index is card process_index() % device_count, so that
+    processes beyond the card count share the cards."""
+    return process_devices(device)[0]
+
+
+def global_device_count(devices) -> int:
+    """The group's shard total: the sum of every process's len(devices)
+    (the counterpart of global_mesh().devices.size)."""
+    return _allreduce_sum(len(devices))
+
+
+def _shards(device, devices) -> list:
+    """The shards a call runs on: devices, one entry a shard, or a lone
+    device as one shard."""
+    if devices:
+        return list(devices)
+    if device is None:
+        raise ValueError("a distributed query needs device= or devices=")
+    return [device]
 
 
 def shard_manifest(files: list[Path]) -> list[Path]:
@@ -118,7 +172,8 @@ def _allreduce_sum(value: int) -> int:
 
 class DistStepComm(LocalStepComm):
     """Multi-process step-communication strategy for engine.run_query (the
-    contract is parallel/comm.py's). Steps, blocks and widths are each
+    contract is parallel/comm.py's), over this process's devices, one a
+    shard, as LocalStepComm takes them. Steps, blocks and widths are each
     process's own (see the module docstring): only the count is reduced.
     No step spans processes, so finish_total reduces the device total with
     the host total (JAX's psum made its device total global already and
@@ -144,7 +199,8 @@ def distributed_query(
     input_path,
     plan: QueryPlan,
     *,
-    device,
+    device=None,
+    devices=None,
     block_size: int = DEFAULT_BLOCK_SIZE,
     parity_quirk: bool = False,
     use_index: bool = True,
@@ -153,10 +209,11 @@ def distributed_query(
     keep_hits: bool = False,
 ):
     """Run one plan over every process's manifest shard through the engine
-    (run_query + DistStepComm) on device. Returns the engine's QueryResult:
-    its match_count is the global total; hits and output_files are this
-    process's (with several processes its LAS dumps land under host{i}/,
-    so a shared output directory never collides).
+    (run_query + DistStepComm) on this process's shards: devices, one entry
+    a shard (process_devices), or a lone device as one shard. Returns the
+    engine's QueryResult: its match_count is the global total; hits and
+    output_files are this process's (with several processes its LAS dumps
+    land under host{i}/, so a shared output directory never collides).
 
     Density plans go to distributed_density, which resolves winners across
     processes and writes them itself: the result's hits and output_files
@@ -166,7 +223,8 @@ def distributed_query(
     files, plan = _sharded_plan(input_path, plan, parity_quirk, output_dir)
     if plan.density is not None:
         t0 = time.perf_counter()
-        count = distributed_density(input_path, plan, device=device, block_size=block_size)
+        count = distributed_density(input_path, plan, device=device, devices=devices,
+                                    block_size=block_size)
         return QueryResult(
             match_count=count, hits=[], output_files=[],
             total_file_bytes=_allreduce_sum(sum(f.stat().st_size for f in files)),
@@ -176,17 +234,20 @@ def distributed_query(
         )
     if plan.output_dir is not None and process_count() > 1:
         plan = dataclasses.replace(plan, output_dir=_host_output_dir(plan))
+    shards = _shards(device, devices)
     return run_query(
-        files, plan, device=device, block_size=block_size, use_index=use_index,
-        print_stream=print_stream, keep_hits=keep_hits, comm=DistStepComm(device),
+        files, plan, device=shards[0], devices=shards, block_size=block_size,
+        use_index=use_index, print_stream=print_stream, keep_hits=keep_hits,
+        comm=DistStepComm(shards),
     )
 
 
-def distributed_count(input_path, plan: QueryPlan, *, device,
+def distributed_count(input_path, plan: QueryPlan, *, device=None, devices=None,
                       block_size: int = DEFAULT_BLOCK_SIZE, parity_quirk: bool = False) -> int:
     """bbox, class or GPS-time count over every process's file shard."""
     return distributed_query(
-        input_path, plan, device=device, block_size=block_size, parity_quirk=parity_quirk,
+        input_path, plan, device=device, devices=devices, block_size=block_size,
+        parity_quirk=parity_quirk,
     ).match_count
 
 
@@ -198,7 +259,8 @@ def distributed_collect(
     input_path,
     plan: QueryPlan,
     *,
-    device,
+    device=None,
+    devices=None,
     block_size: int = DEFAULT_BLOCK_SIZE,
     parity_quirk: bool = False,
     output_dir: Path | None = None,
@@ -210,8 +272,9 @@ def distributed_collect(
     main.rs:153-161, lifted to processes). Returns (global match count,
     this process's QueryResult: its output_files and hits are its own)."""
     res = distributed_query(
-        input_path, plan, device=device, block_size=block_size, parity_quirk=parity_quirk,
-        output_dir=output_dir, print_stream=print_stream, keep_hits=keep_hits,
+        input_path, plan, device=device, devices=devices, block_size=block_size,
+        parity_quirk=parity_quirk, output_dir=output_dir, print_stream=print_stream,
+        keep_hits=keep_hits,
     )
     return res.match_count, res
 
@@ -293,14 +356,14 @@ def _winner_rows_i32(state, local_to_global) -> np.ndarray:
     return rows
 
 
-def distributed_density(input_path, plan: QueryPlan, *, device,
+def distributed_density(input_path, plan: QueryPlan, *, device=None, devices=None,
                         block_size: int = DEFAULT_BLOCK_SIZE) -> int:
     """Max-density sampled count (and winner write-back) over every
     process's file shard.
 
-    Each process runs the one-process density pipeline over its shard on
-    device, against one shared grid: the query box, or with no box the
-    union of ALL files' headers.
+    Each process runs the one-process density pipeline over its file
+    shard on its shards (devices, or a lone device), against one shared
+    grid: the query box, or with no box the union of ALL files' headers.
 
     scope='file': winner sets are per file and no file spans processes, so
     each process writes its own files' winners (under host{i}/) and only
@@ -341,10 +404,11 @@ def distributed_density(input_path, plan: QueryPlan, *, device,
         # the resolved winners are written below
         run_plan = dataclasses.replace(plan, output_dir=None)
 
+    shards = _shards(device, devices)
     state_out: dict = {}
     if my_files:
         run_query(
-            my_files, run_plan, device=device, block_size=block_size,
+            my_files, run_plan, device=shards[0], devices=shards, block_size=block_size,
             density_grid_bounds=grid_bounds, density_state_out=state_out,
         )
     if scope == "file":

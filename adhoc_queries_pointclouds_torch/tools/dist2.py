@@ -4,8 +4,10 @@ The counterpart of the JAX package's tools/dist2.py: it spawns worker
 processes, joins them in a gloo group over tcp://127.0.0.1 (parallel/
 distributed.py initialize), and runs every query kind of that harness
 through parallel/distributed.py, on CUDA devices or on the CPU (--device;
-with cuda, process i runs on card i % the card count, so two processes
-share a single card):
+--devices n gives each process n shards, parallel/distributed.py
+process_devices: with cuda, process i's are the cards (i * n + j) % the
+card count, so two processes of one shard, or of two, share a single
+card):
 
   - bbox, class and GPS-time counts, in both transports (AQPC_PACK 1, 0)
   - a bbox collect with -o          (each process writes its own files'
@@ -21,7 +23,8 @@ share a single card):
     (distributed._allgather_keys), whose distinct keys are the global
     winner count
 
-    python -m adhoc_queries_pointclouds_torch.tools.dist2 [--device cuda|cpu] [--procs 2]
+    python -m adhoc_queries_pointclouds_torch.tools.dist2 [--device cuda|cpu] [--procs 2] \
+        [--devices n]
 
 writes the datasets from a seed (synth.write_dataset) into a temporary
 directory, runs the queries in --procs processes and again in one process,
@@ -29,12 +32,14 @@ and exits 0 when every count and every written file agrees: the same
 counts, the same multiset of per-file LAS outputs, and for global density
 the same winner points.
 
-As a library, run_workers(queries, procs=, device=) runs a list of query
-specs (default_queries gives the one above; chip_smoke.py and the tests
-give their own) and returns each worker's report. A worker
+As a library, run_workers(queries, procs=, device=, devices=) runs a list
+of query specs (default_queries gives the one above; chip_smoke.py and the
+tests give their own) and returns each worker's report. A worker
 (`--worker QUERIES.json --pid I --port P --procs N`) prints one JSON line:
-its per-query count, written files, index-skipped blocks and wall seconds
-(from a barrier before the query to its return), and its kernel launches.
+its devices, its per-query count, written files, index-skipped blocks,
+wall seconds (from a barrier before the query to its return) and kernel
+launches by card ([kernel, card, launches] triples), and its kernel
+launches in all.
 """
 
 from __future__ import annotations
@@ -165,8 +170,9 @@ def query_plan(q: dict) -> QueryPlan:
     )
 
 
-def run_one(q: dict, device) -> dict:
-    """One query spec through parallel/distributed.py on device."""
+def run_one(q: dict, devices: list) -> dict:
+    """One query spec through parallel/distributed.py over devices, one a
+    shard."""
     os.environ["AQPC_PACK"] = q.get("pack", "1")
     plan = query_plan(q)
     if plan.output_dir is not None:
@@ -174,10 +180,12 @@ def run_one(q: dict, device) -> dict:
     block = q.get("block", distributed.DEFAULT_BLOCK_SIZE)
     if distributed.process_count() > 1:
         dist.barrier()
+    before = dict(predicate.device_launches)
     t0 = time.perf_counter()
     files, skipped = [], 0
     if q["op"] == "density":
-        count = distributed.distributed_density(q["data"], plan, device=device, block_size=block)
+        count = distributed.distributed_density(q["data"], plan, devices=devices,
+                                                block_size=block)
         seconds = time.perf_counter() - t0
         host_out = distributed._host_output_dir(plan)
         if host_out is not None:  # matching_points_{n}.las, in the order of n
@@ -190,24 +198,29 @@ def run_one(q: dict, device) -> dict:
         state: dict = {}
         mine = distributed.shard_manifest(discover_files(q["data"]))
         if mine:
-            run_query(mine, plan, device=device, block_size=block, density_state_out=state)
+            run_query(mine, plan, device=devices[0], devices=devices, block_size=block,
+                      density_state_out=state)
         g = state.get("global")
         keys = distributed._allgather_keys(
             np.empty(0, np.uint64) if g is None else g["key"])
         count = len(np.unique(keys))
         seconds = time.perf_counter() - t0
     elif q["op"] == "collect":
-        count, res = distributed.distributed_collect(q["data"], plan, device=device,
+        count, res = distributed.distributed_collect(q["data"], plan, devices=devices,
                                                      block_size=block)
         seconds = time.perf_counter() - t0
         files = [str(p) for p in res.output_files]
     else:
-        res = distributed.distributed_query(q["data"], plan, device=device, block_size=block,
+        res = distributed.distributed_query(q["data"], plan, devices=devices, block_size=block,
                                             use_index=q.get("use_index", True))
         seconds = time.perf_counter() - t0
         count = res.match_count
         skipped = int(res.timer.counts.get("index_skipped_blocks", 0))
-    return {"count": count, "files": files, "index_skipped_blocks": skipped, "seconds": seconds}
+    card_launches = [[kernel, card, n - before.get((kernel, card), 0)]
+                     for (kernel, card), n in sorted(predicate.device_launches.items())
+                     if n != before.get((kernel, card), 0)]
+    return {"count": count, "files": files, "index_skipped_blocks": skipped, "seconds": seconds,
+            "card_launches": card_launches}
 
 
 def worker_main(argv: list[str]) -> int:
@@ -221,18 +234,20 @@ def worker_main(argv: list[str]) -> int:
     if args.procs > 1:
         distributed.initialize(f"127.0.0.1:{args.port}", args.procs, args.pid,
                                timeout=datetime.timedelta(seconds=cfg["timeout"]))
-    device = distributed.process_device(cfg["device"])
-    # the host codec, and on a card its context and the kernel library,
-    # load once before any timed query
+    devices = distributed.process_devices(cfg["device"], cfg.get("devices"))
+    device = devices[0]
+    # the host codec, and on a card each card's context and the kernel
+    # library, load once before any timed query
     native.load()
     if device.type == "cuda":
-        torch.empty(1, device=device)
+        for dev in dict.fromkeys(devices):
+            torch.empty(1, device=dev)
         _build.library()
     predicate.reset_launches()
-    results = {q["name"]: run_one(q, device) for q in cfg["queries"]}
+    results = {q["name"]: run_one(q, devices) for q in cfg["queries"]}
     report = {
         "pid": distributed.process_index(), "procs": distributed.process_count(),
-        "device": str(device),
+        "device": str(device), "devices": [str(d) for d in devices],
         "device_name": (torch.cuda.get_device_name(device) if device.type == "cuda"
                         else "cpu"),
         "queries": results,
@@ -288,10 +303,11 @@ def run_processes(argvs: list[list[str]], *, timeout: float, env: dict | None = 
 
 
 def run_workers(queries: list[dict], *, procs: int = 2, device: str = "cuda",
-                timeout: float = 600.0, command: list[str] | None = None,
-                env: dict | None = None) -> list[dict]:
-    """Run the query specs in procs worker processes; returns their reports
-    by process index. A worker that exits non-zero, or a run that outlasts
+                devices: int | None = None, timeout: float = 600.0,
+                command: list[str] | None = None, env: dict | None = None) -> list[dict]:
+    """Run the query specs in procs worker processes, each over devices
+    shards of device (one without devices); returns their reports by
+    process index. A worker that exits non-zero, or a run that outlasts
     timeout seconds, stops every worker and raises. command is the worker's
     command line up to the queries file (default: this module's
     --worker)."""
@@ -299,7 +315,8 @@ def run_workers(queries: list[dict], *, procs: int = 2, device: str = "cuda",
                           "--worker"]
     with tempfile.TemporaryDirectory(prefix="aqpc_dist2_") as tmp:
         cfg = Path(tmp) / "queries.json"
-        cfg.write_text(json.dumps({"device": device, "timeout": timeout, "queries": queries}))
+        cfg.write_text(json.dumps({"device": device, "devices": devices, "timeout": timeout,
+                                   "queries": queries}))
         port = free_port()
         done = run_processes([[*command, str(cfg), "--pid", str(pid), "--port", str(port),
                                "--procs", str(procs)] for pid in range(procs)],
@@ -369,6 +386,9 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m adhoc_queries_pointclouds_torch.tools.dist2")
     ap.add_argument("--device", default="cuda", help="cuda (process i on card i %% n) or cpu")
     ap.add_argument("--procs", type=int, default=2)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="shards a process (default one): process i's are the cards "
+                         "(i * n + j) %% the card count, or n CPU shards")
     ap.add_argument("--files", type=int, default=3)
     ap.add_argument("--points", type=int, default=20_000)
     ap.add_argument("--timeout", type=float, default=600.0)
@@ -377,13 +397,14 @@ def main(argv: list[str] | None = None) -> int:
         root = Path(td)
         write_datasets(root, files=args.files, points=args.points)
         got = run_workers(default_queries(root, root / "out"), procs=args.procs,
-                          device=args.device, timeout=args.timeout)
+                          device=args.device, devices=args.devices, timeout=args.timeout)
         queries = default_queries(root, root / "out1")
         (one,) = run_workers(queries, procs=1, device=args.device, timeout=args.timeout)
         compare(queries, got, one["queries"])
         if sum(w["queries"]["indexed_count"]["index_skipped_blocks"] for w in got) == 0:
             raise AssertionError("no index pruning through the distributed path")
-    print(f"PASS: {args.procs}-process distributed queries on {args.device} equal one "
+    shards = ", ".join(f"process {w['pid']} on {' + '.join(w['devices'])}" for w in got)
+    print(f"PASS: {args.procs}-process distributed queries ({shards}) equal one "
           f"process's: " + ", ".join(f"{q['name']}={one['queries'][q['name']]['count']}"
                                      for q in queries))
     return 0

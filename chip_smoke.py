@@ -133,14 +133,26 @@ Phases, in order; the first fault raises and the script exits non-zero:
          oracle's count in every process; -o of the box, whose host0/ and
          host1/ files together are the oracle's (process p's j-th file is
          input file j * 2 + p of the files with hits); density -o of the
-         small box at 25 m, global and file scope, whose count and winners
-         in two processes equal one process's (and at file scope the numpy
+         small box at 25 m, global and file scope, and of the large box at
+         25 m, global scope, whose count and winners in two processes equal
+         one process's (and at file scope, and for the large box, the numpy
          oracle's files). Each query's wall in one process and in two,
-         with the card's name and power limit. Then the box through the
-         CLI's --distributed --device cuda in two processes, each one's
-         Found line the oracle's count. A worker that fails or outlasts its
-         timeout fails the run; the two workers' launch counters are summed
-         for the path's kernel check;
+         with the card's name and power limit. Then two processes of two
+         shards each on card 0 (tools/dist2.py --devices 2: each process's
+         steps split over two shards): the box in both transports, class 6
+         and the time counts, -o of the box and density of the large box,
+         each count the oracle's, each process's -o files the oracle's of
+         its input files, the density winners the one process's; each
+         worker's launches of a query against its launches at one shard a
+         process (a count: 2 x ceil(n / 2); -o and density: the same
+         kernels, each at least once); both walls. With two cards or more,
+         a run over disjoint cards (cards // 2 a process) whose processes
+         launch on their own cards alone; with one, a line says it was not
+         run. Then the box through the CLI's --distributed --device cuda in
+         two processes, and at once in two more with --devices 2, each
+         one's Found line the oracle's count over 2 and 4 devices. A worker
+         that fails or outlasts its timeout fails the run; the workers'
+         launch counters are summed for the path's kernel check;
        drivers: the CLI's count-points over LAST 64M (64,000,000); convert
          of one 8M-point LAS file to LAST, LAZER and LAZ, each read back
          with the source's columns and its box count the oracle's; index
@@ -169,6 +181,12 @@ Phases, in order; the first fault raises and the script exits non-zero:
 
 It prints the nvidia-smi line and a JSON object of per-kernel numbers on the
 lines before the last, and {"ok": true, "device": {...}} as the last line.
+
+    python3 chip_smoke.py --distributed-only
+
+runs the distributed path alone (the kernels built, no other phase) over a
+smaller LAST dataset, 8 files x 2M points: on a machine of several cards
+it takes the branches that one card never takes.
 """
 
 from __future__ import annotations
@@ -2530,13 +2548,20 @@ def path_devices(datasets) -> None:
 
 
 DIST_PROCS = 2  # processes of the distributed path, all on card 0
+DIST_SHARDS = 2  # shards a process in the distributed path's run over several
 DIST_TIMEOUT = 300.0  # seconds a run of the distributed path's workers may take
+# the queries of the run over DIST_SHARDS shards a process, and the launch
+# rule (check_shard_launches) each one's kernels follow against one shard
+DIST_SHARD_QUERIES = {"box AQPC_PACK=1": "steps", "box AQPC_PACK=0": "steps",
+                      "class 6 AQPC_PACK=1": "steps", "time AQPC_PACK=1": "steps",
+                      "box -o": "some", "density 25 global large box -o": "some"}
 
 
 def dist_queries(big: Path, out: Path) -> list[dict]:
     """The distributed path's query specs (tools/dist2.py) over the LAST
     64M dataset: the four counts in both transports, index off; -o of the
-    box; density -o of the small box at 25 m, global and file scope."""
+    box; density -o of the small box at 25 m, global and file scope, and of
+    the large box at 25 m, global scope."""
     t0, t1 = E2E_TIME_LARGE
     queries = []
     for pack in ("1", "0"):
@@ -2550,22 +2575,33 @@ def dist_queries(big: Path, out: Path) -> list[dict]:
          "density": [25.0, "global"], "out": str(out / "density_global")},
         {"name": "density 25 file -o", "op": "density", "bounds": E2E_BOX_SMALL,
          "density": [25.0, "file"], "out": str(out / "density_file")},
+        {"name": "density 25 global large box -o", "op": "density", "bounds": E2E_BOX_LARGE,
+         "density": [25.0, "global"], "out": str(out / "density_global_large")},
     ]
     for q in queries:
         q["data"] = str(big)
     return queries
 
 
-def dist_run(big: Path, out: Path, procs: int) -> list[dict]:
-    """dist_queries in procs worker processes on the card, each started as
+def dist_run(big: Path, out: Path, procs: int, devices: int | None = None,
+             names=None, env: dict | None = None) -> list[dict]:
+    """dist_queries (those of names, or all) in procs worker processes on
+    the card, devices shards each (one without), each started as
     `chip_smoke.py --dist2-worker` (dist2_worker); their reports."""
     t = time.perf_counter()
+    queries = [q for q in dist_queries(big, out) if names is None or q["name"] in names]
     reports = dist2.run_workers(
-        dist_queries(big, out), procs=procs, device="cuda", timeout=DIST_TIMEOUT,
-        command=[sys.executable, str(Path(__file__).resolve()), "--dist2-worker"])
-    print(f"  {procs} process(es) on {[w['device'] for w in reports]} "
-          f"({reports[0]['device_name']}): ran in {time.perf_counter() - t:.1f} s with start-up")
+        queries, procs=procs, device="cuda", devices=devices, timeout=DIST_TIMEOUT,
+        command=[sys.executable, str(Path(__file__).resolve()), "--dist2-worker"], env=env)
+    print(f"  {procs} process(es) on {[' + '.join(w['devices']) for w in reports]} "
+          f"({reports[0]['device_name']}): ran in {time.perf_counter() - t:.1f} s with start-up; "
+          f"{smi_line()}")
     return reports
+
+
+def query_card_launches(report: dict, name: str) -> dict:
+    """(kernel, card) -> launches of one query of a worker's report."""
+    return {(k, card): n for k, card, n in report["queries"][name]["card_launches"]}
 
 
 def dist2_worker(argv: list[str]) -> int:
@@ -2579,26 +2615,124 @@ def dist2_worker(argv: list[str]) -> int:
 
 def dist_cli_count(big: Path, want: int, smi: str) -> None:
     """The box counted by the CLI, as a user starts it: `cli --distributed
-    --device cuda` in DIST_PROCS processes on card 0 (tools/dist2.py
-    run_processes). Each process must print the oracle's count in its
-    Found line."""
-    port = dist2.free_port()
-    argvs = [[sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", "-i", str(big),
-              "--bounds", E2E_BOX_LARGE, "--device", "cuda", "--distributed",
-              "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(DIST_PROCS),
-              "--process-id", str(pid)] for pid in range(DIST_PROCS)]
+    --device cuda` in DIST_PROCS processes of one shard each, and at the
+    same time, in a group of its own, `--devices DIST_SHARDS` in DIST_PROCS
+    more (tools/dist2.py run_processes; on one card every shard is card
+    0's). Each process must print the oracle's count in its Found line,
+    over DIST_PROCS devices in the first group and DIST_PROCS x DIST_SHARDS
+    in the second."""
+    ports = {dist2.free_port()}
+    while len(ports) < 2:  # a group a port
+        ports.add(dist2.free_port())
+    argvs, groups = [], []
+    for port, shards in zip(sorted(ports), (None, DIST_SHARDS)):
+        for pid in range(DIST_PROCS):
+            argvs.append([sys.executable, "-m", "adhoc_queries_pointclouds_torch.cli", "-i",
+                          str(big), "--bounds", E2E_BOX_LARGE, "--device", "cuda",
+                          "--distributed", "--coordinator", f"127.0.0.1:{port}",
+                          "--num-processes", str(DIST_PROCS), "--process-id", str(pid),
+                          *(["--devices", str(shards)] if shards else [])])
+            groups.append((shards, DIST_PROCS * (shards or 1)))
     done = dist2.run_processes(argvs, timeout=DIST_TIMEOUT, env=dict(os.environ, AQPC_PACK="1"))
-    found = re.compile(rf"^Found (\d+) matching points \({DIST_PROCS} process\(es\), "
-                       rf"{DIST_PROCS} devices, ([\d.]+)s\)$", re.M)
-    walls = []
-    for pid, (rc, out) in enumerate(done):
+    walls = {}
+    for (rc, out), (shards, n_devices), argv in zip(done, groups, argvs):
+        found = re.compile(rf"^Found (\d+) matching points \({DIST_PROCS} process\(es\), "
+                           rf"{n_devices} devices, ([\d.]+)s\)$", re.M)
         m = found.search(out)
         if rc != 0 or m is None or int(m.group(1)) != want:
-            fail(f"{big.name} cli --distributed process {pid} exited {rc}, want Found {want}:\n"
-                 f"{out[-4000:]}")
-        walls.append(m.group(2))
+            fail(f"{big.name} cli --distributed{f' --devices {shards}' if shards else ''} "
+                 f"process {argv[argv.index('--process-id') + 1]} exited {rc}, want Found "
+                 f"{want} over {n_devices} devices:\n{out[-4000:]}")
+        walls.setdefault(shards, []).append(m.group(2))
     print(f"  cli --distributed --device cuda --bounds, {DIST_PROCS} processes: each found "
-          f"{want} in {', '.join(walls)} s; {smi}")
+          f"{want} over {DIST_PROCS} devices in {', '.join(walls[None])} s; with --devices "
+          f"{DIST_SHARDS}, over {DIST_PROCS * DIST_SHARDS} devices in "
+          f"{', '.join(walls[DIST_SHARDS])} s (the two groups at once); {smi}")
+
+
+def dist_check_collect(label: str, reports: list[dict], name: str, written: list,
+                       hit_files: list[int]) -> None:
+    """Each process's -o files are the oracle's files of its input files
+    with hits (process p's j-th file is input file j * DIST_PROCS + p among
+    those with hits)."""
+    for w in reports:
+        pid = w["pid"]
+        sources = [j for j, i in enumerate(hit_files) if i % DIST_PROCS == pid]
+        check_files([Path(f) for f in w["queries"][name]["files"]],
+                    [written[j] for j in sources], f"{label}, process {pid}")
+
+
+def dist_shards_run(big: Path, tmp: Path, one: dict, one_shard: list[dict], wants: dict,
+                    written: list, hit_files: list[int], smi: str) -> list[dict]:
+    """DIST_PROCS workers of DIST_SHARDS shards each, all on card 0, over
+    the queries of DIST_SHARD_QUERIES: each count the oracle's, each
+    process's -o files the oracle's of its input files, the global density
+    winners' points the one-process run's (one). Each worker's launches of
+    a query follow check_shard_launches' rule against the same worker's in
+    the run of one shard a process (one_shard); each query's wall at one
+    shard a process and at DIST_SHARDS. Returns the workers' reports."""
+    cards = torch.cuda.device_count()
+    # several cards: card 0 alone, as on a machine of one
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0") if cards > 1 else None
+    got = dist_run(big, tmp / "shards", DIST_PROCS, DIST_SHARDS, DIST_SHARD_QUERIES, env)
+    if [w["devices"] for w in got] != [["cuda:0"] * DIST_SHARDS] * DIST_PROCS:
+        fail(f"distributed, {DIST_SHARDS} shards a process: ran on "
+             f"{[w['devices'] for w in got]}")
+    for name, rule in DIST_SHARD_QUERIES.items():
+        label = f"{big.name} distributed {name}, {DIST_SHARDS} shards a process"
+        counts = [w["queries"][name]["count"] for w in got]
+        if counts != [wants[name]] * DIST_PROCS:
+            fail(f"{label}: counted {counts}, want {wants[name]}")
+        if name == "box -o":
+            dist_check_collect(label, got, name, written, hit_files)
+        elif name.startswith("density"):
+            files = [f for w in got for f in w["queries"][name]["files"]]
+            one_files = one["queries"][name]["files"]
+            if not files or dist2.point_rows(files) != dist2.point_rows(one_files):
+                fail(f"{label}: the winners of {len(files)} files differ from the one "
+                     f"process's {len(one_files)}")
+        for w, w1 in zip(got, one_shard):
+            before = query_card_launches(w1, name)
+            if cards > 1:  # the one-shard run's process p was on card p % cards
+                before = {(k, 0): n for (k, _), n in before.items()}
+            check_shard_launches(f"{label}, process {w['pid']}", before,
+                                 query_card_launches(w, name), rule)
+        walls = [max(w["queries"][name]["seconds"] for w in run) for run in (one_shard, got)]
+        launches = [{k: n for (k, _), n in query_card_launches(run[0], name).items()}
+                    for run in (one_shard, got)]
+        print(f"  {name}, {DIST_PROCS} processes: {wants[name]} in {walls[0]:.3f} s at one shard "
+              f"a process, {walls[1]:.3f} s at {DIST_SHARDS} on cuda:0 (slowest process); "
+              f"process 0's launches {launches[0]} at one shard, {launches[1]} at "
+              f"{DIST_SHARDS}; {smi}")
+    return got
+
+
+def dist_disjoint_cards(big: Path, tmp: Path, want: int, smi: str) -> list[dict]:
+    """With DIST_PROCS cards or more: DIST_PROCS workers of cards //
+    DIST_PROCS shards each count the box; the processes' cards are
+    disjoint, and each process's kernels launch on its own cards alone.
+    With fewer cards a line says that this was not run. Returns the
+    workers' reports."""
+    cards = torch.cuda.device_count()
+    if cards < DIST_PROCS:
+        print(f"  {cards} card(s): the check that the processes' cards are disjoint (each "
+              f"process's kernels on its own cards alone) was not run; it needs {DIST_PROCS}")
+        return []
+    name = "box AQPC_PACK=1"
+    got = dist_run(big, tmp / "disjoint", DIST_PROCS, cards // DIST_PROCS, [name])
+    owned = [{torch.device(d).index for d in w["devices"]} for w in got]
+    if len(set().union(*owned)) != sum(len(o) for o in owned):
+        fail(f"distributed over {cards} cards: the processes' cards {owned} overlap")
+    for w, mine in zip(got, owned):
+        on = {card for _, card, _ in w["queries"][name]["card_launches"]}
+        if w["queries"][name]["count"] != want or not on or not on <= mine:
+            fail(f"distributed over {cards} cards: process {w['pid']} on cards {sorted(mine)} "
+                 f"launched on {sorted(on)} and counted {w['queries'][name]['count']}, want "
+                 f"{want}")
+    print(f"  {name} over {cards} cards, {DIST_PROCS} processes of {cards // DIST_PROCS}: "
+          f"cards {[sorted(o) for o in owned]}, each process's launches on its own; "
+          f"{max(w['queries'][name]['seconds'] for w in got):.3f} s; {smi}")
+    return got
 
 
 def path_distributed(datasets) -> dict:
@@ -2608,11 +2742,14 @@ def path_distributed(datasets) -> dict:
     the -o files of the box, host0/ and host1/ together, are the oracle's
     (process p's j-th file is input file j * 2 + p among the files with
     hits); density's count and winners in two processes equal one
-    process's, whose file-scope files equal the numpy oracle's. The wall of
-    each query in one process against two, with the card's name and power
-    limit. Then the box through the CLI's --distributed in two processes
-    (dist_cli_count). Returns the kernel launches of the two workers
-    together: the CLI processes report none."""
+    process's, whose file-scope files and large-box global file equal the
+    numpy oracle's. The wall of each query in one process against two,
+    with the card's name and power limit. Then two processes of two shards
+    each on card 0 (dist_shards_run), with more cards a run on disjoint
+    cards (dist_disjoint_cards), and the box through the CLI's
+    --distributed in two processes, with and without --devices
+    (dist_cli_count). Returns the kernel launches of the workers together:
+    the CLI processes report none."""
     big = datasets[0][0]
     box_l, box_s = parse_aabb(E2E_BOX_LARGE), parse_aabb(E2E_BOX_SMALL)
     t0, t1 = E2E_TIME_LARGE
@@ -2638,7 +2775,12 @@ def path_distributed(datasets) -> dict:
     _, density_file = kept(("density", big, "--bounds", E2E_BOX_SMALL, 25.0, "file"),
                            lambda: density_oracle(big, in_box(box_s), 25.0, "file",
                                                   (box_s.min, box_s.max)))
+    _, density_l = kept(("density", big, "--bounds", E2E_BOX_LARGE, 25.0, "global"),
+                        lambda: density_oracle(big, in_box(box_l), 25.0, "global",
+                                               (box_l.min, box_l.max)))
     smi = smi_line()
+    wanted = {}
+    launched: dict = {}
     with tempfile.TemporaryDirectory(prefix="aqpc_distributed_") as tmp:
         tmp = Path(tmp)
         (one,) = dist_run(big, tmp / "one", 1)
@@ -2650,25 +2792,26 @@ def path_distributed(datasets) -> dict:
             want = wants.get(name.split(" AQPC_PACK")[0])
             if want is None and q["op"] == "collect":
                 want = sum(len(recs) for _, recs in written)
+            if want is None and q.get("bounds") == E2E_BOX_LARGE:  # the large box's density
+                want = sum(len(recs) for _, recs in density_l)
             if want is None:
                 want = counts[0]  # density: the one process's count
+            wanted[name] = want
             if counts != [want] * len(counts):
                 fail(f"{label}: counted {counts} (one process, then each of "
                      f"{DIST_PROCS}), want {want}")
             one_files = [Path(f) for f in one["queries"][name]["files"]]
             if q["op"] == "collect":
                 check_files(one_files, written, f"{label}, one process")
-                for w in got:
-                    pid = w["pid"]
-                    sources = [j for j, i in enumerate(hit_files) if i % DIST_PROCS == pid]
-                    check_files([Path(f) for f in w["queries"][name]["files"]],
-                                [written[j] for j in sources], f"{label}, process {pid}")
+                dist_check_collect(label, got, name, written, hit_files)
             elif q["op"] == "density":
                 files = [f for w in got for f in w["queries"][name]["files"]]
                 if q["density"][1] == "file":
                     check_files(one_files, density_file, f"{label}, one process")
                     same = dist2.file_digests(files) == dist2.file_digests(one_files)
                 else:
+                    if q["bounds"] == E2E_BOX_LARGE:
+                        check_files(one_files, density_l, f"{label}, one process")
                     same = dist2.point_rows(files) == dist2.point_rows(one_files)
                 if not same or not files:
                     fail(f"{label}: the {DIST_PROCS} processes' {len(files)} files differ "
@@ -2677,9 +2820,14 @@ def path_distributed(datasets) -> dict:
             print(f"  {name}: {want} in {one['queries'][name]['seconds']:.3f} s in one process, "
                   f"{max(walls):.3f} s in {DIST_PROCS} (each {', '.join(f'{s:.3f}' for s in walls)}"
                   f"){f'; {len(one_files)} files' if one_files else ''}; {smi}")
+        t = time.perf_counter()
+        shards = dist_shards_run(big, tmp, one, got, wanted, written, hit_files, smi)
+        shards += dist_disjoint_cards(big, tmp, wants["box"], smi)
+        print(f"  the runs over several shards a process: {time.perf_counter() - t:.1f} s; {smi}")
+    t = time.perf_counter()
     dist_cli_count(big, wants["box"], smi)
-    launched: dict = {}
-    for w in got:
+    print(f"  the CLI's two groups: {time.perf_counter() - t:.1f} s; {smi}")
+    for w in got + shards:
         for kernel, n in w["launches"].items():
             launched[kernel] = launched.get(kernel, 0) + n
     print(f"  launches of the one-process run: {one['launches']}")
@@ -3057,6 +3205,27 @@ PATHS = {
 }
 
 
+def distributed_only() -> int:
+    """`chip_smoke.py --distributed-only`: path_distributed over LAST 8 x
+    2M points, every check of the path; the last line is the smoke's."""
+    phase_env()
+    _build.library()
+    with tempfile.TemporaryDirectory(prefix="aqpc_smoke_") as tmp:
+        big = Path(tmp) / "big"
+        synth.write_dataset(big, n_files=8, points_per_file=2_000_000, seed=SEED,
+                            formats=("last",), clustered=True, point_format=3)
+        t = time.perf_counter()
+        launched = path_distributed([(big / "last", None)])
+        print(f"phase end to end, distributed: {time.perf_counter() - t:.1f} s")
+    print(f"kernel launches in the distributed path: {launched}")
+    check_no_jax("at the end of the run")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def stop_processes(procs) -> None:
     for proc in procs:
         if proc.poll() is None:
@@ -3135,4 +3304,6 @@ if __name__ == "__main__":
         sys.exit(dataset_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--background-worker"]:
         sys.exit(background_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--distributed-only"]:
+        sys.exit(distributed_only())
     sys.exit(main())

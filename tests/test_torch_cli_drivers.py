@@ -4,6 +4,7 @@ against the JAX package's CLI, on the CPU. Every comparison is exact:
 lines, and the files written byte for byte."""
 
 import json
+import re
 import shutil
 
 import pytest
@@ -110,26 +111,44 @@ def test_devices_1_is_the_default(data, capsys, extra):
     assert one[:-1] == plain[:-1]
 
 
-# --devices cases: N CPU shards print the JAX CLI's --devices N lines; 0,
-# more than the machine's cards and --distributed with 2 exit 2
+# --devices cases: N CPU shards print the JAX CLI's --devices N lines, and
+# under --distributed its --distributed lines; 0 (alone or with
+# --distributed) and more than the machine's cards exit 2
 DEVICES_EXIT_2 = {
     "0": (["--device", "cpu", "--devices", "0"],
           "--devices 0: a query needs at least one device"),
     "more_than_cards": (["--device", "cuda", "--devices", "2"],
                         "--devices 2: this machine has 1 CUDA device(s)"),
-    "distributed": (["--device", "cpu", "--distributed", "--devices", "2"],
-                    "--devices 2: --distributed drives one device a process (process I on "
-                    "card I % the card count)"),
+    "distributed_0": (["--device", "cpu", "--distributed", "--devices", "0"],
+                      "--devices 0: a query needs at least one device"),
 }
 
 
-@pytest.mark.parametrize("n", ["2", "8", *DEVICES_EXIT_2])
-def test_devices_other_than_1_exits_2(data, capsys, monkeypatch, n):
+@pytest.mark.parametrize("n", ["2", "8", "distributed", *DEVICES_EXIT_2])
+def test_devices_other_than_1_exits_2(data, capsys, monkeypatch, tmp_path, n):
     """--devices N other than 1: N CPU shards (--device cpu) print the JAX
     CLI's lines at --devices N but the timing line, whose end names the N
-    devices; N of 0, more than the cards and --distributed exit 2 with a
-    message and no output."""
+    devices; --distributed --devices 8 at one process prints the JAX CLI's
+    --distributed lines (-o: the files it wrote) but the timing, over 8
+    devices, as JAX's global mesh of the 8 virtual devices; N of 0 (also
+    under --distributed) and more than the cards exit 2 with a message and
+    no output."""
     query = ["-i", str(data / "last"), "--bounds", BOX]
+    if n == "distributed":
+        lines = []
+        for name, cli, flags in (("jax", jax_cli, []),
+                                 ("torch", torch_cli, ["--device", "cpu", "--devices", "8"])):
+            out = tmp_path / name
+            out.mkdir()
+            got = _run(cli, [*query, "--distributed", "-o", str(out), *flags], capsys)
+            lines.append([line.replace(str(out), "OUT") for line in got])
+        (ref, got) = lines
+        assert got[:-1] == ref[:-1] == ["Wrote OUT/matching_points_0.las",
+                                        "Wrote OUT/matching_points_1.las"]
+        timing = r" \(1 process\(es\), 8 devices, [\d.]+s\)"
+        assert re.fullmatch(r"Found \d+ matching points" + timing, ref[-1])
+        assert re.fullmatch(re.escape(ref[-1].split(" (")[0]) + timing, got[-1])
+        return
     if n not in DEVICES_EXIT_2:
         ref = _run(jax_cli, [*query, "--devices", n], capsys)
         got = _run(torch_cli, [*query, "--device", "cpu", "--devices", n], capsys)

@@ -1369,3 +1369,29 @@ def test_two_processes_on_cuda_match_one_cpu_process(dev, tmp_path):
                   ["density_candidates", "density_candidates_packed"]):
         assert sum(launched.get(name, 0) for name in names) > 0, (names, launched)
     assert sum(w["queries"]["indexed_count"]["index_skipped_blocks"] for w in got) > 0
+
+
+def test_two_shards_a_process_on_one_card_match_run_query(dev, tmp_path):
+    """process_devices("cuda", 2) at one process on a one-card machine is
+    [cuda:0, cuda:0] (card_layout wraps), and distributed_count over those
+    shards equals run_query on the card and on the CPU, every launch on
+    card 0."""
+    from adhoc_queries_pointclouds_torch.parallel import distributed
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the layout wraps onto one card on a one-card machine")
+    devices = distributed.process_devices("cuda", 2)
+    assert devices == [dev, dev]
+    assert distributed.global_device_count(devices) == 2
+    synth.write_dataset(tmp_path, n_files=3, points_per_file=40_000, seed=17,
+                        formats=("last",), clustered=True, point_format=3)
+    data = tmp_path / "last"
+    box = parse_aabb("100200;200300;10;102500;200800;60")
+    TP.reset_launches()
+    for plan in (QueryPlan(bounds=BoundsQuery(box)), QueryPlan(classification=ClassQuery(6)),
+                 QueryPlan(time_range=TimeRangeQuery(0.1, 0.6))):
+        kw = dict(block_size=1 << 13)
+        got = distributed.distributed_count(data, plan, devices=devices, **kw)
+        assert got == engine.run_query(data, plan, device="cuda", **kw).match_count
+        assert got == engine.run_query(data, plan, device="cpu", **kw).match_count > 0
+    assert TP.device_launches and {card for _, card in TP.device_launches} == {0}

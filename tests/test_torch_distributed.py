@@ -3,9 +3,13 @@ initialized, against the JAX package's parallel/distributed.py at process
 count 1, on the CPU: one counterpart a test of tests/test_distributed.py,
 and the wire helpers byte for byte.
 
-tests/test_distributed.py::test_global_mesh_spans_all_devices has no
-counterpart: each process of the port drives one device, and the port has
-no mesh. The real two-process run is tests/test_torch_dist2.py.
+Here each call runs on one device (device=, one shard). The counterpart
+of tests/test_distributed.py::test_global_mesh_spans_all_devices, and a
+process over several shards (process_devices, global_device_count,
+devices=) against JAX's global mesh, are in
+tests/test_torch_distributed_devices.py. The real two-process runs are
+tests/test_torch_dist2.py (one shard a process) and
+tests/test_torch_dist2_devices.py (two).
 """
 
 import dataclasses
