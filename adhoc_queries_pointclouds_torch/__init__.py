@@ -4,11 +4,12 @@ The port runs beside adhoc_queries_pointclouds_tpu, which stays the
 reference it is tested against. It imports torch, never jax and nothing
 of that package: the numpy-only host modules (formats/, native/, index.py,
 sinks.py, models/, utils/, parallel/pipeline.py) are its own copies under
-the same names, byte for byte but for the build step of native/__init__.py.
-It runs bbox, class and GPS-time counts and collects over a set of
-LAS/LAZ/LAST/LAZER files (engine.run_query, cli), on one CUDA device or
-several of one process through the hand-written kernels in csrc/, or on
-the CPU through their plain PyTorch versions:
+the same names, byte for byte but for the build step of native/__init__.py
+and the profiler spans of utils/timing.py. It runs bbox, class and
+GPS-time counts and collects over a set of LAS/LAZ/LAST/LAZER files
+(engine.run_query, cli), on one CUDA device or several of one process
+through the hand-written kernels in csrc/, or on the CPU through their
+plain PyTorch versions:
 
     formats/, native/    host decode -> int32 SoA point blocks
     index.py             block min/max sidecar index

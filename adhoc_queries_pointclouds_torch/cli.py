@@ -38,8 +38,10 @@ card count, j < n; without --devices, one shard, card I % the card count
 (JAX's process takes every local device; here several processes may share
 a host's cards), and the last line counts every process's shards.
 --profile DIR records the query with torch.profiler (CPU activity, and the
-cards' under --device cuda) and writes its trace into DIR. --devices N
-shards each step, and a resident dataset, over the first N devices of
+cards' under --device cuda) and writes its trace into DIR; with --resident,
+the collect or the --repeat counts after the warm one, whose trace holds
+the resident path's spans (README). --devices N shards each step, and a
+resident dataset, over the first N devices of
 --device (parallel/mesh.py), as the JAX CLI's mesh does; without it,
 --device cuda takes every local card and cpu one shard. N of 0, or more
 than the cards (in one process), exits 2. --device (default cuda) names
@@ -311,7 +313,8 @@ def _run_resident(args: argparse.Namespace, plan: QueryPlan, devices: list) -> i
     shard a device: a collect once, or a count warmed once and then timed
     over --repeat runs, each ending at its read-back (JAX cli.py:231-280,
     its output lines; over several shards, a line of their sizes after the
-    first)."""
+    first). --profile records the collect, or the timed counts, and prints
+    its line before "Found"."""
     import time
 
     from .parallel.resident import ResidentDataset
@@ -339,26 +342,42 @@ def _run_resident(args: argparse.Namespace, plan: QueryPlan, devices: list) -> i
     if len(ds.devices) > 1:
         print("Resident shards: " + ", ".join(
             f"{d} {b / 1048576.0:.1f} MiB" for d, b in zip(ds.devices, ds.per_device_bytes)))
+
+    def timed(execute):
+        """(execute(), its seconds), under --profile's profiler if asked."""
+        def run():
+            t0 = time.perf_counter()
+            return execute(), time.perf_counter() - t0
+
+        if not args.profile:
+            return run()
+        got = profiled(run, devices, Path(args.profile))
+        print(f"Profiler trace written to {args.profile}")
+        return got
+
     if plan.collects_points:
         # the collect against the resident columns: one predicate launch and
         # one compaction, attributes gathered from the files for hit rows only
-        t0 = time.perf_counter()
-        count, emitter = ds.collect(
+        (count, emitter), dt = timed(lambda: ds.collect(
             plan,
             output_dir=plan.output_dir,
             print_stream=sys.stdout if args.print_points else None,
-        )
-        dt = time.perf_counter() - t0
+        ))
         for f in emitter.output_files:
             print(f"Wrote {f}")
         print(f"Found {count} matching points")
         print(f"query in {dt * 1e3:.2f} ms against resident data")
         return 0
     count = ds.count(plan)  # warm (the kernels' first launch builds them)
-    t0 = time.perf_counter()
-    for _ in range(args.repeat):
-        count = ds.count(plan)
-    per_query = (time.perf_counter() - t0) / max(args.repeat, 1)
+
+    def repeat():
+        got = count
+        for _ in range(args.repeat):
+            got = ds.count(plan)
+        return got
+
+    count, dt = timed(repeat)
+    per_query = dt / max(args.repeat, 1)
     print(f"Found {count} matching points")
     print(
         f"{args.repeat} queries at {per_query * 1e3:.2f} ms/query "

@@ -10,7 +10,9 @@ argument layout. The wrappers dispatch on the tensors' device:
 Nothing falls back from the kernel to the plain version. A wrapper counts
 its kernel launches in ``launches`` (CPU calls do not count), and by card
 in ``device_launches``, so a run can show that the main path went through
-the kernels, and on which cards.
+the kernels, and on which cards. The CUDA branch of each count entry that
+a resident count calls is the profiler span "predicate.count"
+(utils/timing.py span): its checks, bounds, output and launch.
 
 The predicates are the reference hot loops' (query/src/search/las.rs:101-146,
 last.rs:253-291): int32 compares of raw local coordinates against per-block
@@ -32,6 +34,7 @@ import torch
 
 from .. import _build
 from ..host import packed_row_width
+from ..utils.timing import span
 
 # kernel name -> launches on CUDA tensors since the last reset_launches();
 # each name is also the kernel's C entry point without its "aqpc_" prefix
@@ -404,13 +407,14 @@ def bbox_count_multi_kernel(xs, ys, zs, los, his, nvs):
     (predicate.py:305-333); kernel in csrc/bbox_count.cu."""
     if not _on_cuda(xs):
         return bbox_count_multi(xs, ys, zs, los, his, nvs)
-    k_blocks, block_size = _rows(xs, "xs")
-    dev = xs.device
-    for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
-        _check(t, name, torch.int32, (k_blocks, block_size), dev)
-    _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
-    bounds = _bounds(los, his, k_blocks, dev)
-    return _launch("bbox_count_multi", (xs, ys, zs, bounds, nvs), (k_blocks, block_size))
+    with span("predicate.count"):
+        k_blocks, block_size = _rows(xs, "xs")
+        dev = xs.device
+        for name, t in (("xs", xs), ("ys", ys), ("zs", zs)):
+            _check(t, name, torch.int32, (k_blocks, block_size), dev)
+        _check(nvs, "nvs", torch.int32, (k_blocks,), dev)
+        bounds = _bounds(los, his, k_blocks, dev)
+        return _launch("bbox_count_multi", (xs, ys, zs, bounds, nvs), (k_blocks, block_size))
 
 
 def bbox_count(x, y, z, lo, hi, n_valid):
@@ -458,8 +462,9 @@ def class_count_multi_kernel(cls, targets, nvs):
     csrc/class_count.cu."""
     if not _on_cuda(cls):
         return class_count_multi(cls, targets, nvs)
-    k_blocks, block_size = _class_operands(cls, torch.uint8, targets, nvs)
-    return _launch_written("class_count_multi", (cls, targets, nvs), (k_blocks, block_size))
+    with span("predicate.count"):
+        k_blocks, block_size = _class_operands(cls, torch.uint8, targets, nvs)
+        return _launch_written("class_count_multi", (cls, targets, nvs), (k_blocks, block_size))
 
 
 def class_count(cls, class_value, n_valid):
@@ -476,8 +481,9 @@ def class_count_words_kernel(words, targets, nvs):
     (predicate.py:754-779); kernel in csrc/class_count.cu."""
     if not _on_cuda(words):
         return class_count_packed_multi(words, targets, nvs)
-    k_blocks, w = _class_operands(words, torch.int32, targets, nvs)
-    return _launch_written("class_count_words", (words, targets, nvs), (k_blocks, w))
+    with span("predicate.count"):
+        k_blocks, w = _class_operands(words, torch.int32, targets, nvs)
+        return _launch_written("class_count_words", (words, targets, nvs), (k_blocks, w))
 
 
 def class_count_packed(words, class_value, n_valid):
@@ -516,12 +522,13 @@ def time_count_multi_kernel(ths, tls, qs, nvs):
     kernel in csrc/time_count.cu."""
     if not _on_cuda(ths):
         return time_count_multi(ths, tls, qs, nvs)
-    k_blocks, block_size = _rows(ths, "ths")
-    dev = ths.device
-    _check(ths, "ths", torch.int32, (k_blocks, block_size), dev)
-    _check(tls, "tls", torch.int32, (k_blocks, block_size), dev)
-    _time_query(qs, nvs, k_blocks, dev)
-    return _launch("time_count_multi", (ths, tls, qs, nvs), (k_blocks, block_size))
+    with span("predicate.count"):
+        k_blocks, block_size = _rows(ths, "ths")
+        dev = ths.device
+        _check(ths, "ths", torch.int32, (k_blocks, block_size), dev)
+        _check(tls, "tls", torch.int32, (k_blocks, block_size), dev)
+        _time_query(qs, nvs, k_blocks, dev)
+        return _launch("time_count_multi", (ths, tls, qs, nvs), (k_blocks, block_size))
 
 
 def time_count_packed_kernel(thp, tlp, qs, nvs, widths, block_size: int):

@@ -40,6 +40,7 @@ from ..formats import open_point_cloud
 from ..models.query import QueryPlan
 from ..ops import compact, density as density_ops, predicate
 from ..utils.aabb import AABB, clamp_bounds_to_i32, local_query_bounds
+from ..utils.timing import span
 from . import step
 from .comm import indexed, require_device
 from .mesh import shard_ranges, step_rows
@@ -246,36 +247,37 @@ class ResidentDataset:
         bbox (xs, ys, zs, los, his, nvs), class (cls, targets, nvs), time
         (ths, tls, qs, nvs). A file the header prefilter drops, and a
         padding block, get the empty box (0, -1)."""
-        rows = hi - lo
-        at = slice(lo - shard.lo, hi - shard.lo)
-        nvs = shard.nvs[at]
-        if plan.bounds is not None:
-            if shard.xs is None:
-                raise ValueError("dataset loaded without position columns")
-            bounds = np.zeros((2, rows, 3), np.int32)  # (los, his): one copy to the device
-            bounds[1] = -1
-            files = self.file_idx[lo:hi]
-            for i, (blo, bhi) in self._file_bounds(plan).items():
-                sel = files == i
-                bounds[0, sel] = blo
-                bounds[1, sel] = bhi
-            b = torch.from_numpy(bounds).to(shard.device)
-            return "bbox", (shard.xs[at], shard.ys[at], shard.zs[at], b[0], b[1], nvs)
-        if plan.time_range is not None:
-            if shard.ths is None:
-                raise ValueError("dataset loaded without gps_time columns")
-            q = np.asarray(
-                host.encode_f64_scalar(plan.time_range.start)
-                + host.encode_f64_scalar(plan.time_range.end),
-                np.int32,
-            )
-            qs = torch.from_numpy(np.tile(q, (rows, 1))).to(shard.device)
-            return "time", (shard.ths[at], shard.tls[at], qs, nvs)
-        if shard.cls is None:
-            raise ValueError("dataset loaded without classification column")
-        targets = torch.full((rows,), plan.classification.classification, dtype=torch.int32,
-                             device=shard.device)
-        return "class", (shard.cls[at], targets, nvs)
+        with span("resident.operands"):
+            rows = hi - lo
+            at = slice(lo - shard.lo, hi - shard.lo)
+            nvs = shard.nvs[at]
+            if plan.bounds is not None:
+                if shard.xs is None:
+                    raise ValueError("dataset loaded without position columns")
+                bounds = np.zeros((2, rows, 3), np.int32)  # (los, his): one copy to the device
+                bounds[1] = -1
+                files = self.file_idx[lo:hi]
+                for i, (blo, bhi) in self._file_bounds(plan).items():
+                    sel = files == i
+                    bounds[0, sel] = blo
+                    bounds[1, sel] = bhi
+                b = torch.from_numpy(bounds).to(shard.device)
+                return "bbox", (shard.xs[at], shard.ys[at], shard.zs[at], b[0], b[1], nvs)
+            if plan.time_range is not None:
+                if shard.ths is None:
+                    raise ValueError("dataset loaded without gps_time columns")
+                q = np.asarray(
+                    host.encode_f64_scalar(plan.time_range.start)
+                    + host.encode_f64_scalar(plan.time_range.end),
+                    np.int32,
+                )
+                qs = torch.from_numpy(np.tile(q, (rows, 1))).to(shard.device)
+                return "time", (shard.ths[at], shard.tls[at], qs, nvs)
+            if shard.cls is None:
+                raise ValueError("dataset loaded without classification column")
+            targets = torch.full((rows,), plan.classification.classification, dtype=torch.int32,
+                                 device=shard.device)
+            return "class", (shard.cls[at], targets, nvs)
 
     def collect(
         self,
@@ -403,11 +405,13 @@ class ResidentDataset:
             if c == 0:
                 continue
             at = slice(offsets[j], offsets[j] + c)
-            winners = grid.make_winners_raw(
-                gx[at], gy[at], gz[at], header.scale, header.offset,
-                idx[at].astype(np.int64) + int(self.block_start[lo + j]), i,
-            )
-            acc.add(winners, file_seq)
+            with span("resident.density.exact"):
+                winners = grid.make_winners_raw(
+                    gx[at], gy[at], gz[at], header.scale, header.offset,
+                    idx[at].astype(np.int64) + int(self.block_start[lo + j]), i,
+                )
+            with span("resident.density.merge"):
+                acc.add(winners, file_seq)
 
     def density_count(self, plan: QueryPlan) -> int:
         """Max-density sampled count against the resident blocks."""
@@ -474,4 +478,5 @@ class ResidentDataset:
                     arrays[0].view(torch.int32), *arrays[1:]))
             else:
                 per_shard.append(_COUNTS[kind](*arrays))
-        return sum(int(c.cpu().numpy().sum(dtype=np.int64)) for c in per_shard)
+        with span("resident.readback"):
+            return sum(int(c.cpu().numpy().sum(dtype=np.int64)) for c in per_shard)

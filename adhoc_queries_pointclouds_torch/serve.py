@@ -44,6 +44,7 @@ from .models.query import (
 from .parallel.mesh import local_devices
 from .parallel.resident import ResidentDataset
 from .utils.aabb import AABB
+from .utils.timing import span
 
 
 def handle_request(ds: ResidentDataset, req: dict, input_path: str) -> dict:
@@ -55,27 +56,28 @@ def handle_request(ds: ResidentDataset, req: dict, input_path: str) -> dict:
             "blocks": ds.n_blocks,
             "devices": len(ds.devices),
         }
-    try:
-        density = DensityConfig(float(req["density"])) if "density" in req else None
-        if "bounds" in req:
-            v = [float(x) for x in req["bounds"]]
-            if len(v) != 6:
-                return {"error": "bounds must have 6 numbers"}
-            plan = QueryPlan(
-                bounds=BoundsQuery(AABB(tuple(v[:3]), tuple(v[3:]))),
-                density=density,
-            )
-        elif "class" in req:
-            plan = QueryPlan(classification=ClassQuery(int(req["class"])), density=density)
-        elif "time_range" in req:
-            t = [float(x) for x in req["time_range"]]
-            if len(t) != 2:
-                return {"error": "time_range must have 2 numbers"}
-            plan = QueryPlan(time_range=TimeRangeQuery(t[0], t[1]), density=density)
-        else:
-            return {"error": "request needs 'bounds', 'class', 'time_range', or 'cmd'"}
-    except (ValueError, TypeError) as e:
-        return {"error": str(e)}
+    with span("serve.parse"):
+        try:
+            density = DensityConfig(float(req["density"])) if "density" in req else None
+            if "bounds" in req:
+                v = [float(x) for x in req["bounds"]]
+                if len(v) != 6:
+                    return {"error": "bounds must have 6 numbers"}
+                plan = QueryPlan(
+                    bounds=BoundsQuery(AABB(tuple(v[:3]), tuple(v[3:]))),
+                    density=density,
+                )
+            elif "class" in req:
+                plan = QueryPlan(classification=ClassQuery(int(req["class"])), density=density)
+            elif "time_range" in req:
+                t = [float(x) for x in req["time_range"]]
+                if len(t) != 2:
+                    return {"error": "time_range must have 2 numbers"}
+                plan = QueryPlan(time_range=TimeRangeQuery(t[0], t[1]), density=density)
+            else:
+                return {"error": "request needs 'bounds', 'class', 'time_range', or 'cmd'"}
+        except (ValueError, TypeError) as e:
+            return {"error": str(e)}
 
     wants_points = bool(req.get("collect"))
     output_dir = req.get("output")

@@ -3,13 +3,30 @@
 The reference reports only end-to-end `MiB in s (MiB/s)` (query/src/main.rs:309-316).
 We keep that line for parity and add per-stage (read / decode / transfer /
 kernel / merge) counters so the pipeline can be profiled without jax.profiler.
+
+span(name) marks a stretch of host code in a torch.profiler trace, on the
+device trace's clock; with no profiler recording it does nothing. Every
+StageTimer stage is also the span "engine.<stage>".
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+_OFF = nullcontext()
+
+
+def span(name: str):
+    """A context that records name as an event of the torch.profiler
+    session that is recording, or a shared no-op one when none is. torch
+    is not imported here: where it is not loaded, no session can record."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 class StageTimer:
@@ -23,7 +40,8 @@ class StageTimer:
     def stage(self, name: str, nbytes: int = 0):
         t = time.perf_counter()
         try:
-            yield
+            with span("engine." + name):
+                yield
         finally:
             self.seconds[name] += time.perf_counter() - t
             self.counts[name] += 1

@@ -102,6 +102,26 @@ def test_profile_writes_a_trace_and_the_jax_line(data, capsys, tmp_path):
             e for e in events if e.get("cat") == category]
 
 
+@pytest.mark.parametrize("query, span, runs, last", [
+    (["--bounds", BOX], "resident.readback", 3, "3 queries at "),
+    # a density query collects once
+    (["--bounds", BOX, "--density", "50"], "resident.density.merge", 1, "query in "),
+])
+def test_resident_profile_holds_the_resident_spans(data, capsys, tmp_path, query, span, runs,
+                                                   last):
+    """--resident --profile traces the timed queries after the warm count,
+    or the collect: the --resident lines with the trace's line before
+    "Found", and each query's resident spans in the trace."""
+    trace_dir = tmp_path / "trace"
+    args = ["-i", str(data / "last"), *query, "--resident", "--repeat", "3", "--device", "cpu"]
+    plain = _run(torch_cli, args, capsys)
+    lines = _run(torch_cli, [*args, "--profile", str(trace_dir)], capsys)
+    assert lines[1] == f"Profiler trace written to {trace_dir}"
+    assert lines[2:-1] == plain[1:-1] and lines[-1].startswith(last)
+    names = [e["name"] for e in torch_cli.profile_events(trace_dir, "cpu_op")]
+    assert names.count("resident.operands") >= runs and names.count(span) >= runs
+
+
 @pytest.mark.parametrize("extra", [[], ["--class", "6"]])
 def test_devices_1_is_the_default(data, capsys, extra):
     query = extra or ["--bounds", BOX]

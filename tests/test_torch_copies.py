@@ -8,9 +8,11 @@ native/__init__.py differs in its build function alone (the port compiles
 to a temporary name and renames, and unlinks no other build); the
 comparison leaves that function out, and the codec case builds the port's
 library and requires the JAX package's bytes from every entry point the
-port calls.
+port calls. utils/timing.py adds the port's profiler spans and changes
+nothing else.
 """
 
+import difflib
 import filecmp
 import re
 from pathlib import Path
@@ -29,7 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX = ROOT / "adhoc_queries_pointclouds_tpu"
 PORT = ROOT / "adhoc_queries_pointclouds_torch"
 COPIES = [
-    "utils/__init__.py", "utils/aabb.py", "utils/timing.py",
+    "utils/__init__.py", "utils/aabb.py",
     "models/__init__.py", "models/query.py",
     "native/aqpc_native.cpp", "native/laszip.cpp",
     "formats/__init__.py", "formats/lz4py.py", "formats/las.py", "formats/last.py",
@@ -57,10 +59,27 @@ def test_native_bindings_differ_in_the_build_function_alone():
     assert "os.replace(" in build.group(0) and "unlink()" not in build.group(0)
 
 
+def test_timing_is_the_copy_with_spans_added():
+    """Every line of the JAX package's utils/timing.py is kept, in order
+    (stage's body indented under its span), but the contextlib import,
+    which gains nullcontext; each run of added lines is about the spans."""
+    rel = "utils/timing.py"
+    jax, port = ([line.strip() for line in (root / rel).read_text().splitlines()]
+                 for root in (JAX, PORT))
+    old = "from contextlib import contextmanager"
+    new = old + ", nullcontext"
+    assert jax.count(old) == 1
+    jax[jax.index(old)] = new
+    ops = difflib.SequenceMatcher(None, jax, port, autojunk=False).get_opcodes()
+    assert {tag for tag, *_ in ops} == {"equal", "insert"}
+    added = [port[j1:j2] for tag, _, _, j1, j2 in ops if tag == "insert"]
+    assert all("span" in " ".join(run) or run == ["import sys"] for run in added), added
+
+
 def test_port_imports_are_relative():
     """No copied module names either package: that is what lets the copies
     stay byte-identical."""
-    for rel in COPIES + ["native/__init__.py"]:
+    for rel in COPIES + ["native/__init__.py", "utils/timing.py"]:
         if rel.endswith(".py"):
             for line in (PORT / rel).read_text().splitlines():
                 if re.match(r"\s*(import|from)\s", line):

@@ -8,6 +8,8 @@ file imports no jax, so that it also runs where JAX is not installed:
 Counts are integers: kernel and plain version must be equal (tolerance 0).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1335,6 +1337,63 @@ def test_resident_count_over_more_blocks_than_grid_y(dev, tmp_path, B):
         assert ds.count(plan) == int(want) > 0
         launched = {k: v - before[k] for k, v in TP.launches.items() if v != before[k]}
         assert launched == {entry: 1}
+
+
+def _profiled_events(fn, tmp_path) -> list[dict]:
+    """The complete events of a CPU and CUDA torch.profiler trace of fn(),
+    the card synchronized before the profiler stops."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and "dur" in e]
+
+
+def test_count_entries_are_the_predicate_count_span(dev, tmp_path):
+    """Under a profiler the CUDA branch of each count entry a resident count
+    calls is one predicate.count span around its launch, and a count request
+    on the card is serve.parse, resident.operands, predicate.count and
+    resident.readback, disjoint and in that order."""
+    from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
+    from adhoc_queries_pointclouds_torch.serve import handle_request
+
+    rng = np.random.default_rng(20)
+    cls = _class_case(rng, 7, 4096)
+    calls = [(TP.bbox_count_multi_kernel, _raw(rng, 4, 4096)),
+             (TP.class_count_multi_kernel, cls),
+             (TP.class_count_words_kernel, (cls[0].view(np.int32), *cls[1:])),
+             (TP.time_count_multi_kernel, _time_raw_case(rng, 6, 4096))]
+    operands = [[torch.from_numpy(a).to(dev) for a in args] for _, args in calls]
+    for (fn, _), args in zip(calls, operands):  # built and warm before the trace
+        fn(*args)
+    events = _profiled_events(lambda: [fn(*args) for (fn, _), args in zip(calls, operands)],
+                              tmp_path)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e["name"] == "predicate.count")
+    launches = [e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"]]
+    assert len(spans) == len(calls)
+    for s0, s1 in spans:
+        assert any(s0 <= t <= s1 for t in launches)
+
+    synth.write_dataset(tmp_path, n_files=2, points_per_file=20_000, seed=5, formats=("last",))
+    ds = ResidentDataset.load(tmp_path / "last", devices=[dev], block_size=1 << 13)
+    req = {"bounds": [100200.0, 200300.0, 10.0, 100900.0, 200900.0, 70.0]}
+    want = handle_request(ds, dict(req), str(tmp_path / "last"))["count"]
+    got = []
+    events = _profiled_events(
+        lambda: got.append(handle_request(ds, dict(req), str(tmp_path / "last"))), tmp_path)
+    assert got[0]["count"] == want > 0
+    order = ("serve.parse", "resident.operands", "predicate.count", "resident.readback")
+    spans = []
+    for name in order:
+        (ev,) = [e for e in events if e["name"] == name]
+        spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert end <= start
 
 
 def test_two_processes_on_cuda_match_one_cpu_process(dev, tmp_path):

@@ -13,6 +13,7 @@ The dataset mirrors tests/test_resident.py (3 files x 25,000 points, seed
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.models import query as torch_query
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
 from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
+from adhoc_queries_pointclouds_torch.utils.timing import StageTimer
 from test_torch_engine import make_plan
 
 BLOCK = 1 << 14
@@ -213,6 +215,59 @@ def test_density_file_seq_counts_pruned_files(both):
     jax_plan, torch_plan = plans(density=2.0, box="101100;200000;0;101900;201000;100")
     _winners_equal(got.density_states(torch_plan)[1], ref.density_states(jax_plan)[1])
     assert set(got.density_states(torch_plan)[1]["file_idx"].tolist()) == {1}
+
+
+def _profiled_events(fn, tmp_path) -> list[dict]:
+    """The complete events of a CPU torch.profiler trace of fn()."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and "dur" in e]
+
+
+def test_a_profiled_stage_is_an_engine_span(tmp_path):
+    """StageTimer.stage("scan") under a profiler is the span engine.scan,
+    and its seconds, count and bytes are kept as before."""
+    timer = StageTimer()
+
+    def scan():
+        with timer.stage("scan", 1024):
+            torch.ones(8).sum()
+
+    events = _profiled_events(scan, tmp_path)
+    (ev,) = [e for e in events if e["name"] == "engine.scan"]
+    assert any(e["name"].startswith("aten::") and ev["ts"] <= e["ts"]
+               and e["ts"] + e["dur"] <= ev["ts"] + ev["dur"] for e in events)
+    assert timer.counts["scan"] == 1 and timer.bytes["scan"] == 1024
+    assert 0 < timer.seconds["scan"] and "scan:" in timer.report()
+
+
+def test_a_profiled_streamed_query_has_its_stages(data, tmp_path):
+    """run_query's stages appear in a profiler trace as engine.<stage>."""
+    _, plan = plans(box=BOX)
+    events = _profiled_events(lambda: torch_engine.run_query(
+        data, plan, device="cpu", block_size=BLOCK), tmp_path)
+    names = {e["name"] for e in events}
+    assert {"engine.open", "engine.scan"} <= names
+
+
+def test_density_host_work_is_two_spans_a_block(both, tmp_path):
+    """A resident density count under a profiler: resident.density.exact
+    and resident.density.merge once for each block with candidates, each
+    exact before its merge, the count the JAX package's."""
+    jax_ds, ds = both
+    jplan, tplan = plans(box=BOX, density=5.0)
+    got = []
+    events = _profiled_events(lambda: got.append(ds.count(tplan)), tmp_path)
+    assert got == [jax_ds.count(jplan)] and got[0] > 0
+    exact = sorted(e["ts"] for e in events if e["name"] == "resident.density.exact")
+    merge = sorted(e["ts"] for e in events if e["name"] == "resident.density.merge")
+    assert exact and len(exact) == len(merge)
+    assert all(x < m for x, m in zip(exact, merge))
+    assert all(m < x for m, x in zip(merge, exact[1:]))
+    assert len([e for e in events if e["name"] == "resident.operands"]) >= 1
 
 
 def test_count_rejects_a_collect_plan(both, tmp_path):

@@ -9,6 +9,10 @@ blocks to its mesh; the port has one device). The tolerance is 0: counts,
 points rounded to 6 decimals by the same code, file names, LAS bytes.
 
 The service also runs as a subprocess, `serve --device cpu`, over stdin.
+
+Under a torch.profiler session a count request is the spans serve.parse,
+resident.operands and resident.readback (utils/timing.py span), disjoint
+and in call order; with none recording, span builds no profiler record.
 """
 
 import json
@@ -17,12 +21,14 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from adhoc_queries_pointclouds_tpu.parallel.resident import ResidentDataset as JaxResident
 from adhoc_queries_pointclouds_tpu.serve import handle_request as jax_handle_request
 from adhoc_queries_pointclouds_torch.formats import synth
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
 from adhoc_queries_pointclouds_torch.serve import handle_request
+from adhoc_queries_pointclouds_torch.utils import timing
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCK = 1 << 14
@@ -136,3 +142,63 @@ def test_serve_on_cuda_without_cuda_raises(data):
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert proc.stdout == ""
+
+
+# the resident count path's spans on the CPU, in call order (predicate.count
+# wraps the CUDA branch of the count entries alone: tests/test_torch_cuda.py)
+COUNT_SPANS = ("serve.parse", "resident.operands", "resident.readback")
+SPANNED = {"box": {"bounds": BOX}, "class": {"class": 6},
+           "time": {"time_range": [200_000.0, 800_000.0]}}
+
+
+def _no_record(name):
+    raise AssertionError(f"a profiler record was built for {name}")
+
+
+def test_span_without_a_profiler_is_the_shared_no_op(data, both, monkeypatch):
+    """With no profiler session, span returns one shared no-op context and
+    never builds a profiler record: the factory that would raise is not
+    called, by span or by a whole request."""
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _no_record)
+    assert not torch.autograd._profiler_enabled()
+    assert timing.span("serve.parse") is timing.span("resident.readback") is timing._OFF
+    with timing.span("serve.parse"):
+        pass
+    ref, got = both
+    for req in SPANNED.values():
+        reply = handle_request(got, dict(req), str(data))
+        assert _comparable(reply) == _comparable(jax_handle_request(ref, dict(req), str(data)))
+    # under a session the same factory is the one span calls
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with pytest.raises(AssertionError, match="record was built for serve.parse"):
+            timing.span("serve.parse")
+
+
+def _trace_events(prof, tmp_path) -> list[dict]:
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and "dur" in e]
+
+
+@pytest.mark.parametrize("kind", sorted(SPANNED))
+def test_count_request_spans_in_a_profiler_trace(data, both, tmp_path, kind):
+    """One count request under torch.profiler: serve.parse,
+    resident.operands and resident.readback once each, disjoint and in
+    that order, inside the enclosing record_function; the reply is JAX's."""
+    ref, got = both
+    req = SPANNED[kind]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("test.request"):
+            reply = handle_request(got, dict(req), str(data))
+    assert _comparable(reply) == _comparable(jax_handle_request(ref, dict(req), str(data)))
+    events = _trace_events(prof, tmp_path)
+    (outer,) = [e for e in events if e["name"] == "test.request"]
+    spans = []
+    for name in COUNT_SPANS:
+        (ev,) = [e for e in events if e["name"] == name]
+        spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+    assert outer["ts"] <= spans[0][0] and spans[-1][1] <= outer["ts"] + outer["dur"]
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert end <= start
+    assert not [e for e in events if e["name"] == "predicate.count"]

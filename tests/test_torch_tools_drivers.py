@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from adhoc_queries_pointclouds_torch.tools import memcheck, paperscale, profile_check, soak
+from adhoc_queries_pointclouds_torch.tools import memcheck, paperscale, soak
 
 ROOT = Path(__file__).resolve().parent.parent
 SOAK = ["--device", "cpu", "--points-per-file", "4000", "--files", "2", "--block-size", "8192"]
@@ -95,7 +95,6 @@ def test_paperscale_run_passes_every_check(scale, tmp_path, capsys):
     (memcheck, ["--device", "cuda", "--points", "1000"]),
     (paperscale, ["run", "--files", "2", "--device", "cuda"]),
     (paperscale, ["all", "--files", "2", "--pts-per-file", "1000"]),
-    (profile_check, []),
 ])
 def test_cuda_without_a_card_fails_before_any_work(tmp_path, monkeypatch, tool, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
