@@ -314,9 +314,13 @@ def _run_resident(args: argparse.Namespace, plan: QueryPlan, devices: list) -> i
     over --repeat runs, each ending at its read-back (JAX cli.py:231-280,
     its output lines; over several shards, a line of their sizes after the
     first). --profile records the collect, or the timed counts, and prints
-    its line before "Found"."""
+    its line and then the counters of what it recorded before "Found": the
+    kernels' launches and the box operand tables with the files their
+    prefilter kept and dropped."""
     import time
 
+    from .ops import predicate
+    from .parallel import resident
     from .parallel.resident import ResidentDataset
 
     attrs = []
@@ -351,8 +355,14 @@ def _run_resident(args: argparse.Namespace, plan: QueryPlan, devices: list) -> i
 
         if not args.profile:
             return run()
+        predicate.reset_launches()
+        resident.reset_operand_counts()
         got = profiled(run, devices, Path(args.profile))
         print(f"Profiler trace written to {args.profile}")
+        launched = ", ".join(f"{k} {n}" for k, n in predicate.launches.items() if n)
+        ops = resident.operand_counts
+        print(f"Launches: {launched or 'none'}; box operand tables {ops['tables']}, "
+              f"files kept {ops['files_kept']}, dropped {ops['files_dropped']}")
         return got
 
     if plan.collects_points:

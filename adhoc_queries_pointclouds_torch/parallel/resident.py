@@ -39,7 +39,8 @@ from ..engine import BLOCK_QUANTUM, discover_files
 from ..formats import open_point_cloud
 from ..models.query import QueryPlan
 from ..ops import compact, density as density_ops, predicate
-from ..utils.aabb import AABB, clamp_bounds_to_i32, local_query_bounds
+from ..utils.aabb import AABB
+from ..utils.bounds_table import HeaderTables, query_bounds_table
 from ..utils.timing import span
 from . import step
 from .comm import indexed, require_device
@@ -53,6 +54,16 @@ _COUNTS = {
 }
 
 COLUMNS = ("xs", "ys", "zs", "cls", "ths", "tls")
+
+# box requests' operand tables built (one a request, whatever the shards),
+# and the files their header prefilter kept and dropped, since the last
+# reset_operand_counts(): the per-file conversions the table stands for
+operand_counts = {"tables": 0, "files_kept": 0, "files_dropped": 0}
+
+
+def reset_operand_counts() -> None:
+    for name in operand_counts:
+        operand_counts[name] = 0
 
 
 @dataclasses.dataclass
@@ -90,6 +101,16 @@ class ResidentDataset:
     block_start: np.ndarray  # (n_blocks,) int64 file-local start
     shards: list[ResidentShard]
     total_points: int = 0
+    # kept from the headers and file_idx for the box operands (_box_table):
+    # the headers' boxes, scales and offsets as (F, 3) float64, and each
+    # block's row of a request's table, file_idx with F for padding blocks
+    header_tables: HeaderTables = dataclasses.field(init=False)
+    table_rows: np.ndarray = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.header_tables = HeaderTables.of(self.headers)
+        self.table_rows = np.where(self.file_idx >= 0, self.file_idx,
+                                   len(self.headers)).astype(np.intp)
 
     # ------------------------------------------------------------------
 
@@ -227,50 +248,50 @@ class ResidentDataset:
         return [(s, max(lo, s.lo), min(hi, s.hi)) for s in self.shards
                 if max(lo, s.lo) < min(hi, s.hi)]
 
-    def _file_bounds(self, plan: QueryPlan) -> dict:
-        """Per-file integer query bounds after the header prefilter: files
-        whose header box misses the query's have none."""
-        out = {}
-        for i, h in enumerate(self.headers):
-            if not h.bounds.intersects(plan.bounds.bounds):
-                continue
-            lo64, hi64 = local_query_bounds(
-                plan.bounds.bounds, h.scale, h.offset, parity_quirk=plan.parity_quirk
-            )
-            out[i] = clamp_bounds_to_i32(lo64, hi64)
-        return out
+    def _box_table(self, plan: QueryPlan) -> tuple:
+        """A box plan's integer query bounds of every file at once, after the
+        header prefilter (utils/bounds_table.py): (boxes, kept), boxes the
+        (2, F + 1, 3) int32 (los, his) a file, F the padding blocks' and the
+        dropped files' empty box (0, -1), kept the prefilter's (F,) bool.
+        Built once a request, for every shard and density piece; (None,
+        None) for other plans."""
+        if plan.bounds is None:
+            return None, None
+        if not self._has("xs"):
+            raise ValueError("dataset loaded without position columns")
+        with span("resident.operands"):
+            table, kept = query_bounds_table(plan.bounds.bounds, self.header_tables,
+                                             parity_quirk=plan.parity_quirk)
+            n_kept = int(np.count_nonzero(kept))
+            operand_counts["tables"] += 1
+            operand_counts["files_kept"] += n_kept
+            operand_counts["files_dropped"] += len(kept) - n_kept
+            return table.transpose(1, 0, 2), kept
 
-    def _operands(self, plan: QueryPlan, shard: ResidentShard, lo: int,
-                  hi: int) -> tuple[str, tuple]:
+    def _operands(self, plan: QueryPlan, shard: ResidentShard, lo: int, hi: int,
+                  boxes: np.ndarray | None) -> tuple[str, tuple]:
         """(kind, operands) of plan's predicate over the resident rows [lo,
         hi) of shard, on its device, in the raw layout of parallel/step.py:
         bbox (xs, ys, zs, los, his, nvs), class (cls, targets, nvs), time
-        (ths, tls, qs, nvs). A file the header prefilter drops, and a
-        padding block, get the empty box (0, -1)."""
+        (ths, tls, qs, nvs). A box plan's rows take their file's bounds
+        from boxes (_box_table's) by one gather: a file the header
+        prefilter drops, and a padding block, get the empty box (0, -1)."""
         with span("resident.operands"):
             rows = hi - lo
             at = slice(lo - shard.lo, hi - shard.lo)
             nvs = shard.nvs[at]
             if plan.bounds is not None:
-                if shard.xs is None:
-                    raise ValueError("dataset loaded without position columns")
-                bounds = np.zeros((2, rows, 3), np.int32)  # (los, his): one copy to the device
-                bounds[1] = -1
-                files = self.file_idx[lo:hi]
-                for i, (blo, bhi) in self._file_bounds(plan).items():
-                    sel = files == i
-                    bounds[0, sel] = blo
-                    bounds[1, sel] = bhi
+                # (los, his) of the rows: one copy to the device
+                bounds = np.take(boxes, self.table_rows[lo:hi], axis=1)
                 b = torch.from_numpy(bounds).to(shard.device)
                 return "bbox", (shard.xs[at], shard.ys[at], shard.zs[at], b[0], b[1], nvs)
             if plan.time_range is not None:
                 if shard.ths is None:
                     raise ValueError("dataset loaded without gps_time columns")
-                q = np.asarray(
-                    host.encode_f64_scalar(plan.time_range.start)
-                    + host.encode_f64_scalar(plan.time_range.end),
-                    np.int32,
-                )
+                # (hi, lo) of the start, then of the end: both in one encode
+                th, tl = host.encode_f64_sortable(
+                    np.array([plan.time_range.start, plan.time_range.end], np.float64))
+                q = np.stack([th, tl], axis=1).ravel()
                 qs = torch.from_numpy(np.tile(q, (rows, 1))).to(shard.device)
                 return "time", (shard.ths[at], shard.tls[at], qs, nvs)
             if shard.cls is None:
@@ -300,7 +321,9 @@ class ResidentDataset:
                 plan, output_dir=output_dir, print_stream=print_stream,
                 keep_hits=keep_hits,
             )
-        masks = [step.collect_mask(*self._operands(plan, s, s.lo, s.hi)) for s in self.shards]
+        boxes, _ = self._box_table(plan)
+        masks = [step.collect_mask(*self._operands(plan, s, s.lo, s.hi, boxes))
+                 for s in self.shards]
         # full blocks are emitted as ranges; partial ones get an offset
         counts, offsets, idx_np = step.read_hits(
             masks, lambda b, c: 0 < c < self.nvs[b], self.block_size)
@@ -352,7 +375,7 @@ class ResidentDataset:
             for h in self.headers:
                 grid_bounds = grid_bounds.union(h.bounds)
         grid = density_ops.GridSpec3D.create(grid_bounds, plan.density.cell_size)
-        file_bounds = self._file_bounds(plan) if plan.bounds is not None else None
+        boxes, kept = self._box_table(plan)
 
         accs: dict[int, density_ops.WinnerAccum] = {}
         global_acc = density_ops.WinnerAccum()
@@ -360,24 +383,25 @@ class ResidentDataset:
         # file_seq counts every file with blocks, those the prefilter drops
         # too, as the JAX package's does: it orders winners tied on d2
         for file_seq, (i, (blo, bhi)) in enumerate(sorted(self._ranges().items())):
-            if file_bounds is not None and i not in file_bounds:
+            if kept is not None and not kept[i]:
                 continue
             h = self.headers[i]
             tables_np = grid.file_tables(h.scale, h.offset)
             for shard, plo, phi in self._pieces(blo, bhi):
-                self._density_piece(plan, grid, shard, plo, phi, tables_np, h, i, file_seq,
-                                    accs.setdefault(i, density_ops.WinnerAccum())
+                self._density_piece(plan, grid, shard, plo, phi, boxes, tables_np, h, i,
+                                    file_seq, accs.setdefault(i, density_ops.WinnerAccum())
                                     if per_file_scope else global_acc)
         return (
             {i: a.result() for i, a in accs.items()},
             global_acc.result() if not per_file_scope else None,
         )
 
-    def _density_piece(self, plan, grid, shard, lo, hi, tables_np, header, i, file_seq,
-                       acc) -> None:
+    def _density_piece(self, plan, grid, shard, lo, hi, boxes, tables_np, header, i,
+                       file_seq, acc) -> None:
         """The density candidates of file i's rows [lo, hi) on one shard,
-        resolved and merged into acc (density_states)."""
-        kind, arrays = self._operands(plan, shard, lo, hi)
+        resolved and merged into acc (density_states; boxes the request's
+        _box_table)."""
+        kind, arrays = self._operands(plan, shard, lo, hi, boxes)
         mask = step.collect_mask(kind, arrays)
         most = int(mask.counts.max())
         if not most:
@@ -469,9 +493,10 @@ class ResidentDataset:
             raise NotImplementedError(
                 "use ResidentDataset.collect() for point materialization"
             )
+        boxes, _ = self._box_table(plan)
         per_shard = []
         for s in self.shards:
-            kind, arrays = self._operands(plan, s, s.lo, s.hi)
+            kind, arrays = self._operands(plan, s, s.lo, s.hi, boxes)
             if kind == "class" and self.block_size % 4 == 0:
                 # the u8 column viewed as int32 words, 4 points a word
                 per_shard.append(predicate.class_count_words_kernel(

@@ -2323,7 +2323,8 @@ def path_resident(datasets) -> None:
                 fail(f"resident count {label}: not the oracle's {wants[label]}")
             # the count entry's call alone on the query's operands: its
             # device work (the kernel and its fills), L2 flushed
-            _, operands = ds._operands(plan, ds.shards[0], 0, ds.n_blocks)
+            _, operands = ds._operands(plan, ds.shards[0], 0, ds.n_blocks,
+                                       ds._box_table(plan)[0])
             if kernel == "class_count_words":
                 operands = (operands[0].view(torch.int32), *operands[1:])
             entry = getattr(P, f"{kernel}_kernel")

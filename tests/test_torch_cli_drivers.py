@@ -110,14 +110,20 @@ def test_profile_writes_a_trace_and_the_jax_line(data, capsys, tmp_path):
 def test_resident_profile_holds_the_resident_spans(data, capsys, tmp_path, query, span, runs,
                                                    last):
     """--resident --profile traces the timed queries after the warm count,
-    or the collect: the --resident lines with the trace's line before
-    "Found", and each query's resident spans in the trace."""
+    or the collect: the --resident lines with the trace's line and the
+    counters' line before "Found" (no launch on the CPU; one box operand
+    table a query, each over both files), and each query's resident spans
+    in the trace."""
     trace_dir = tmp_path / "trace"
     args = ["-i", str(data / "last"), *query, "--resident", "--repeat", "3", "--device", "cpu"]
     plain = _run(torch_cli, args, capsys)
     lines = _run(torch_cli, [*args, "--profile", str(trace_dir)], capsys)
     assert lines[1] == f"Profiler trace written to {trace_dir}"
-    assert lines[2:-1] == plain[1:-1] and lines[-1].startswith(last)
+    kept = [int(x) for x in re.fullmatch(
+        rf"Launches: none; box operand tables {runs}, files kept (\d+), dropped (\d+)",
+        lines[2]).groups()]
+    assert sum(kept) == 2 * runs
+    assert lines[3:-1] == plain[1:-1] and lines[-1].startswith(last)
     names = [e["name"] for e in torch_cli.profile_events(trace_dir, "cpu_op")]
     assert names.count("resident.operands") >= runs and names.count(span) >= runs
 

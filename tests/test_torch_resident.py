@@ -23,10 +23,16 @@ from adhoc_queries_pointclouds_tpu import engine as jax_engine
 from adhoc_queries_pointclouds_tpu.models import query as jax_query
 from adhoc_queries_pointclouds_tpu.parallel.resident import ResidentDataset as JaxResident
 from adhoc_queries_pointclouds_torch import engine as torch_engine
+from adhoc_queries_pointclouds_torch import host
 from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.models import query as torch_query
+from adhoc_queries_pointclouds_torch.parallel import resident
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
-from adhoc_queries_pointclouds_torch.utils.aabb import parse_aabb
+from adhoc_queries_pointclouds_torch.utils.aabb import (
+    clamp_bounds_to_i32,
+    local_query_bounds,
+    parse_aabb,
+)
 from adhoc_queries_pointclouds_torch.utils.timing import StageTimer
 from test_torch_engine import make_plan
 
@@ -303,3 +309,159 @@ def test_cuda_without_cuda_raises(data, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ResidentDataset.load(data, device="cuda", block_size=BLOCK)
+
+
+# ---------------------------------------------------------------------------
+# the box operands: one table of every file's bounds a request, rows by one
+# gather (utils/bounds_table.py), against the per-file assembly it replaced
+# ---------------------------------------------------------------------------
+
+# files of 2, 2, 2 and 4 blocks: 2 shards cut file 2 (rows 4 | 5), 3 shards
+# file 3 (rows 6-7 | 8-9) and pad two rows
+UNEVEN_SHARDS = [1, 2, 3]
+
+
+@pytest.fixture(scope="module")
+def uneven(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_resident_uneven")
+    synth.write_dataset(root / "a", n_files=3, points_per_file=25_000, seed=17,
+                        formats=("last",), point_format=3)
+    synth.write_dataset(root / "b", n_files=1, points_per_file=50_000, seed=23,
+                        formats=("last",), point_format=3, offset=(102500.0, 200000.0, 0.0))
+    files = sorted((root / "a" / "last").iterdir()) + [root / "b" / "last" / "file_0.last"]
+    jax = JaxResident.load(files, block_size=BLOCK, attrs=ATTRS)
+    return files, jax, {d: ResidentDataset.load(files, devices=["cpu"] * d, block_size=BLOCK,
+                                                attrs=ATTRS) for d in UNEVEN_SHARDS}
+
+
+def seeded_boxes(seed: int, n: int) -> list[str]:
+    """n boxes over the uneven dataset's files (x 100000-104500), some past
+    its ends, some cutting every file, some missing all."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        a = rng.uniform([99_800, 199_900, -5], [103_600, 200_950, 95])
+        b = a + rng.uniform(0, 1, 3) * rng.choice([10.0, 500.0, 3000.0]) * [1, 0.5, 0.05]
+        out.append(";".join(repr(float(v)) for v in (*a, *b)))
+    return out
+
+
+def per_file_assembly(ds, plan, lo: int, hi: int) -> np.ndarray:
+    """The (2, hi - lo, 3) bounds of rows [lo, hi) as _operands built them
+    before the table: the header prefilter and local_query_bounds a file,
+    a files == i mask a file met."""
+    bounds = np.zeros((2, hi - lo, 3), np.int32)
+    bounds[1] = -1
+    files = ds.file_idx[lo:hi]
+    for i, h in enumerate(ds.headers):
+        if h.bounds.intersects(plan.bounds.bounds):
+            blo, bhi = clamp_bounds_to_i32(*local_query_bounds(
+                plan.bounds.bounds, h.scale, h.offset, parity_quirk=plan.parity_quirk))
+            bounds[0, files == i] = blo
+            bounds[1, files == i] = bhi
+    return bounds
+
+
+def operand_bounds(ds, plan, shard, lo, hi, boxes) -> np.ndarray:
+    kind, arrays = ds._operands(plan, shard, lo, hi, boxes)
+    assert kind == "bbox"
+    return np.stack([arrays[3].numpy(), arrays[4].numpy()])
+
+
+@pytest.mark.parametrize("shards", UNEVEN_SHARDS)
+@pytest.mark.parametrize("quirk", [False, True])
+def test_operand_rows_are_the_per_file_assembly(uneven, shards, quirk):
+    """Every shard's rows, and every density piece (a file's rows on one
+    shard), take the bounds the per-file assembly gave them; padding rows
+    the empty box."""
+    _, _, by_shards = uneven
+    ds = by_shards[shards]
+    assert ds.n_blocks == {1: 10, 2: 10, 3: 12}[shards]
+    ranges = ds._ranges()
+    for box in seeded_boxes(31 + shards, 40) + [BOX, "-1e9;-1e9;-1e9;1e9;1e9;1e9"]:
+        plan = dataclasses.replace(plans(box=box)[1], parity_quirk=quirk)
+        boxes, kept = ds._box_table(plan)
+        assert kept.tolist() == [h.bounds.intersects(plan.bounds.bounds) for h in ds.headers]
+        for s in ds.shards:
+            got = operand_bounds(ds, plan, s, s.lo, s.hi, boxes)
+            np.testing.assert_array_equal(got, per_file_assembly(ds, plan, s.lo, s.hi))
+            pad = ds.file_idx[s.lo:s.hi] < 0
+            assert (got[0, pad] == 0).all() and (got[1, pad] == -1).all()
+        for blo, bhi in ranges.values():
+            for s, plo, phi in ds._pieces(blo, bhi):
+                np.testing.assert_array_equal(operand_bounds(ds, plan, s, plo, phi, boxes),
+                                              per_file_assembly(ds, plan, plo, phi))
+    if shards > 1:  # the edges cut a file mid-way
+        assert any(len(ds._pieces(blo, bhi)) > 1 for blo, bhi in ranges.values())
+    assert (ds.file_idx < 0).sum() == (2 if shards == 3 else 0)
+
+
+@pytest.mark.parametrize("shards", UNEVEN_SHARDS)
+def test_resident_replies_equal_jax_on_seeded_boxes(uneven, shards):
+    """Counts, collects and density winners of seeded boxes over 1, 2 and
+    3 shards: the JAX package's resident dataset's (the per-file path)."""
+    _, ref, by_shards = uneven
+    ds = by_shards[shards]
+    boxes = seeded_boxes(7, 12)
+    for box in boxes:
+        jax_plan, torch_plan = plans(box=box)
+        assert ds.count(torch_plan) == ref.count(jax_plan)
+    for box in boxes[:3]:
+        jax_plan, torch_plan = plans(box=box)
+        want, ref_emitter = ref.collect(jax_plan, keep_hits=True)
+        count, emitter = ds.collect(torch_plan, keep_hits=True)
+        assert count == want
+        _hits_equal(emitter.all_hits, ref_emitter.all_hits)
+    for box, scope in ((boxes[0], "global"), (boxes[1], "file"), (QUERIES["box_files"]["box"],
+                                                                   "file")):
+        jax_plan, torch_plan = plans(density=25.0, scope=scope, box=box)
+        (want_files, want_global), (files, global_state) = (
+            ref.density_states(jax_plan), ds.density_states(torch_plan))
+        if scope == "global":
+            _winners_equal(global_state, want_global)
+        else:  # a state for each file the prefilter keeps, with winners or not
+            kept = [i for i, h in enumerate(ds.headers)
+                    if h.bounds.intersects(torch_plan.bounds.bounds)]
+            assert sorted(files) == kept
+            assert {i for i in files if len(files[i])} == {i for i in want_files
+                                                          if len(want_files[i])}
+            for i in want_files:
+                _winners_equal(files[i], want_files[i])
+
+
+@pytest.mark.parametrize("shards", UNEVEN_SHARDS)
+def test_one_operand_table_a_request(uneven, shards):
+    """operand_counts: one table a box request, whatever the shard count,
+    in count, collect and density; its kept and dropped files add up to
+    the files; class and time requests build none."""
+    _, _, by_shards = uneven
+    ds = by_shards[shards]
+    n_files = len(ds.files)
+    box = "101500;200000;0;102600;201000;100"  # files 1 and 3 (header boxes overlap)
+    _, plan = plans(box=box)
+    kept = [h.bounds.intersects(plan.bounds.bounds) for h in ds.headers]
+    assert 0 < sum(kept) < n_files
+    calls = [lambda: ds.count(plan), lambda: ds.collect(plan),
+             lambda: ds.count(plans(density=25.0, box=box)[1])]
+    for call in calls:
+        resident.reset_operand_counts()
+        call()
+        assert resident.operand_counts == {"tables": 1, "files_kept": sum(kept),
+                                           "files_dropped": n_files - sum(kept)}
+    resident.reset_operand_counts()
+    for name in ("class6", "time"):
+        ds.count(plans(**QUERIES[name])[1])
+    assert resident.operand_counts == {"tables": 0, "files_kept": 0, "files_dropped": 0}
+
+
+@pytest.mark.parametrize("window", [(200_000.0, 800_000.0), (-0.0, 5e-324), (-1e300, -0.0)])
+def test_time_operand_rows_are_the_scalar_encoding(both, window):
+    """A time plan's (rows, 4) operand: every row the (hi, lo) encodings of
+    the start and of the end, as encode_f64_scalar gives each."""
+    _, ds = both
+    _, plan = plans(time=window)
+    (shard,) = ds.shards
+    kind, arrays = ds._operands(plan, shard, 1, 5, None)
+    want = [*host.encode_f64_scalar(window[0]), *host.encode_f64_scalar(window[1])]
+    assert kind == "time" and arrays[2].dtype == torch.int32
+    assert arrays[2].tolist() == [want] * 4

@@ -185,7 +185,9 @@ def _trace_events(prof, tmp_path) -> list[dict]:
 def test_count_request_spans_in_a_profiler_trace(data, both, tmp_path, kind):
     """One count request under torch.profiler: serve.parse,
     resident.operands and resident.readback once each, disjoint and in
-    that order, inside the enclosing record_function; the reply is JAX's."""
+    that order, inside the enclosing record_function; a box request's
+    resident.operands twice, its table of every file's bounds and then its
+    rows; the reply is JAX's."""
     ref, got = both
     req = SPANNED[kind]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -194,10 +196,11 @@ def test_count_request_spans_in_a_profiler_trace(data, both, tmp_path, kind):
     assert _comparable(reply) == _comparable(jax_handle_request(ref, dict(req), str(data)))
     events = _trace_events(prof, tmp_path)
     (outer,) = [e for e in events if e["name"] == "test.request"]
-    spans = []
-    for name in COUNT_SPANS:
-        (ev,) = [e for e in events if e["name"] == name]
-        spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+    want = [name for name in COUNT_SPANS
+            for _ in range(2 if kind == "box" and name == "resident.operands" else 1)]
+    spanned = sorted((e["ts"], e["name"], e["dur"]) for e in events if e["name"] in COUNT_SPANS)
+    assert [name for _, name, _ in spanned] == want
+    spans = [(ts, ts + dur) for ts, _, dur in spanned]
     assert outer["ts"] <= spans[0][0] and spans[-1][1] <= outer["ts"] + outer["dur"]
     for (_, end), (start, _) in zip(spans, spans[1:]):
         assert end <= start
