@@ -5,9 +5,10 @@ decided"): the program's on many seeds, and the control's on some.
         --control-seeds 3 --seconds 3 [--out control.jsonl]
 
 For each seed, in one process: the cell's set-up and a short window of the
-program through serve.handle_request, exactly as a run makes them
-(yardstick/harness.py); then the plain reference in float64 answers the
-run's sample, and wrong_replies is the program's reading. On the first
+program (serve.handle_request, or engine.run_query for a streamed
+configuration), exactly as a run makes them (yardstick/harness.py); then
+the plain reference in float64 answers the run's sample, and
+wrong_replies is the program's reading. On the first
 --control-seeds seeds the control is read too: the same reference one
 precision below, float32, put in the program's place. Its answers to the
 sample become reply lines, and the harness's own comparison
@@ -53,7 +54,7 @@ def readings(cell, seed: int, seconds: float, control: bool, device) -> dict:
         win = r.window()
         r.free_program()
         picked, ans = r.check(torch.float64)
-        program = harness.checks(win, picked, ans)
+        program = harness.checks(win, picked, ans, r.sidecars())
         out = {"seed": seed, "attempted": len(win.replies), "compared": len(picked),
                "program_correct": harness.is_correct(program),
                "program_wrong": program["wrong_replies"]["value"]}

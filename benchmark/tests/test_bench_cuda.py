@@ -13,10 +13,11 @@ import pytest
 import control
 from yardstick import harness, spec
 
-CELLS = ["doc.count", "navvis.count"]
+CELLS = ["doc.count", "navvis.count", "doc.stream"]
 # the control's size: doc's coordinates are past float32 at any size;
 # navvis's boxes are not, and its GPS times only over the whole line
-CONTROL_POINTS = {"doc.count": 4 * 1_000_000, "navvis.count": None}
+CONTROL_POINTS = {"doc.count": 4 * 1_000_000, "navvis.count": None,
+                  "doc.stream": 4 * 1_000_000}
 
 
 def small(name: str, points: int | None = 4 * 1_000_000):

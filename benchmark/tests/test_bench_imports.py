@@ -13,12 +13,13 @@ from yardstick import harness, spec
 PROGRAM = "adhoc_queries_pointclouds_torch"
 
 # every module of the benchmark and the program's modules that a run loads
+# (engine: the streamed deployment's path)
 _LOAD_ALL = """
 import sys
 sys.path[:0] = [{bench!r}, {root!r}]
 import control, sets
 from yardstick import harness, measure, reference, spec, synth, trace, traffic
-from adhoc_queries_pointclouds_torch import serve
+from adhoc_queries_pointclouds_torch import engine, serve
 from adhoc_queries_pointclouds_torch.parallel import resident
 for m in spec.load_spec()["end_to_end"] + spec.load_spec()["per_layer"]:
     spec.reader(m["name"])

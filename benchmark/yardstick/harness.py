@@ -1,15 +1,30 @@
 """One run of one cell: set-up, the measured window, the trace, the check.
 
-Set-up makes the cell's dataset on the device from the seed and writes it
-as LAST files under TMPDIR (synth.py), loads it into device memory as
-`serve` does (ResidentDataset.load with serve.main's attributes and
-defaults), and sends every request kind through serve.handle_request
+A configuration names one of two deployments: "serve" (the dataset
+resident on the card) or "stream" (the files left on disk, every query a
+scan of them).
+
+Resident: set-up makes the cell's dataset on the device from the seed and
+writes it as LAST files under TMPDIR (synth.py), loads it into device
+memory as `serve` does (ResidentDataset.load with serve.main's attributes
+and defaults), and sends every request kind through serve.handle_request
 twice, from a stream apart from the window's. The window is a closed loop
 of one client: serve answers one line at a time and its user waits for
 each reply, so the next request goes out when the last reply is a JSON
 line (serve.main's json.dumps). Each request is timed on the host clock
 from the call to that line; the count path ends in a read-back, so the
 reply waits for the card.
+
+Streamed: set-up writes the same files, flushes them to disk (fsync, so
+that no writeback runs beside the window) and keeps them, loads nothing,
+and sends every request kind through the scan twice. In the window each
+request becomes a QueryPlan as cli.cmd_query builds one and runs through
+engine.run_query with the configuration's "stream" settings, as `cli -i
+DIR --bounds|--class ... --no-index` runs it; the reply is its count as a
+JSON line, timed as above under the span engine.request. After the window
+the data directory must hold the dataset's files and nothing else: a
+sidecar index there (index.py) would mean the scan was not brute-force,
+and counts in the check sidecar_files, whose limit is 0.
 
 After the window: the peak of device memory is read, the program's state
 is freed, and the plain reference (reference.py) answers a sample of the
@@ -46,10 +61,14 @@ from .reference import Reference
 from .spec import Cell, reader
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "adhoc_queries_pointclouds_tpu")
-# the count entries' kernels, for the trace's completeness line
+# the count entries' kernels, for the trace's completeness lines: the
+# resident path's, then the streamed path's packed ones
 COUNT_KERNELS = {"bbox_count_multi": "bbox_count_multi_kernel",
                  "class_count_words": "class_count_kernel",
-                 "time_count_multi": "time_count_multi_kernel"}
+                 "time_count_multi": "time_count_multi_kernel",
+                 "bbox_count_packed": "bbox_count_packed_kernel",
+                 "class_count_dict": "class_count_dict_kernel",
+                 "time_count_packed": "time_count_packed_kernel"}
 _T_IMPORT = time.perf_counter()
 
 
@@ -166,6 +185,64 @@ def drive(ds, data: Path, stream: list[tuple[str, dict]], more, seconds: float,
                   t1 - t_start)
 
 
+def stream_answer(data: Path, device: torch.device, settings: dict):
+    """The streamed deployment's answer to one request: its QueryPlan as
+    cli.cmd_query builds one, run by engine.run_query with the
+    configuration's "stream" settings (cli -i DIR ... --no-index), the
+    reply as serve's: the count, or the error."""
+    from adhoc_queries_pointclouds_torch import engine
+    from adhoc_queries_pointclouds_torch.models.query import (BoundsQuery, ClassQuery,
+                                                              QueryPlan, TimeRangeQuery)
+    from adhoc_queries_pointclouds_torch.utils.aabb import AABB
+
+    kwargs = {"block_size": int(settings["block_size"]), "workers": int(settings["workers"]),
+              "prefetch": int(settings["prefetch"]), "use_index": bool(settings["use_index"])}
+
+    def answer(req: dict) -> dict:
+        t0 = time.perf_counter()
+        try:
+            if "bounds" in req:
+                v = [float(x) for x in req["bounds"]]
+                plan = QueryPlan(bounds=BoundsQuery(AABB(tuple(v[:3]), tuple(v[3:]))))
+            elif "class" in req:
+                plan = QueryPlan(classification=ClassQuery(int(req["class"])))
+            else:
+                t = [float(x) for x in req["time_range"]]
+                plan = QueryPlan(time_range=TimeRangeQuery(t[0], t[1]))
+            res = engine.run_query(data, plan, device=device, devices=[device], **kwargs)
+        except Exception as e:  # as serve: the error is the reply
+            return {"error": f"{type(e).__name__}: {e}"}
+        return {"count": res.match_count, "ms": round((time.perf_counter() - t0) * 1e3, 2)}
+
+    return answer
+
+
+def drive_stream(answer, stream: list[tuple[str, dict]], more, seconds: float,
+                 traced: bool) -> Window:
+    """drive's closed loop over the streamed deployment: each request
+    through answer, under the span engine.request."""
+    span = torch.profiler.record_function if traced else (lambda _: contextlib.nullcontext())
+    lat, replies = [], []
+    with span(trace_mod.WINDOW_SPAN):
+        t_start = time.perf_counter()
+        deadline = t_start + seconds
+        t1 = t_start
+        i = 0
+        while t1 < deadline:
+            if i == len(stream):
+                stream.extend(more(max(len(stream), 1024)))
+            req = stream[i][1]
+            t0 = time.perf_counter()
+            with span("engine.request"):
+                line = json.dumps(answer(req))
+            t1 = time.perf_counter()
+            lat.append(t1 - t0)
+            replies.append(line)
+            i += 1
+    return Window([k for k, _ in stream[:i]], [r for _, r in stream[:i]], lat, replies,
+                  t1 - t_start)
+
+
 def sample(window: Window, mix: dict, seed: int) -> list[int]:
     """Indices of the replies to compare: up to compare_per_kind of each
     kind, drawn from the seed."""
@@ -189,9 +266,14 @@ def wrong_replies(window: Window, picked: list[int], answers: dict[int, int]) ->
     return wrong
 
 
-def checks(window: Window, picked: list[int], answers: dict[int, int]) -> dict[str, dict]:
-    """Each number compared, beside its limit (PERF.md)."""
-    return {"wrong_replies": {"value": wrong_replies(window, picked, answers), "limit": 0}}
+def checks(window: Window, picked: list[int], answers: dict[int, int],
+           sidecars: int | None = None) -> dict[str, dict]:
+    """Each number compared, beside its limit (PERF.md); sidecars: the
+    files a streamed run left in its data directory beside the dataset's."""
+    out = {"wrong_replies": {"value": wrong_replies(window, picked, answers), "limit": 0}}
+    if sidecars is not None:
+        out["sidecar_files"] = {"value": sidecars, "limit": 0}
+    return out
 
 
 def is_correct(compared: dict[str, dict]) -> bool:
@@ -224,9 +306,10 @@ class Run:
         shutil.rmtree(self.tmp, ignore_errors=True)
 
     def setup(self, imported_s: float = 0.0) -> None:
-        """The dataset, the resident load, the warm-up and the window's
-        requests (enough for max_rate_per_s). imported_s: the process's age
-        when the harness began, its interpreter and torch imported."""
+        """The dataset, the resident load (a streamed configuration:
+        _setup_stream instead), the warm-up and the window's requests
+        (enough for max_rate_per_s). imported_s: the process's age when the
+        harness began, its interpreter and torch imported."""
         start_s = process_age_s()
         t = time.perf_counter()
         from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
@@ -241,6 +324,10 @@ class Run:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(self.device)
         phases["dataset"] = time.perf_counter() - t
+        self.phases = phases
+        if "stream" in self.cell.config:
+            self._setup_stream()
+            return
 
         t = time.perf_counter()
         serve_cfg = self.cell.config["serve"]
@@ -258,20 +345,51 @@ class Run:
                 raise RuntimeError(f"warm-up request {req} failed: {reply['error']}")
         sync(self.device)
         phases["warm-up"] = time.perf_counter() - t
+        self._requests()
+
+    def _setup_stream(self) -> None:
+        """The streamed deployment's set-up: the files flushed to disk and
+        kept, nothing loaded, every request kind scanned twice."""
+        phases = self.phases
+        t = time.perf_counter()
+        for f in self.dataset.files:
+            fd = os.open(f, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        phases["fsync"] = time.perf_counter() - t
+        t = time.perf_counter()
+        self.answer = stream_answer(self.data, self.device, self.cell.config["stream"])
+        phases["import"] += time.perf_counter() - t
+        t = time.perf_counter()
+        for _, req in traffic.warmup(self.cell.mix, self.cell.config, self.seed):
+            reply = self.answer(req)
+            if "error" in reply:
+                raise RuntimeError(f"warm-up request {req} failed: {reply['error']}")
+        sync(self.device)
+        phases["warm-up"] = time.perf_counter() - t
+        self._requests()
+
+    def _requests(self) -> None:
+        """The window's requests, enough for max_rate_per_s."""
         t = time.perf_counter()
         self.gen = traffic.Generator(self.cell.mix, self.cell.config, self.seed)
         rate = float(self.cell.mix.get("max_rate_per_s", 1000))
         self.stream = self.gen.take(max(int(rate * self.seconds), 64))
         gc.collect()  # set-up's garbage, so that no collection of it falls in the window
-        phases["requests"] = time.perf_counter() - t
-        self.phases = phases
+        self.phases["requests"] = time.perf_counter() - t
 
     def window(self) -> Window:
         from adhoc_queries_pointclouds_torch.ops import predicate
 
         before = dict(predicate.launches)
-        self.win = drive(self.ds, self.data, self.stream, self.gen.take, self.seconds,
-                         self.traced)
+        if "stream" in self.cell.config:
+            self.win = drive_stream(self.answer, self.stream, self.gen.take, self.seconds,
+                                    self.traced)
+        else:
+            self.win = drive(self.ds, self.data, self.stream, self.gen.take, self.seconds,
+                             self.traced)
         sync(self.device)
         self.launches = {k: v - before.get(k, 0) for k, v in predicate.launches.items()
                          if v - before.get(k, 0)}
@@ -299,8 +417,16 @@ class Run:
         path.unlink()
         return tr
 
+    def sidecars(self) -> int | None:
+        """Files in a streamed run's data directory that are not the
+        dataset's (a sidecar index: index.py index_path); None for a
+        resident run, whose files went after the load."""
+        if "stream" not in self.cell.config:
+            return None
+        return len(set(self.data.iterdir()) - set(self.dataset.files))
+
     def free_program(self) -> None:
-        del self.ds
+        self.ds = None  # the resident dataset; a streamed run holds none
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -348,7 +474,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, *, device: str = "c
         tr = r.read_trace()
         r.free_program()
         picked, ans = r.check()
-        compared = checks(win, picked, ans)
+        compared = checks(win, picked, ans, r.sidecars())
         dataset = r.dataset
         launches = r.launches
     finally:
@@ -359,8 +485,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, *, device: str = "c
               f"their kernel's record (at most {trace_mod.LOST_SHARE:.1%} may lack one)",
               file=log)
         for entry, kernel in COUNT_KERNELS.items():
-            print(f"trace: {entry}: {len(tr.kernels(kernel))} kernel events, "
-                  f"{launches.get(entry, 0)} launches counted by the port", file=log)
+            events = len(tr.kernels(kernel))
+            if events or launches.get(entry, 0):
+                print(f"trace: {entry}: {events} kernel events, "
+                      f"{launches.get(entry, 0)} launches counted by the port", file=log)
         if not tr.complete:
             print("trace: short, so no metric is read from it", file=log)
             tr = None

@@ -116,6 +116,8 @@ class Trace:
     launches: int  # runtime kernel launches inside the window
     unmatched: int  # of those, launches whose kernel the trace lacks
     idle_by_host: dict[str, float]
+    idle_spans: list[tuple[float, float]] = dataclasses.field(default_factory=list)
+    host: list[tuple[float, float, str]] = dataclasses.field(default_factory=list)
 
     @property
     def window_s(self) -> float:
@@ -136,6 +138,24 @@ class Trace:
 
     def kernel_s(self, part: str) -> float:
         return sum(e["dur"] for e in self.kernels(part)) / 1e6
+
+    def idle_under(self, name: str) -> float | None:
+        """Seconds of device idle while a host event named name was open on
+        the window's thread, the events nested in it included (idle_by_host
+        gives each instant to the innermost event alone); None where no
+        such event is in the window."""
+        spans = merged((s, e) for s, e, n in self.host if n == name)
+        if not spans:
+            return None
+        total, i = 0.0, 0
+        for g0, g1 in self.idle_spans:
+            while i < len(spans) and spans[i][1] <= g0:
+                i += 1
+            j = i
+            while j < len(spans) and spans[j][0] < g1:
+                total += min(spans[j][1], g1) - max(spans[j][0], g0)
+                j += 1
+        return total / 1e6
 
     def by_name(self) -> list[tuple[str, float]]:
         """Device seconds by operation name, largest first."""
@@ -173,6 +193,6 @@ def read(path: Path) -> Trace:
             if e.get("cat") in HOST_CATS and e.get("tid") == win.get("tid")
             and e.get("pid") == win.get("pid") and e is not win
             and e["ts"] < t1 and e["ts"] + e["dur"] > t0]
-    idle = attribute(gaps(((e["ts"], e["ts"] + e["dur"]) for e in device), t0, t1),
-                     flatten(host))
-    return Trace(t0, t1, device, len(launched), unmatched, idle)
+    idle_spans = gaps(((e["ts"], e["ts"] + e["dur"]) for e in device), t0, t1)
+    idle = attribute(idle_spans, flatten(host))
+    return Trace(t0, t1, device, len(launched), unmatched, idle, idle_spans, host)
