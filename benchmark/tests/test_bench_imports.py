@@ -18,7 +18,7 @@ _LOAD_ALL = """
 import sys
 sys.path[:0] = [{bench!r}, {root!r}]
 import control, sets
-from yardstick import harness, measure, reference, spec, synth, trace, traffic
+from yardstick import harness, las, measure, reference, spec, synth, trace, traffic
 from adhoc_queries_pointclouds_torch import engine, serve
 from adhoc_queries_pointclouds_torch.parallel import resident
 for m in spec.load_spec()["end_to_end"] + spec.load_spec()["per_layer"]:
@@ -54,7 +54,7 @@ def test_the_reference_loads_nothing_of_the_program():
 
 
 @pytest.mark.parametrize("module", ["reference.py", "synth.py", "measure.py", "trace.py",
-                                    "traffic.py"])
+                                    "traffic.py", "las.py"])
 def test_yardstick_sources_import_no_program(module):
     tree = ast.parse((spec.BENCH_DIR / "yardstick" / module).read_text())
     for node in ast.walk(tree):

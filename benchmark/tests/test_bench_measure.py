@@ -159,3 +159,35 @@ def test_roofline_readers(tmp_path):
     assert spec.reader("time_count_roofline")(v) is None  # nothing to read
     for name in ("host_ms", "kernels_per_query", "idle_share", "bbox_count_roofline"):
         assert spec.reader(name)(view([0.001], 1.0)) is None  # no trace
+
+
+def test_mask_bytes_and_readers():
+    """A collect's mask reads what its count reads and writes a bit a point
+    of those rows; the readers count only collect and -o requests, each
+    kind over its own kernel's time."""
+    ds = dataset()
+    assert measure.box_mask_bytes([5, 1, 1, 15, 5, 5], ds) == pytest.approx(300 * (12 + 1 / 8))
+    assert measure.box_mask_bytes([31, 1, 1, 40, 5, 5], ds) == 0
+    assert measure.time_mask_bytes(ds) == pytest.approx(600 * (8 + 1 / 8))
+    kernels = [("void (anonymous namespace)::mask_bbox_kernel(int const*)", 40.0),
+               ("void (anonymous namespace)::mask_packed_kernel<(anonymous namespace)::"
+                "TimeRawTiles<true> >((anonymous namespace)::TimeRawTiles<true>)", 20.0),
+               ("compact_bits_kernel(unsigned int const*)", 5.0)]
+    tr = trace.Trace(0.0, 1e6, [{"cat": "kernel", "name": n, "ts": 0.0, "dur": d}
+                                for n, d in kernels], 3, 0, {})
+    reqs = [{"bounds": [1, 1, 1, 5, 5, 5], "collect": True, "limit": 1000},
+            {"bounds": [5, 1, 1, 15, 5, 5], "output": "/out/3"},
+            {"bounds": [5, 1, 1, 15, 5, 5]},  # a count: no mask
+            {"time_range": [0.0, 1.0], "collect": True, "limit": 1000},
+            {"time_range": [0.0, 1.0], "output": "/out/5"},
+            {"time_range": [0.0, 1.0]}]
+    v = view([0.001] * len(reqs), 1.0, requests=reqs, tr=tr)
+    assert spec.reader("bbox_mask_roofline")(v) == pytest.approx(
+        100.0 * (100 + 300) * (12 + 1 / 8) / 3.35e12 / 40e-6)
+    assert spec.reader("time_mask_roofline")(v) == pytest.approx(
+        100.0 * 2 * 600 * (8 + 1 / 8) / 3.35e12 / 20e-6)
+    counts_only = view([0.001] * 2, 1.0, requests=reqs[2::3], tr=tr)
+    assert spec.reader("bbox_mask_roofline")(counts_only) is None
+    assert spec.reader("time_mask_roofline")(counts_only) is None
+    for name in ("bbox_mask_roofline", "time_mask_roofline"):
+        assert spec.reader(name)(view([0.001], 1.0, requests=reqs[:1])) is None  # no trace

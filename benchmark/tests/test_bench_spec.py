@@ -131,3 +131,26 @@ def test_a_new_config_mix_and_metric_are_found(tmp_path):
     assert result["correct"] and result["metrics"]["answered"]["value"] == result["attempted"]
     assert list(result)[-1] == "checks"
     assert log.getvalue().splitlines()[-1] == "check wrong_replies 0 limit 0"
+
+
+def test_the_collect_cell(bench):
+    """navvis.collect: navvis as the count cell runs it, one chip, the mix
+    of previews and -o extracts, and the readers of the layers it runs."""
+    cell = spec.cell("navvis.collect")
+    assert cell.chips == 1 and cell.config == spec.cell("navvis.count").config
+    kinds = {k["kind"]: k for k in cell.mix["cycle"]}
+    assert {k: v["weight"] for k, v in kinds.items()} == {
+        "preview_s": 4, "preview_time": 3, "extract_l": 3, "extract_time": 2}
+    for name in ("preview_s", "preview_time"):
+        assert kinds[name]["collect"] is True and kinds[name]["limit"] == 1000
+    for name in ("extract_l", "extract_time"):
+        assert kinds[name]["output"] is True and "collect" not in kinds[name]
+    assert cell.mix["max_rate_per_s"] == 200 and cell.mix["compare_per_kind"] == 32
+    assert {m["name"] for m in cell.end_to_end} == {
+        "queries_per_s", "query_p50_ms", "query_p95_ms", "setup_s"}
+    assert {m["name"] for m in cell.per_layer} == {
+        "host_ms", "kernels_per_query", "idle_share", "parse_idle_ms", "operands_idle_ms",
+        "untraced_idle_ms", "bbox_mask_roofline", "time_mask_roofline"}
+    masks = [m for m in cell.per_layer if m["name"].endswith("_mask_roofline")]
+    assert {(m["layer"], m["moves"], m["unit"]) for m in masks} == {
+        ("collect kernels: csrc/mask_bits.cu", "queries_per_s", "%")}

@@ -145,7 +145,8 @@ def test_benchmark_json_names_the_configuration_cell_and_readers():
     assert entries["open_idle_ms"]["moves"] == "query_p50_ms"
     assert entries["scan_idle_ms"]["moves"] == entries["h2d_ms"]["moves"] == "queries_per_s"
     for name in SHARED_READERS:
-        assert entries[name]["workloads"] == ["doc.count", "navvis.count", "doc.stream"]
+        assert entries[name]["workloads"] == ["doc.count", "navvis.count", "doc.stream",
+                                              "navvis.collect"]
 
 
 def ev(cat, name, ts, dur, tid=7, **args):

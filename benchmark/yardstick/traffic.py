@@ -19,6 +19,13 @@ offers the same mix of work in another order. Kinds:
            whole line); its edges at (k + 0.75) / time_rate s,
            where no point's time lies (synth.py)
 
+A kind may also carry serve's collect options, copied into each of its
+requests unchanged: "collect": true with "limit": K (a preview of the
+first K hits in the reply), or "output": true, a placeholder that the
+harness replaces at send time with a fresh, empty directory for the LAS
+files (harness.py Outputs). They draw nothing from the seed, so a kind's
+positions do not depend on them.
+
 Box edges sit half a unit of the scale above the grid (z above the
 published value), so no point lies on an edge. Every box and time request of a stream is distinct (a class
 request cannot be: a class is one of a few codes).
@@ -35,10 +42,17 @@ import numpy as np
 
 STREAM_WINDOW = 1
 STREAM_WARMUP = 2
+OPTIONS = ("collect", "limit", "output")  # serve's collect options a kind may carry
 
 
 def rng_for(seed: int, *words: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed & 0xFFFFFFFFFFFFFFFF, *words]))
+
+
+def needs_files(mix: dict) -> bool:
+    """Whether the mix collects points: serve then reads the hits'
+    attributes from the dataset's files, which have to stay."""
+    return any(k.get("collect") or k.get("output") for k in mix["cycle"])
 
 
 def extent(config: dict) -> tuple[tuple[float, float, float], tuple[float, float, float]]:
@@ -89,6 +103,10 @@ class Generator:
         raise RuntimeError(f"kind {kind['kind']}: no distinct request left")
 
     def _requests(self, kind: dict, m: int) -> list[dict]:
+        options = {k: kind[k] for k in OPTIONS if k in kind}
+        return [dict(r, **options) for r in self._predicates(kind, m)]
+
+    def _predicates(self, kind: dict, m: int) -> list[dict]:
         what = kind["request"]
         if what == "box":
             return [{"bounds": b} for b in self._boxes(kind, m)]
