@@ -16,7 +16,9 @@ devices; n_valid stays resident.
 
 Collect and density run the same bit-mask and compaction entries as the
 streamed engine (parallel/step.py), shard by shard in block order, with no
-cap: the host reads each block's true count first. Density gathers its
+cap: the host reads each block's true count first; a collect with a limit
+(serve's previews) compacts and gathers only its first limit hits, from
+the files they lie in (emit_counts counts the rows). Density gathers its
 candidates' x, y and z on the device with the compaction itself
 (ops/compact.py compact_bits_gather).
 
@@ -64,6 +66,16 @@ operand_counts = {"tables": 0, "files_kept": 0, "files_dropped": 0}
 def reset_operand_counts() -> None:
     for name in operand_counts:
         operand_counts[name] = 0
+
+
+# collects with a limit (serve's previews) since the last reset_emit_counts():
+# their matches, and the rows gathered from the files for them
+emit_counts = {"previews": 0, "hits": 0, "gathered": 0}
+
+
+def reset_emit_counts() -> None:
+    for name in emit_counts:
+        emit_counts[name] = 0
 
 
 @dataclasses.dataclass
@@ -307,13 +319,17 @@ class ResidentDataset:
         output_dir=None,
         print_stream=None,
         keep_hits: bool = False,
+        limit: int | None = None,
     ):
         """Collect matching points: one predicate launch a shard over its
         resident blocks into a bit mask, one read of each shard's per-block
         counts, one compaction a shard of its partial blocks' hits into an
         exact-size buffer; hit attributes are gathered from the source
-        files for hit rows only, in block (so file) order. Returns (count,
-        HitEmitter)."""
+        files for hit rows only, in block (so file) order. With limit, only
+        the first limit hits (none for limit <= 0) are compacted and
+        gathered, and only their files opened; the count is still every
+        match's and every file is still finalized (density plans ignore
+        limit). Returns (count, HitEmitter)."""
         from ..sinks import HitEmitter
 
         if plan.density is not None:
@@ -324,33 +340,55 @@ class ResidentDataset:
         boxes, _ = self._box_table(plan)
         masks = [step.collect_mask(*self._operands(plan, s, s.lo, s.hi, boxes))
                  for s in self.shards]
-        # full blocks are emitted as ranges; partial ones get an offset
-        counts, offsets, idx_np = step.read_hits(
-            masks, lambda b, c: 0 < c < self.nvs[b], self.block_size)
+        # full blocks are emitted as ranges; partial ones get an offset, while
+        # the hits of the rows before them (read_hits asks in row order) are
+        # fewer than limit
+        before = 0
 
-        readers = [open_point_cloud(f) for f in self.files]
-        emitter = HitEmitter(
-            readers, output_dir=output_dir, print_stream=print_stream,
-            keep_hits=keep_hits,
-        )
+        def picked(b, c):
+            nonlocal before
+            take = 0 < c < self.nvs[b] and (limit is None or before < limit)
+            before += c
+            return take
+
+        counts, offsets, idx_np = step.read_hits(masks, picked, self.block_size)
+        count = int(counts.sum(dtype=np.int64))
+        # (row, hits emitted from it) in row order, the first `want` hits
+        want = count if limit is None else min(max(limit, 0), count)
+        emits = []
+        for b in np.flatnonzero(counts).tolist():
+            n = min(int(counts[b]), want)
+            if n <= 0:
+                break
+            emits.append((b, n))
+            want -= n
+
+        readers = {}
         try:
-            for b in range(self.n_blocks):
-                c = int(counts[b])
-                if c == 0:
-                    continue
+            for i in sorted({int(self.file_idx[b]) for b, _ in emits}):
+                readers[i] = open_point_cloud(self.files[i])
+            emitter = HitEmitter(
+                readers, output_dir=output_dir, print_stream=print_stream,
+                keep_hits=keep_hits,
+            )
+            for b, n in emits:
                 i = int(self.file_idx[b])
                 start = int(self.block_start[b])
                 if offsets[b] < 0:
-                    emitter.emit_range(i, start, start + int(self.nvs[b]))
+                    emitter.emit_range(i, start, start + n)
                 else:
-                    local = idx_np[offsets[b] : offsets[b] + c]
+                    local = idx_np[offsets[b] : offsets[b] + n]
                     emitter.emit_indices(i, local.astype(np.int64) + start)
             for i in range(len(self.files)):
                 emitter.finalize_file(i)
         finally:
-            for r in readers:
+            for r in readers.values():
                 r.close()
-        return emitter.total, emitter
+        if limit is not None:
+            emit_counts["previews"] += 1
+            emit_counts["hits"] += count
+            emit_counts["gathered"] += emitter.total
+        return count, emitter
 
     def density_states(self, plan: QueryPlan):
         """Run the density query against the resident blocks; returns

@@ -88,6 +88,9 @@ def handle_request(ds: ResidentDataset, req: dict, input_path: str) -> dict:
                 plan,
                 output_dir=Path(output_dir) if output_dir else None,
                 keep_hits=wants_points,
+                # a preview gathers only the hits it returns; the LAS files
+                # of an -o request need every hit
+                limit=None if output_dir else int(req.get("limit", 1000)),
             )
             reply = {"count": count, "ms": round((time.perf_counter() - t0) * 1e3, 2)}
             if wants_points:

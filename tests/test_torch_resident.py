@@ -26,7 +26,7 @@ from adhoc_queries_pointclouds_torch import engine as torch_engine
 from adhoc_queries_pointclouds_torch import host
 from adhoc_queries_pointclouds_torch.formats import open_point_cloud, synth
 from adhoc_queries_pointclouds_torch.models import query as torch_query
-from adhoc_queries_pointclouds_torch.parallel import resident
+from adhoc_queries_pointclouds_torch.parallel import resident, step
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
 from adhoc_queries_pointclouds_torch.utils.aabb import (
     clamp_bounds_to_i32,
@@ -168,6 +168,87 @@ def test_collect_returns_every_point_with_no_cap(both):
     count, emitter = got.collect(torch_plan, keep_hits=True)
     assert count == got.total_points == ref.collect(jax_plan, cap=8)[0]
     assert [h.count for h in emitter.all_hits] == [25_000] * 3
+
+
+def block_counts(ds, plan) -> np.ndarray:
+    """The hits of every row of ds, from the collect's own masks."""
+    boxes, _ = ds._box_table(plan)
+    return np.concatenate([step.collect_mask(*ds._operands(plan, s, s.lo, s.hi, boxes))
+                           .counts.numpy() for s in ds.shards])
+
+
+def head_of(all_hits, k: int) -> list:
+    """The first k hits of a collect's all_hits, files in order, one entry
+    a file as finalize_file leaves them."""
+    out = []
+    for h in all_hits:
+        n = min(h.count, max(k, 0))
+        k -= n
+        out.append(dataclasses.replace(h, **{f: getattr(h, f)[:n] for f in (
+            "position_world", "classification", "color", "intensity")}))
+    return out
+
+
+def limited_against_full(ds, plan, limit: int, monkeypatch) -> tuple[int, set]:
+    """A collect with limit against the full gather on the same dataset: the
+    same count, the full gather's first limit hits, one entry a file, and
+    emit_counts moved by this preview alone (the full gather moves it not).
+    Returns (count, indices of the files the limited collect opened)."""
+    resident.reset_emit_counts()
+    want, full = ds.collect(plan, keep_hits=True)
+    assert resident.emit_counts == {"previews": 0, "hits": 0, "gathered": 0}
+    opened = []
+    real_open = resident.open_point_cloud
+    monkeypatch.setattr(resident, "open_point_cloud",
+                        lambda f: opened.append(ds.files.index(f)) or real_open(f))
+    count, emitter = ds.collect(plan, keep_hits=True, limit=limit)
+    assert count == want
+    _hits_equal(emitter.all_hits, head_of(full.all_hits, limit))
+    gathered = min(max(limit, 0), count)
+    assert emitter.total == sum(h.count for h in emitter.all_hits) == gathered
+    assert resident.emit_counts == {"previews": 1, "hits": count, "gathered": gathered}
+    assert opened == sorted(set(opened))
+    assert set(opened) == {i for i, h in enumerate(emitter.all_hits) if h.count}
+    return count, set(opened)
+
+
+# case -> (query, the limit from the rows' hits c, what the case must show
+# about c and the limit)
+LIMITS = {
+    "zero": ("box_half", lambda c: 0, lambda c, k: c[0] > 0),
+    "negative": ("box_half", lambda c: -3, lambda c, k: c[0] > 0),
+    "one": ("box_half", lambda c: 1, lambda c, k: c[0] > 1),
+    "inside_a_partial_block": ("box_half", lambda c: int(c[0]) // 2,
+                               lambda c, k: 1 < k < c[0] < BLOCK),
+    "across_a_block": ("box_half", lambda c: int(c[0]) + 7,
+                       lambda c, k: c[0] < k < c[0] + c[1] and c[1] < 25_000 - BLOCK),
+    "across_a_file": ("box_half", lambda c: int(c[:2].sum()) + 7,
+                      lambda c, k: c[:2].sum() < k < c[:3].sum()),
+    "full_block_clipped": ("box_all", lambda c: 100, lambda c, k: k < c[0] == BLOCK),
+    "across_full_blocks": ("box_all", lambda c: BLOCK + 9,
+                           lambda c, k: BLOCK < k < 25_000 and c[1] == 25_000 - BLOCK),
+    "the_count": ("box_half", lambda c: int(c.sum()), lambda c, k: k > BLOCK),
+    "above_the_count": ("box", lambda c: int(c.sum()) + 1, lambda c, k: k - 1 > 0),
+    "far_above_the_count": ("class6", lambda c: 10**9, lambda c, k: c.sum() > 0),
+    "no_hits": ("box_disjoint", lambda c: 10, lambda c, k: c.sum() == 0),
+    "time_window": ("time", lambda c: int(c.sum()) // 3, lambda c, k: 0 < k),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIMITS))
+def test_limited_collect_is_the_full_gathers_head(both, monkeypatch, case):
+    """A collect with a limit: the count of every match, the first limit
+    hits of the full gather and only their files opened."""
+    _, ds = both
+    name, limit_of, shows = LIMITS[case]
+    plan = plans(**QUERIES[name])[1]
+    c = block_counts(ds, plan)
+    limit = limit_of(c)
+    assert shows(c, limit)
+    count, opened = limited_against_full(ds, plan, limit, monkeypatch)
+    assert count == int(c.sum())
+    if case == "across_a_file":
+        assert opened == {0, 1}
 
 
 def _winners_equal(a, b):
@@ -452,6 +533,21 @@ def test_one_operand_table_a_request(uneven, shards):
     for name in ("class6", "time"):
         ds.count(plans(**QUERIES[name])[1])
     assert resident.operand_counts == {"tables": 0, "files_kept": 0, "files_dropped": 0}
+
+
+@pytest.mark.parametrize("shards", UNEVEN_SHARDS)
+@pytest.mark.parametrize("side", [-5, 5])
+def test_limited_collect_across_shards(uneven, monkeypatch, shards, side):
+    """Limits that end 5 hits before and after the first shard's last row,
+    over 1, 2 and 3 shards (2 and 3 cut a file there): the full gather's
+    head, only its files opened."""
+    _, _, by_shards = uneven
+    ds = by_shards[shards]
+    plan = plans(**QUERIES["box_half"])[1]
+    c = block_counts(ds, plan)
+    edge = ds.shards[0].hi
+    assert c[edge - 1] > 5 and (shards == 1 or c[edge] > 5)
+    limited_against_full(ds, plan, int(c[:edge].sum()) + side, monkeypatch)
 
 
 @pytest.mark.parametrize("window", [(200_000.0, 800_000.0), (-0.0, 5e-324), (-1e300, -0.0)])

@@ -26,6 +26,7 @@ import torch
 from adhoc_queries_pointclouds_tpu.parallel.resident import ResidentDataset as JaxResident
 from adhoc_queries_pointclouds_tpu.serve import handle_request as jax_handle_request
 from adhoc_queries_pointclouds_torch.formats import synth
+from adhoc_queries_pointclouds_torch.parallel import resident
 from adhoc_queries_pointclouds_torch.parallel.resident import ResidentDataset
 from adhoc_queries_pointclouds_torch.serve import handle_request
 from adhoc_queries_pointclouds_torch.utils import timing
@@ -48,6 +49,13 @@ REQUESTS = [
     {"bounds": BOX, "collect": True, "limit": 50},
     {"class": 6, "collect": True, "limit": 3},
     {"time_range": [0.0, 1e6], "collect": True},
+    # previews that a limit truncates: inside a file's block, across the
+    # files, over full blocks across the files, none, and a bad limit
+    {"time_range": [200_000.0, 800_000.0], "collect": True, "limit": 100},
+    {"time_range": [200_000.0, 800_000.0], "collect": True, "limit": 9_500},
+    {"time_range": [0.0, 1e6], "collect": True, "limit": 15_003},
+    {"bounds": BOX, "collect": True, "limit": 0},
+    {"bounds": BOX, "collect": True, "limit": "many"},
     {"bounds": BOX, "density": 100.0, "collect": True},
     {"bounds": [1, 2, 3]},
     {"time_range": [1.0]},
@@ -89,7 +97,7 @@ def test_replies_match_jax(data, both, req):
         assert reply["devices"] == 1 and reply["blocks"] == got.n_blocks == 2
         assert reply["resident_mib"] == round(got.resident_bytes / 1048576.0, 1)
         assert reply["points"] == 30_000
-    if req.get("collect"):
+    if req.get("collect") and "error" not in want:
         assert len(reply["points"]) == min(req.get("limit", 1000), reply["count"])
 
 
@@ -107,6 +115,72 @@ def test_output_writes_jax_bytes(data, both, tmp_path):
             files.append((_comparable(reply), {f.name: f.read_bytes() for f in out.iterdir()}))
         assert files[0] == files[1]
         assert files[1][1] and files[1][0]["count"] > 0
+
+
+# case -> (the request's options but "collect", what the case must show
+# about the full gather's hits a file and the limit)
+PREVIEWS = {
+    "zero": ({"bounds": BOX, "limit": 0}, lambda n, k: n[0] > 0),
+    "one": ({"bounds": BOX, "limit": 1}, lambda n, k: n[0] > 1),
+    "inside_a_partial_block": ({"time_range": [200_000.0, 800_000.0], "limit": 100},
+                               lambda n, k: k < n[0] < 15_000),
+    "across_a_file": ({"time_range": [200_000.0, 800_000.0], "limit": 9_500},
+                      lambda n, k: n[0] < k < sum(n)),
+    "full_block_clipped": ({"time_range": [0.0, 1e6], "limit": 10},
+                           lambda n, k: n == [15_000, 15_000]),
+    "across_full_blocks": ({"time_range": [0.0, 1e6], "limit": 15_003},
+                           lambda n, k: n == [15_000, 15_000]),
+    "default_limit": ({"class": 6}, lambda n, k: sum(n) > 1000),
+    "above_the_count": ({"class": 6, "limit": 100_000}, lambda n, k: 0 < sum(n) < k),
+    "no_hits": ({"bounds": [0, 0, 0, 10, 10, 10], "limit": 5}, lambda n, k: sum(n) == 0),
+    "with_output": ({"bounds": BOX, "limit": 5, "output": True}, lambda n, k: sum(n) > k),
+    "density": ({"bounds": BOX, "density": 100.0, "limit": 3}, lambda n, k: sum(n) > k),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREVIEWS))
+def test_preview_reply_is_the_full_gathers(data, both, tmp_path, monkeypatch, case):
+    """A collect request through the limited collect and through the full
+    gather (ResidentDataset.collect without the limit serve passes): the
+    same count, points, truncated flag and LAS bytes. emit_counts counts a
+    preview's min(limit, count) gathered rows; an -o or density request
+    gathers every hit and leaves it alone."""
+    _, ds = both
+    options, shows = PREVIEWS[case]
+    real = ResidentDataset.collect
+    per_file = []
+
+    def full(self, plan, limit=None, **kw):
+        count, emitter = real(self, plan, **kw)
+        per_file[:] = [h.count for h in emitter.all_hits]
+        return count, emitter
+
+    got = []
+    for side in ("full", "limited"):
+        req = dict(options, collect=True)
+        if req.get("output"):
+            (tmp_path / side).mkdir()
+            req["output"] = str(tmp_path / side)
+        resident.reset_emit_counts()
+        with monkeypatch.context() as m:
+            if side == "full":
+                m.setattr(ResidentDataset, "collect", full)
+            reply = _comparable(handle_request(ds, req, str(data)))
+        files = [Path(f) for f in reply.pop("files", [])]
+        got.append((reply, [(f.name, f.read_bytes()) for f in files], dict(resident.emit_counts)))
+    (want, want_files, full_counts), (reply, files, counts) = got
+    limit = options.get("limit", 1000)
+    assert shows(per_file, limit)
+    assert reply == want and files == want_files
+    assert len(reply["points"]) == min(limit, reply["count"])
+    assert reply["truncated"] == (reply["count"] > limit)
+    assert bool(files) == ("output" in options)
+    assert full_counts == {"previews": 0, "hits": 0, "gathered": 0}
+    if "output" in options or "density" in options:
+        assert counts == full_counts
+    else:
+        assert counts == {"previews": 1, "hits": reply["count"],
+                          "gathered": min(limit, reply["count"])}
 
 
 def test_subprocess_protocol(data, both):
